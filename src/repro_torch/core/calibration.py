@@ -1,0 +1,217 @@
+"""The calibrated time model behind the execution planner's tier choice.
+
+Per local tier (kernel / segment_ops / scan / tree):
+
+    t(n, b) = t0_us + n * us_per_record + n * b * us_per_byte
+
+where ``n`` is the record count and ``b`` the bytes of one lifted monoid
+value.  ``layout='auto'`` in :func:`repro_torch.core.plan.plan_fold` is an
+argmin of this prediction over the FEASIBLE tiers.  Coefficients are keyed
+``"{monoid}|{dtype}"`` with a fallback chain down to the tier-wide ``"*"``
+entry.
+
+The table lives on disk as versioned JSON at ``$REPRO_TORCH_CALIB`` if set
+(the values ``none``/``off``/``default`` disable the disk cache and pin the
+shipped defaults), else ``~/.cache/repro_torch/calib.json``.  The port has
+its own path and variable so a table measured for the JAX tiers never
+prices the torch tiers, or the reverse.  A table whose ``version`` does not
+match :data:`CALIB_VERSION` is ignored in favour of the shipped default.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import threading
+from typing import Dict, Mapping, Optional, Tuple
+
+CALIB_VERSION = 2
+
+TIER_KINDS = ("kernel", "segment_ops", "scan", "tree")
+
+_ENV_VAR = "REPRO_TORCH_CALIB"
+_DISABLED = ("none", "off", "default", "")
+
+
+@dataclasses.dataclass(frozen=True)
+class TierCoeff:
+    """Coefficients of one tier's time model, in microseconds.
+
+    t0_us: fixed launch/dispatch overhead.
+    us_per_byte: inverse throughput.
+    us_per_record: serial per-record cost (dominant for the scan tier).
+    """
+
+    t0_us: float
+    us_per_byte: float
+    us_per_record: float = 0.0
+
+    def local_us(self, num_records: int, record_bytes: int) -> float:
+        return (self.t0_us + num_records * self.us_per_record
+                + num_records * record_bytes * self.us_per_byte)
+
+
+def _coeff_to_json(c: TierCoeff) -> Dict[str, float]:
+    return {"t0_us": c.t0_us, "us_per_byte": c.us_per_byte,
+            "us_per_record": c.us_per_record}
+
+
+def _coeff_from_json(d: Mapping[str, float]) -> TierCoeff:
+    return TierCoeff(t0_us=float(d.get("t0_us", 0.0)),
+                     us_per_byte=float(d.get("us_per_byte", 0.0)),
+                     us_per_record=float(d.get("us_per_record", 0.0)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Calibration:
+    """A versioned table of measured (or default) tier coefficients.
+
+    tiers: tier kind -> {"monoid|dtype" | "monoid|*" | "*|dtype" | "*": TierCoeff}.
+    source: 'default' for the shipped table, 'measured' for a written one.
+    """
+
+    version: int
+    backend: str
+    source: str
+    tiers: Mapping[str, Mapping[str, TierCoeff]]
+
+    def tier_coeff(self, kind: str, monoid: str = "*",
+                   dtype: str = "*") -> TierCoeff:
+        table = self.tiers.get(kind, {})
+        for key in (f"{monoid}|{dtype}", f"{monoid}|*", f"*|{dtype}", "*"):
+            if key in table:
+                return table[key]
+        return TierCoeff(0.0, 0.0, 0.0)
+
+    def predict_local_us(self, kind: str, *, monoid: str, dtype: str,
+                         num_records: int, record_bytes: int) -> float:
+        return self.tier_coeff(kind, monoid, dtype).local_us(
+            num_records, record_bytes)
+
+    def to_json(self) -> Dict:
+        return {
+            "version": self.version,
+            "backend": self.backend,
+            "source": self.source,
+            "tiers": {k: {key: _coeff_to_json(c) for key, c in t.items()}
+                      for k, t in self.tiers.items()},
+        }
+
+    @classmethod
+    def from_json(cls, payload: Mapping) -> "Calibration":
+        return cls(
+            version=int(payload["version"]),
+            backend=str(payload.get("backend", "unknown")),
+            source=str(payload.get("source", "measured")),
+            tiers={k: {key: _coeff_from_json(c) for key, c in t.items()}
+                   for k, t in payload.get("tiers", {}).items()},
+        )
+
+
+# The shipped table: the uncalibrated planner prefers the kernel tier
+# whenever the feasibility filter admits it, segment-ops over the serial
+# scan, and the log-depth tree over the scan for flat folds.  The same
+# numbers as the JAX package's defaults.
+_DEFAULT_TIERS: Dict[str, Dict[str, TierCoeff]] = {
+    "kernel":      {"*": TierCoeff(t0_us=1.5, us_per_byte=1e-5,
+                                   us_per_record=4e-4)},
+    "segment_ops": {"*": TierCoeff(t0_us=2.0, us_per_byte=5e-5,
+                                   us_per_record=2e-3)},
+    "scan":        {"*": TierCoeff(t0_us=2.0, us_per_byte=1e-4,
+                                   us_per_record=1.5)},
+    "tree":        {"*": TierCoeff(t0_us=2.0, us_per_byte=5e-5,
+                                   us_per_record=2e-2)},
+}
+
+_DEFAULT = Calibration(version=CALIB_VERSION, backend="any", source="default",
+                       tiers=_DEFAULT_TIERS)
+
+
+def default_calibration() -> Calibration:
+    """The shipped fallback table (used when no valid cache exists)."""
+    return _DEFAULT
+
+
+def calibration_path() -> Optional[str]:
+    """``$REPRO_TORCH_CALIB`` when set (None for the sentinels that pin the
+    shipped defaults), else ``~/.cache/repro_torch/calib.json``."""
+    env = os.environ.get(_ENV_VAR)
+    if env is not None:
+        if env.strip().lower() in _DISABLED:
+            return None
+        return os.path.expanduser(env)
+    return os.path.join(os.path.expanduser("~"), ".cache", "repro_torch",
+                        "calib.json")
+
+
+def load_calibration(path: Optional[str] = None) -> Optional[Calibration]:
+    """Load a table; None when missing, unreadable, or of another version."""
+    path = path if path is not None else calibration_path()
+    if path is None:
+        return None
+    try:
+        with open(path) as f:
+            payload = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(payload, dict) or payload.get("version") != CALIB_VERSION:
+        return None
+    try:
+        return Calibration.from_json(payload)
+    except (KeyError, TypeError, ValueError):
+        return None
+
+
+def save_calibration(calib: Calibration, path: Optional[str] = None) -> str:
+    """Write ``calib`` to ``path`` (default: the resolved cache path)."""
+    path = path if path is not None else calibration_path()
+    if path is None:
+        raise ValueError(
+            f"calibration cache is disabled (${_ENV_VAR}="
+            f"{os.environ.get(_ENV_VAR)!r}); pass an explicit path")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(calib.to_json(), f, indent=1, sort_keys=True)
+    return path
+
+
+_lock = threading.Lock()
+_active: Optional[Calibration] = None           # explicit override
+_cache: Tuple[Optional[Tuple[str, float]], Optional[Calibration]] = (None, None)
+
+
+@contextlib.contextmanager
+def use_calibration(calib: Calibration):
+    """Scoped override of the active table (how tests pin a table)."""
+    global _active
+    with _lock:
+        prev, _active = _active, calib
+    try:
+        yield calib
+    finally:
+        with _lock:
+            _active = prev
+
+
+def get_calibration() -> Calibration:
+    """The table plan_fold predicts from: scoped override > valid disk
+    cache (memoized by path + mtime) > shipped default."""
+    global _cache
+    with _lock:
+        if _active is not None:
+            return _active
+    path = calibration_path()
+    if path is None:
+        return _DEFAULT
+    try:
+        key = (path, os.path.getmtime(path))
+    except OSError:
+        return _DEFAULT
+    with _lock:
+        if _cache[0] == key and _cache[1] is not None:
+            return _cache[1]
+    loaded = load_calibration(path) or _DEFAULT
+    with _lock:
+        _cache = (key, loaded)
+    return loaded

@@ -1,0 +1,577 @@
+"""The monoid execution planner, local tiers: ONE lowering path for every fold.
+
+The port of ``repro/core/plan.py`` without the mesh.  :func:`execute_fold`
+lowers a flat or keyed fold to one local tier:
+
+  kernel      the registered lowering onto the hand-written CUDA segment-fold
+              kernel (``kernels/segment_fold.py``) when the monoid has one,
+  segment     ``index_add_`` / ``scatter_reduce_`` for the monoids PyTorch
+              reduces natively by key,
+  scan        the serial in-mapper fold (Algorithm 4) that works for ANY
+              monoid, keyed or flat,
+  tree        the log-depth tree fold (Algorithm 3's combiner), flat only.
+
+:func:`plan_fold` is the cost model behind it: ``layout='auto'`` is an argmin
+over predicted microseconds from :mod:`repro_torch.core.calibration`, after a
+feasibility filter.  The kernel tier is feasible when the values live on a
+CUDA device, the monoid has a registered lowering, every leaf has a dtype the
+kernel takes, and the float32 accumulator is exact for the inputs.  Forcing
+``layout='kernel'`` on CPU tensors runs the kernel's plain version.
+Planning works on concrete tensors or ``meta``-device tensors alike.
+
+The mesh tier (``mesh_axes=``), ``lossy=`` compression and ``layout='async'``
+are later slices of the port (ROADMAP: "mesh tier").
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+import torch.utils._pytree as pytree
+from torch.func import vmap
+
+from .aggregation import tree_bytes
+from .calibration import Calibration, get_calibration
+from .monoid import (KernelLowering, Monoid, Pytree, register_kernel_lowering,
+                     scan_fold, tree_fold)
+
+LAYOUTS = ("auto", "kernel", "segment", "scan", "tree", "async")
+
+# layout spelling (user-facing) -> calibration tier kind (TierPlan.kind)
+_LAYOUT_TIER_KIND = {"kernel": "kernel", "segment": "segment_ops",
+                     "scan": "scan", "tree": "tree"}
+
+# monoids PyTorch reduces natively by key (tier 2): scatter reduction name
+_SEGMENT_OPS = {
+    "sum": "sum",
+    "count": "sum",
+    "mean": "sum",          # applied leaf-wise to (sum, count)
+    "max": "amax",
+    "min": "amin",
+    "bitwise_or": "amax",   # 0/1 bitmaps: OR == max
+}
+_SEGMENT_OP_NAMES = {"sum": "index_add_", "amax": "scatter_reduce_[amax]",
+                     "amin": "scatter_reduce_[amin]"}
+
+_MESH_TODO = ("the mesh tier is not ported yet (ROADMAP: 'mesh tier'); "
+              "fold locally and combine across devices yourself")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what}: {_MESH_TODO}")
+
+
+# ---------------------------------------------------------------------------
+# kernel lowerings for the zoo
+# ---------------------------------------------------------------------------
+
+def _semiring_lowering(semiring: str) -> KernelLowering:
+    """Leaf-wise lowering onto the semiring kernel: each leaf (N, ...) is
+    flattened to (N, D), folded by key, and reshaped to (S, ...).  Integer
+    leaves round-trip to their dtype."""
+
+    def lower(values: Pytree, seg_ids: torch.Tensor, num_segments: int, *,
+              valid_mask: Optional[torch.Tensor] = None) -> Pytree:
+        from ..kernels.segment_fold import segment_fold
+
+        def per_leaf(v):
+            flat = v.reshape(v.shape[0], -1)
+            out = segment_fold(flat, seg_ids, num_segments, semiring=semiring,
+                               valid_mask=valid_mask)
+            return out.reshape((num_segments,) + tuple(v.shape[1:]))
+
+        return pytree.tree_map(per_leaf, values)
+
+    return KernelLowering(semiring=semiring, fn=lower)
+
+
+def _mean_pair_lowering() -> KernelLowering:
+    """Mean's (sum, count) pair in ONE launch: the count leaf rides as one
+    more column of the sums (the paper's running example); pytree-valued
+    sums fall back to leaf-wise."""
+    leafwise = _semiring_lowering("sum").fn
+
+    def lower(values: Pytree, seg_ids: torch.Tensor, num_segments: int, *,
+              valid_mask: Optional[torch.Tensor] = None) -> Pytree:
+        from ..kernels.segment_fold import segment_fold
+
+        s, c = values
+        s_leaves, treedef = pytree.tree_flatten(s)
+        if len(s_leaves) != 1 or c.dim() != 1:
+            return leafwise(values, seg_ids, num_segments,
+                            valid_mask=valid_mask)
+        (sv,) = s_leaves
+        flat = torch.cat([sv.reshape(sv.shape[0], -1).to(torch.float32),
+                          c.reshape(-1, 1).to(torch.float32)], dim=1)
+        out = segment_fold(flat, seg_ids, num_segments, valid_mask=valid_mask)
+        sums = out[:, :-1].reshape((num_segments,) + tuple(sv.shape[1:]))
+        if not sv.dtype.is_floating_point:
+            sums = sums.to(sv.dtype)
+        counts = out[:, -1]
+        if not c.dtype.is_floating_point:
+            counts = counts.to(c.dtype)
+        return (pytree.tree_unflatten([sums], treedef), counts)
+
+    return KernelLowering(semiring="sum", fn=lower)
+
+
+for _name in ("sum", "count"):
+    register_kernel_lowering(_name, _semiring_lowering("sum"))
+register_kernel_lowering("mean", _mean_pair_lowering())
+register_kernel_lowering("max", _semiring_lowering("max"))
+register_kernel_lowering("bitwise_or", _semiring_lowering("max"))
+register_kernel_lowering("min", _semiring_lowering("min"))
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TierPlan:
+    """One stage of a lowered fold.
+
+    kind: 'kernel' | 'segment_ops' | 'scan' | 'tree'.
+    predicted_us: modeled wall time under the active calibration.
+    candidate_us: the (layout, predicted_us) table the planner chose from.
+    """
+
+    kind: str
+    detail: str
+    out_bytes: int
+    predicted_us: float = 0.0
+    candidate_us: Tuple[Tuple[str, float], ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A lowered fold.  ``num_valid`` is the count of rows a concrete
+    ``valid_mask`` keeps (None without a mask or for a ``meta`` mask)."""
+
+    monoid: Monoid
+    tiers: Tuple[TierPlan, ...]
+    num_records: int
+    num_segments: Optional[int]
+    value_bytes: int          # bytes of ONE lifted monoid value
+    out_bytes: int            # bytes of the final local result (table/value)
+    num_valid: Optional[int] = None
+
+    @property
+    def local_tier(self) -> TierPlan:
+        return self.tiers[0]
+
+    @property
+    def predicted_us(self) -> float:
+        return float(sum(t.predicted_us for t in self.tiers))
+
+    @property
+    def candidate_us(self) -> dict:
+        """Predicted microseconds per feasible local layout — the table
+        ``layout='auto'`` argmins over."""
+        return dict(self.local_tier.candidate_us)
+
+    def describe(self) -> str:
+        parts = []
+        for t in self.tiers:
+            us = f" ~{t.predicted_us:.1f}us" if t.predicted_us > 0 else ""
+            parts.append(f"{t.kind}[{t.detail}{us}]")
+        return " -> ".join(parts)
+
+
+def _leading_dim(values: Pytree) -> int:
+    return pytree.tree_leaves(values)[0].shape[0]
+
+
+def _one_slice(values: Pytree) -> Pytree:
+    """One record of ``values`` as ``meta`` tensors (shape/dtype only)."""
+    return pytree.tree_map(
+        lambda v: torch.empty(tuple(v.shape[1:]), dtype=v.dtype,
+                              device="meta"), values)
+
+
+def _lifted_value_shape(m: Monoid, values: Pytree, lifted: bool,
+                        map_fn: Optional[Callable]) -> Pytree:
+    """``meta`` pytree of ONE lifted monoid value (no FLOPs spent)."""
+    one = _one_slice(values)
+    if map_fn is not None:
+        return m.lift(map_fn(one))
+    if not lifted:
+        return m.lift(one)
+    return one
+
+
+def _static_valid_count(valid_mask) -> Optional[int]:
+    """Number of True rows for a concrete mask; None for a ``meta`` one."""
+    if valid_mask is None or valid_mask.device.type == "meta":
+        return None
+    return int(valid_mask.to(torch.bool).sum())
+
+
+def _check_valid_mask(valid_mask, n: int) -> None:
+    if tuple(valid_mask.shape) != (n,):
+        raise ValueError(
+            f"valid_mask must be one flag per record, shape ({n},); got "
+            f"shape {tuple(valid_mask.shape)}")
+
+
+def _on_cuda(values: Pytree) -> bool:
+    leaves = pytree.tree_leaves(values)
+    return bool(leaves) and all(isinstance(v, torch.Tensor)
+                                and v.device.type == "cuda" for v in leaves)
+
+
+def _kernel_infeasible_reason(m: Monoid, value_shape: Pytree) -> Optional[str]:
+    """Why the kernel tier cannot lower this fold — None when it can.  The
+    text names the offending leaf (tree path) and its dtype."""
+    from ..kernels.segment_fold import KERNEL_DTYPES
+
+    if m.kernel_lowering() is None:
+        return (f"monoid {m.name!r} has no registered CUDA kernel lowering "
+                "(see register_kernel_lowering)")
+    leaves, _ = pytree.tree_flatten_with_path(value_shape)
+    for path, leaf in leaves:
+        if leaf.dtype not in KERNEL_DTYPES:
+            where = pytree.keystr(path) or "<value>"
+            return (f"value leaf {where!r} has dtype {leaf.dtype}, which the "
+                    "CUDA segment-fold kernel cannot lower (it takes "
+                    f"{', '.join(str(d) for d in KERNEL_DTYPES)})")
+    return None
+
+
+def _kernel_exact(value_shape: Pytree, num_records: int) -> bool:
+    """Whether the kernel's float32 accumulator is exact for these inputs:
+    integer leaves stay on the kernel tier under ``auto`` only when even the
+    worst case (every record at the dtype's extreme, all in one key) stays
+    below 2**24.  Forcing ``layout='kernel'`` bypasses this."""
+    for leaf in pytree.tree_leaves(value_shape):
+        if not leaf.dtype.is_floating_point:
+            info = torch.iinfo(leaf.dtype)
+            extreme = max(abs(int(info.min)), int(info.max))
+            if extreme * max(num_records, 1) >= 2 ** 24:
+                return False
+    return True
+
+
+def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
+              num_segments: Optional[int] = None, valid_mask=None,
+              mesh_axes=None, layout: str = "auto", lifted: bool = True,
+              map_fn: Optional[Callable] = None, lossy=None,
+              calibration: Optional[Calibration] = None) -> Plan:
+    """Lower a fold to a :class:`Plan` without executing it.
+
+    ``values`` may be concrete or ``meta``-device tensors — planning costs
+    no FLOPs.  ``layout='auto'`` argmins the calibrated time model over the
+    FEASIBLE tiers; a forced layout that is infeasible raises here with the
+    offending leaf named.  ``valid_mask`` (one bool per record) makes the
+    fold ragged; a concrete mask is counted into ``Plan.num_valid``.
+    """
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}")
+    if mesh_axes:
+        raise _not_ported("mesh_axes=")
+    if lossy is not None:
+        raise _not_ported("lossy= compression")
+    if layout == "async":
+        raise _not_ported("layout='async'")
+    keyed = segment_ids is not None
+    if keyed and num_segments is None:
+        raise ValueError(
+            "segment_ids= was passed without num_segments=: a keyed fold "
+            "returns a static (num_segments, ...) table, so pass the key-"
+            "space size as num_segments=")
+
+    n = _leading_dim(values)
+    if valid_mask is not None:
+        _check_valid_mask(valid_mask, n)
+    num_valid = _static_valid_count(valid_mask)
+    n_model = n if num_valid is None else num_valid
+    value_shape = _lifted_value_shape(m, values, lifted, map_fn)
+    vbytes = tree_bytes(value_shape)
+    out_bytes = (num_segments * vbytes) if keyed else vbytes
+    masked = " +mask" if valid_mask is not None else ""
+
+    calib = calibration if calibration is not None else get_calibration()
+    leaves = pytree.tree_leaves(value_shape)
+    dtype_key = str(leaves[0].dtype).replace("torch.", "") if leaves else "*"
+
+    def local_us(layout_name: str) -> float:
+        return calib.predict_local_us(
+            _LAYOUT_TIER_KIND[layout_name], monoid=m.name, dtype=dtype_key,
+            num_records=n, record_bytes=vbytes)
+
+    if keyed:
+        if layout == "tree":
+            raise ValueError("layout='tree' is a flat-fold layout; keyed "
+                             "folds use kernel/segment/scan")
+        kernel_reason = _kernel_infeasible_reason(m, value_shape)
+        candidates = []
+        # feasibility only: WHICH feasible tier runs is the cost model's call
+        if (kernel_reason is None and _kernel_exact(value_shape, n_model)
+                and _on_cuda(values)):
+            candidates.append("kernel")
+        if m.name in _SEGMENT_OPS:
+            candidates.append("segment")
+        candidates.append("scan")
+        shown = candidates + ([layout] if layout not in ("auto", *candidates)
+                              else [])
+        candidate_us = tuple((c, local_us(c)) for c in shown)
+        costs = dict(candidate_us)
+        kind = min(candidates, key=costs.get) if layout == "auto" else layout
+        if kind == "kernel":
+            if kernel_reason is not None:
+                raise ValueError(
+                    f"layout='kernel' was requested but is infeasible: "
+                    f"{kernel_reason}. Use layout='segment' or "
+                    "layout='scan', or leave layout='auto' to let the cost "
+                    "model pick among feasible tiers.")
+            low = m.kernel_lowering()
+            where = "cuda" if _on_cuda(values) else "plain version"
+            local = TierPlan("kernel",
+                             f"segment_fold[{low.semiring}] {where}{masked}",
+                             out_bytes, predicted_us=costs["kernel"],
+                             candidate_us=candidate_us)
+        elif kind == "segment":
+            op = _SEGMENT_OPS.get(m.name)
+            if op is None:
+                raise ValueError(
+                    f"layout='segment' was requested but monoid {m.name!r} "
+                    "has no PyTorch scatter reduction (index_add_/"
+                    "scatter_reduce_); use layout='scan', or leave "
+                    "layout='auto' to let the cost model pick among "
+                    "feasible tiers.")
+            local = TierPlan("segment_ops",
+                             f"torch.{_SEGMENT_OP_NAMES[op]}{masked}",
+                             out_bytes, predicted_us=costs["segment"],
+                             candidate_us=candidate_us)
+        else:
+            local = TierPlan("scan",
+                             f"serial scan (any monoid, Alg 4){masked}",
+                             out_bytes, predicted_us=costs["scan"],
+                             candidate_us=candidate_us)
+    else:
+        if layout in ("kernel", "segment"):
+            raise ValueError(
+                f"layout={layout!r} lowers a KEYED fold but no segment_ids= "
+                "were given: pass segment_ids= (one key per record) and "
+                "num_segments=, or use layout='tree'/'scan' for a flat fold")
+        # with map_fn the point is O(1) live values: auto keeps the fused scan
+        candidates = ["scan"] if map_fn is not None else ["tree", "scan"]
+        shown = candidates + ([layout] if layout not in ("auto", *candidates)
+                              else [])
+        candidate_us = tuple((c, local_us(c)) for c in shown)
+        costs = dict(candidate_us)
+        kind = min(candidates, key=costs.get) if layout == "auto" else layout
+        if kind == "tree":
+            local = TierPlan("tree",
+                             f"log-depth tree fold (Alg 3 combiner){masked}",
+                             out_bytes, predicted_us=costs["tree"],
+                             candidate_us=candidate_us)
+        else:
+            local = TierPlan("scan",
+                             f"in-mapper scan (Alg 4, O(1) live){masked}",
+                             out_bytes, predicted_us=costs["scan"],
+                             candidate_us=candidate_us)
+    return Plan(monoid=m, tiers=(local,), num_records=n,
+                num_segments=num_segments, value_bytes=vbytes,
+                out_bytes=out_bytes, num_valid=num_valid)
+
+
+# ---------------------------------------------------------------------------
+# tier implementations
+# ---------------------------------------------------------------------------
+
+def _seg_add_init(m: Monoid, folded: Pytree, init: Optional[Pytree]) -> Pytree:
+    if init is None:
+        return folded
+    return vmap(m.combine)(init, folded)
+
+
+def _materialize_lifted(m: Monoid, values: Pytree, lifted: bool,
+                        map_fn: Optional[Callable]) -> Pytree:
+    if map_fn is not None:
+        return vmap(lambda x: m.lift(map_fn(x)))(values)
+    if not lifted:
+        return vmap(m.lift)(values)
+    return values
+
+
+def _identity_rows(m: Monoid, values: Pytree) -> Pytree:
+    """The monoid identity shaped like one record of a lifted batch."""
+    return m.identity_like(pytree.tree_map(lambda v: v[0], values))
+
+
+def _mask_rows_to_identity(m: Monoid, values: Pytree,
+                           valid_mask: torch.Tensor) -> Pytree:
+    """Replace invalid rows of a LIFTED batch with the monoid identity, so
+    they are no-ops under combine — the ragged lowering for ANY monoid."""
+    mask = valid_mask.to(torch.bool)
+    one = _identity_rows(m, values)
+    return pytree.tree_map(
+        lambda v, i: torch.where(
+            mask.reshape(mask.shape + (1,) * (v.dim() - 1)), v,
+            torch.as_tensor(i, dtype=v.dtype, device=v.device)),
+        values, one)
+
+
+def _segment_reduce(v: torch.Tensor, ids: torch.Tensor, num_segments: int,
+                    op: str) -> torch.Tensor:
+    """Scatter-reduce a leaf (N, ...) by key into (S, ...); ``ids`` routes
+    dropped rows to the spare row S.  Empty max/min keys get -inf/+inf for
+    floats and iinfo.min/max for integers, like jax.ops.segment_max/min."""
+    n = v.shape[0]
+    flat = v.reshape(n, -1)
+    w = flat.shape[1]
+    if op == "sum":
+        out = flat.new_zeros((num_segments + 1, w)).index_add_(0, ids, flat)
+    else:
+        if v.dtype.is_floating_point:
+            fill = float("-inf") if op == "amax" else float("inf")
+        else:
+            info = torch.iinfo(v.dtype)
+            fill = info.min if op == "amax" else info.max
+        out = flat.new_full((num_segments + 1, w), fill).scatter_reduce_(
+            0, ids[:, None].expand(n, w), flat, reduce=op, include_self=True)
+    return out[:num_segments].reshape((num_segments,) + tuple(v.shape[1:]))
+
+
+def _segment_fold_generic(m: Monoid, values: Pytree, segment_ids: torch.Tensor,
+                          num_segments: int, init: Optional[Pytree] = None, *,
+                          lifted: bool = True,
+                          map_fn: Optional[Callable] = None,
+                          valid_mask: Optional[torch.Tensor] = None) -> Pytree:
+    """O(N) serial fold that works for ANY monoid (the associative array of
+    Algorithm 4).  With ``lifted=False``/``map_fn`` the lift runs per record,
+    so lifted values are never materialized.  Masked rows and ids outside
+    ``[0, S)`` fold nothing — the identity, a combine no-op."""
+    def prep(x):
+        if map_fn is not None:
+            return m.lift(map_fn(x))
+        return x if lifted else m.lift(x)
+
+    def row(i):
+        return pytree.tree_map(lambda v: v[i], values)
+
+    n = _leading_dim(values)
+    if init is None:
+        one = m.identity_like(prep(row(0)))
+        acc = pytree.tree_map(
+            lambda leaf: leaf.expand((num_segments,) + tuple(leaf.shape))
+            .clone(), one)
+    else:
+        acc = pytree.tree_map(torch.clone, init)
+    keys = segment_ids.tolist()
+    keep = [True] * n if valid_mask is None else \
+        valid_mask.to(torch.bool).tolist()
+    for i, k in enumerate(keys):
+        if not keep[i] or not 0 <= k < num_segments:
+            continue
+        cur = pytree.tree_map(lambda a: a[k], acc)
+        new = m.combine(cur, prep(row(i)))
+
+        def put(a, x):
+            a[k] = x
+        pytree.tree_map(put, acc, new)
+    return acc
+
+
+def _scan_fold_map(m: Monoid, values: Pytree, map_fn: Callable, axis: int,
+                   valid_mask: Optional[torch.Tensor] = None) -> Pytree:
+    """Flat in-mapper fold: lift(map_fn(x)) folded into one accumulator.
+    Invalid rows fold nothing (the identity)."""
+    if axis != 0:
+        values = pytree.tree_map(lambda x: torch.movedim(x, axis, 0), values)
+    n = _leading_dim(values)
+    keep = [True] * n if valid_mask is None else \
+        valid_mask.to(torch.bool).tolist()
+    acc = None
+    for i in range(n):
+        v = m.lift(map_fn(pytree.tree_map(lambda x: x[i], values)))
+        if acc is None:
+            acc = m.identity_like(v)
+        if keep[i]:
+            acc = m.combine(acc, v)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# the single entry point
+# ---------------------------------------------------------------------------
+
+def execute_fold(m: Monoid, values: Pytree, *, segment_ids=None,
+                 num_segments: Optional[int] = None, valid_mask=None,
+                 mesh_axes=None, layout: str = "auto", lifted: bool = True,
+                 map_fn: Optional[Callable] = None,
+                 init: Optional[Pytree] = None, axis: int = 0, lossy=None,
+                 calibration: Optional[Calibration] = None,
+                 with_plan: bool = False) -> Any:
+    """Fold monoid values through the planner-chosen local tier.
+
+    values: pytree with a leading (or ``axis``) batch dim.  With
+    ``segment_ids`` (and ``num_segments``) the fold is keyed — a MapReduce
+    'reduce by key' returning a (num_segments, ...) table, combined onto
+    ``init`` when given.  ``valid_mask`` (one bool per record) makes the
+    fold ragged: invalid rows contribute the monoid identity on every tier,
+    so the result equals the fold over only the valid rows.
+
+    layout: 'auto' argmins the calibrated cost model over the feasible
+    tiers (see :func:`plan_fold`); 'kernel' / 'segment' / 'scan' / 'tree'
+    force a tier.  ``map_fn`` maps raw inputs (then ``m.lift``) without
+    materializing them on the scan tiers; ``lifted=False`` applies
+    ``m.lift`` to each element first.
+
+    Returns the folded value — or ``(value, plan)`` with ``with_plan=True``.
+    """
+    plan_mask = valid_mask
+    if valid_mask is not None:
+        # plan from the mask's SHAPE only: counting a device mask would
+        # synchronize just for byte bookkeeping
+        plan_mask = torch.empty(tuple(valid_mask.shape), dtype=torch.bool,
+                                device="meta")
+    plan = plan_fold(m, values, segment_ids=segment_ids,
+                     num_segments=num_segments, valid_mask=plan_mask,
+                     mesh_axes=mesh_axes, layout=layout, lifted=lifted,
+                     map_fn=map_fn, lossy=lossy, calibration=calibration)
+    kind = plan.local_tier.kind
+    if valid_mask is not None and axis != 0:
+        raise ValueError("valid_mask requires the batch axis at 0")
+
+    if segment_ids is not None:
+        if axis != 0:
+            raise ValueError("keyed folds require the batch axis at 0")
+        if kind == "kernel":
+            mat = _materialize_lifted(m, values, lifted, map_fn)
+            folded = m.kernel_lowering().fn(mat, segment_ids, num_segments,
+                                            valid_mask=valid_mask)
+            out = _seg_add_init(m, folded, init)
+        elif kind == "segment_ops":
+            mat = _materialize_lifted(m, values, lifted, map_fn)
+            keep = (segment_ids >= 0) & (segment_ids < num_segments)
+            if valid_mask is not None:
+                keep = keep & valid_mask.to(torch.bool)
+            ids = torch.where(keep, segment_ids.long(), num_segments)
+            op = _SEGMENT_OPS[m.name]
+            folded = pytree.tree_map(
+                lambda v: _segment_reduce(v, ids, num_segments, op), mat)
+            out = _seg_add_init(m, folded, init)
+        else:
+            out = _segment_fold_generic(m, values, segment_ids, num_segments,
+                                        init, lifted=lifted, map_fn=map_fn,
+                                        valid_mask=valid_mask)
+    else:
+        if init is not None:
+            raise ValueError("init is only supported for keyed folds")
+        if kind == "tree":
+            mat = _materialize_lifted(m, values, lifted, map_fn)
+            if valid_mask is not None:
+                mat = _mask_rows_to_identity(m, mat, valid_mask)
+            out = tree_fold(m, mat, axis=axis)
+        elif map_fn is not None:
+            out = _scan_fold_map(m, values, map_fn, axis,
+                                 valid_mask=valid_mask)
+        else:
+            mat = _materialize_lifted(m, values, lifted, map_fn)
+            if valid_mask is not None:
+                mat = _mask_rows_to_identity(m, mat, valid_mask)
+            out = scan_fold(m, mat, axis=axis)
+    return (out, plan) if with_plan else out

@@ -1,0 +1,245 @@
+"""Keyed semiring fold (the paper's combiner): CUDA kernel + plain version.
+
+Replaces the TPU kernel ``repro/kernels/segment_fold.py:segment_fold_pallas``.
+The kernel is ``csrc/segment_fold.cu``, CUDA C++ for ``sm_90a``, built with
+``nvcc`` at first use into ``build/repro_torch/`` (git-ignored) and loaded
+with ``ctypes``.  Its bound is memory: it must read ``N*D*elt + 4N`` bytes
+(+ ``N`` for the mask) and write ``S*W*4``, at 3.35 TB/s on an H100.  The
+TPU version scatters with a one-hot matmul on the MXU; the CUDA version
+folds each element with one atomic into a per-CTA shared-memory table when
+the ``(S, W)`` table fits in shared memory, and into the global table
+otherwise (see the source's header).
+
+:func:`segment_fold` is the wrapper the planner's kernel tier calls: on a
+CUDA tensor it launches the kernel (or raises), on a CPU tensor it runs
+:func:`segment_fold_plain`, the same contract in plain PyTorch.
+``segment_fold.launches`` counts kernel launches.
+
+Contract (that of ``segment_fold_pallas`` and its ``_finish_dtype``):
+values ``(N, D)`` in f32/bf16/f16/int8/uint8/int16/int32, ``seg_ids`` ``(N,)``
+int32, ``num_segments`` S, semiring in ``SEMIRINGS``, an optional ``(N,)``
+bool ``valid_mask``.  The result is ``(S, D)`` float32 for float inputs and
+the input dtype for integer inputs (accumulated in float32, exact below
+2**24); empty max/min segments hold -inf/+inf (floats) or iinfo.min/max
+(integers).  ``with_count`` (sum only) returns ``(sums, counts)`` with f32
+counts from one launch.  Ids outside ``[0, S)`` and masked rows contribute
+nothing.  Max/min propagate NaN.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+SEMIRINGS = ("sum", "max", "min")
+
+_SEMIRING_CODE = {"sum": 0, "max": 1, "min": 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.int8: 3, torch.uint8: 4, torch.int16: 5, torch.int32: 6}
+KERNEL_DTYPES = tuple(_DTYPE_CODE)
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "segment_fold.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+# ---------------------------------------------------------------------------
+# build + load (at first use, never at import)
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = ([os.path.join(home, "bin", "nvcc")] if home else []) + \
+        [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the segment_fold CUDA kernel")
+
+
+def library_path() -> Path:
+    """Where the shared library for the current source lives (keyed by the
+    source's content hash, so an edited source is rebuilt)."""
+    digest = hashlib.sha1(_SOURCE.read_bytes()).hexdigest()[:12]
+    return _BUILD_DIR / f"libsegment_fold-{digest}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/segment_fold.cu`` with nvcc unless already built."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, str(_SOURCE)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        if verbose:
+            print(proc.stderr, end="")
+        os.replace(tmp, out)      # atomic: a concurrent build never sees half
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+_sm_counts: Dict[int, int] = {}
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            fn = lib.segment_fold_launch
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+# ---------------------------------------------------------------------------
+# contract helpers shared by the kernel and the plain version
+# ---------------------------------------------------------------------------
+
+def _check(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+           semiring: str, with_count: bool, valid_mask) -> None:
+    if semiring not in SEMIRINGS:
+        raise ValueError(f"unknown semiring {semiring!r}; one of {SEMIRINGS}")
+    if with_count and semiring != "sum":
+        raise ValueError("with_count requires the additive semiring")
+    if values.dim() != 2 or values.shape[1] < 1:
+        raise ValueError(f"values must be (N, D) with D >= 1; got "
+                         f"{tuple(values.shape)}")
+    if values.dtype not in _DTYPE_CODE:
+        raise TypeError(f"segment_fold takes {[str(d) for d in KERNEL_DTYPES]}"
+                        f"; got {values.dtype}")
+    n = values.shape[0]
+    if tuple(seg_ids.shape) != (n,):
+        raise ValueError(f"seg_ids must be ({n},); got {tuple(seg_ids.shape)}")
+    if valid_mask is not None and tuple(valid_mask.shape) != (n,):
+        raise ValueError(f"valid_mask must be ({n},); got "
+                         f"{tuple(valid_mask.shape)}")
+    if num_segments < 1:
+        raise ValueError("num_segments must be >= 1")
+
+
+def _finish_dtype(out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Cast the float32 table back for integer inputs, saturating as XLA's
+    convert does: empty max/min segments (+-inf) become the integer
+    identity iinfo.min/max (float64 holds int32's bounds exactly, float32
+    does not)."""
+    if dtype.is_floating_point:
+        return out
+    info = torch.iinfo(dtype)
+    return out.to(torch.float64).clamp(info.min, info.max).to(dtype)
+
+
+def _split(out: torch.Tensor, dtype: torch.dtype, with_count: bool):
+    if with_count:
+        return _finish_dtype(out[:, :-1], dtype), out[:, -1]
+    return _finish_dtype(out, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the plain version and the kernel wrapper
+# ---------------------------------------------------------------------------
+
+def segment_fold_plain(values: torch.Tensor, seg_ids: torch.Tensor,
+                       num_segments: int, *, semiring: str = "sum",
+                       with_count: bool = False,
+                       valid_mask: Optional[torch.Tensor] = None):
+    """The kernel's contract in plain PyTorch (``index_add_`` /
+    ``scatter_reduce_`` into a table with one spare row that takes the
+    rows the kernel drops)."""
+    _check(values, seg_ids, num_segments, semiring, with_count, valid_mask)
+    n, S = values.shape[0], num_segments
+    keep = (seg_ids >= 0) & (seg_ids < S)
+    if valid_mask is not None:
+        keep = keep & valid_mask.to(torch.bool)
+    ids = torch.where(keep, seg_ids.long(), S)
+    vals = values.to(torch.float32)
+    if with_count:
+        vals = torch.cat([vals, vals.new_ones((n, 1))], dim=1)
+    w = vals.shape[1]
+    if semiring == "sum":
+        out = vals.new_zeros((S + 1, w)).index_add_(0, ids, vals)
+    else:
+        fill = float("-inf") if semiring == "max" else float("inf")
+        out = vals.new_full((S + 1, w), fill).scatter_reduce_(
+            0, ids[:, None].expand(n, w), vals,
+            reduce="amax" if semiring == "max" else "amin", include_self=True)
+    return _split(out[:S], values.dtype, with_count)
+
+
+def segment_fold(values: torch.Tensor, seg_ids: torch.Tensor,
+                 num_segments: int, *, semiring: str = "sum",
+                 with_count: bool = False,
+                 valid_mask: Optional[torch.Tensor] = None):
+    """Keyed semiring fold: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  Returns the ``(S, D)`` table, or
+    ``(sums, counts)`` with ``with_count``."""
+    if values.device.type == "cpu":
+        return segment_fold_plain(values, seg_ids, num_segments,
+                                  semiring=semiring, with_count=with_count,
+                                  valid_mask=valid_mask)
+    if values.device.type != "cuda":
+        raise ValueError(f"segment_fold runs on cuda (kernel) or cpu (plain "
+                         f"version); got a {values.device} tensor")
+    _check(values, seg_ids, num_segments, semiring, with_count, valid_mask)
+    dev = values.device
+    tensors = [seg_ids] + ([valid_mask] if valid_mask is not None else [])
+    if any(t.device != dev for t in tensors):
+        raise ValueError("values, seg_ids and valid_mask must share a device")
+    if seg_ids.dtype != torch.int32:
+        raise TypeError(f"seg_ids must be int32; got {seg_ids.dtype}")
+    values = values.contiguous()
+    seg_ids = seg_ids.contiguous()
+    mask = None if valid_mask is None else \
+        valid_mask.to(torch.bool).contiguous()
+    n, d = values.shape
+    out = torch.empty((num_segments, d + int(with_count)),
+                      dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.segment_fold_launch(
+            values.data_ptr(), _DTYPE_CODE[values.dtype], seg_ids.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr(),
+            n, d, num_segments, _SEMIRING_CODE[semiring], int(with_count),
+            _sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment_fold kernel launch failed: CUDA error "
+                           f"{err} (N={n}, D={d}, S={num_segments}, "
+                           f"{values.dtype}, {semiring})")
+    segment_fold.launches += 1
+    return _split(out, values.dtype, with_count)
+
+
+segment_fold.launches = 0
