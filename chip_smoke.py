@@ -6,16 +6,32 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; TF32 off for every comparison.
-2. kernels: build every CUDA kernel of the serving path from the sources in
-   ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a), launch each at real sizes
-   and hold it against its plain PyTorch version; time kernel, plain
-   version and the one-call PyTorch yardstick with CUDA events.
+2. kernels: build every CUDA kernel from the sources in
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once,
+   sm_90a), launch each at real sizes and at each path's shapes (for
+   ``segment_fold``: serve, ``packed_stats``, max-by-key), and hold it
+   against its plain PyTorch version; time kernel, plain version and the
+   one-call PyTorch yardstick with CUDA events.
 3. serve: ``build_engine`` for qwen3-0.6b at full width (28 layers, bf16,
    random weights from ``--seed``) answers ``--requests`` requests; each
-   decode step's metrics fold must have launched the CUDA kernel once.
+   decode step's metrics fold must have launched ``segment_fold`` once.
    Then one decode step's eager wall time against its CUDA-graph replay.
 4. reference: a small float32 model served on the card and on the CPU with
    the same weights gives the same tokens.
+5. stream stats: ``update_stats`` over 16 ragged ``SyntheticCorpus``
+   batches at qwen3-0.6b's training data shape (vocab 151936, seq 4096,
+   global batch 128): one ``cms_update`` launch per batch, one
+   ``segment_fold`` launch per batch's ``packed_stats``; the card's state
+   equals the CPU's and the tree fold of the per-batch states, and each
+   batch's per-row ``packed_stats`` (tokens, docs) equals the CPU's.
+6. MapReduce: ``average_by_key_job(65536)`` on 2**22 records, 8 shards
+   (Algorithms 1 and 3; Algorithm 4 at 2**12 records) and the max-by-key
+   job (Algorithms 1 and 3 through ``segment_fold``) against float64
+   oracles, launches counted against each plan's tier;
+   ``word_count_job(151936)`` over the stream's tokens against
+   ``np.bincount``.
+7. Algorithm 5: ``cooccurrence_stripes`` over 2**24 corpus tokens (V=4096,
+   window 4) launches ``stripes`` and equals its plain version.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -137,6 +153,44 @@ def kernel_cases(gen: torch.Generator, dev: torch.device):
         mask=torch.tensor([1, 1, 0, 1, 1, 1, 0, 1], dtype=torch.bool,
                           device=dev), rtol=0, atol=0))
     return cases
+
+
+def mapreduce_records(seed: int):
+    """The MapReduce phase's records: 2**22 (key, value) pairs over 65536
+    keys, keys int32 and values float32, as numpy arrays."""
+    rng = np.random.default_rng(seed + 5)
+    n, k = 1 << 22, 65536
+    return (rng.integers(0, k, n).astype(np.int32),
+            rng.normal(size=n).astype(np.float32))
+
+
+def path_fold_cases(batch, keys_np, vals_np, dev):
+    """``segment_fold`` at the shapes the slice's paths give it, on the
+    paths' own data: ``packed_stats`` on one stream batch (one row of
+    (1, is_eos) per position, segment = batch row, the ragged mask) and
+    max-by-key's per-shard (combiner) and whole (naive) tables.  Every
+    case is exact: the sums are of small integers, and max is order-free."""
+    toks, mask = batch
+    B, S = toks.shape
+    flat = toks.reshape(-1)
+    keys = torch.from_numpy(keys_np).to(dev)
+    vals = torch.from_numpy(vals_np).to(dev)[:, None]
+    shard = keys.numel() // 8
+    return [
+        dict(name=f"packed_stats sum f32 N={B * S} D=2 S={B} ragged mask "
+                  "(stream batch)",
+             values=torch.stack([torch.ones_like(flat, dtype=torch.float32),
+                                 (flat == 0).to(torch.float32)], dim=-1),
+             ids=torch.arange(B, dtype=torch.int32, device=dev)
+             .repeat_interleave(S), S=B, semiring="sum", with_count=False,
+             mask=mask.to(torch.bool).reshape(-1), rtol=0, atol=0),
+        dict(name="max_by_key f32 N=2^19 D=1 S=65536 (combiner shard)",
+             values=vals[:shard], ids=keys[:shard], S=65536, semiring="max",
+             with_count=False, mask=None, rtol=0, atol=0),
+        dict(name="max_by_key f32 N=2^22 D=1 S=65536 (naive)",
+             values=vals, ids=keys, S=65536, semiring="max",
+             with_count=False, mask=None, rtol=0, atol=0),
+    ]
 
 
 def run_kernel_case(case, segment_fold, segment_fold_plain) -> dict:
@@ -339,6 +393,305 @@ def serve_reference(args):
           f"== cpu tokens, max |logprob_sum diff| = {worst}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 2, continued: cms_update and stripes against their plain versions
+# ---------------------------------------------------------------------------
+
+def corpus_tokens(vocab: int, n: int, seed: int, dev) -> torch.Tensor:
+    """``n`` Zipf tokens from the port's ``SyntheticCorpus`` (one batch of
+    n // 4096 rows of 4096), flattened, on ``dev``."""
+    from repro_torch.data import DataConfig, SyntheticCorpus
+
+    corpus = SyntheticCorpus(DataConfig(vocab_size=vocab, seq_len=4096,
+                                        global_batch=n // 4096, seed=seed),
+                             device=dev)
+    return corpus(0)["tokens"].reshape(-1)
+
+
+def stream_batches(seed: int, dev, count: int = 16):
+    """The stream-stats path's batches: ragged qwen3-0.6b training data
+    (vocab 151936, seq 4096, global batch 128), tokens and masks."""
+    from repro_torch.data import DataConfig, SyntheticCorpus
+
+    corpus = SyntheticCorpus(DataConfig(vocab_size=151936, seq_len=4096,
+                                        global_batch=128, seed=seed,
+                                        ragged=True), device=dev)
+    return [(b["tokens"], b["valid_mask"])
+            for b in (corpus(step) for step in range(count))]
+
+
+def _time_three(kernel, plain, library, iters):
+    return (cuda_ms(kernel, iters), cuda_ms(plain, iters),
+            cuda_ms(library, iters))
+
+
+def run_cms_case(name, toks, depth, width, weights, *, path=False) -> dict:
+    from repro_torch.core.monoids import _uhash
+    from repro_torch.kernels.cms import cms_counts, cms_counts_plain
+
+    def kernel():
+        return cms_counts(toks, depth, width, weights=weights)
+
+    def plain():
+        return cms_counts_plain(toks, depth, width, weights=weights)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = max_err(got, ref)
+    ok = bool(torch.equal(got, ref))
+    # the yardstick: ONE index_add_ of the weights into the flattened table,
+    # bucket ids d*W + h_d precomputed outside the timed call
+    n = toks.numel()
+    ids = torch.cat([d * width + _uhash(toks, d) % width
+                     for d in range(depth)])
+    w = (torch.ones((n,), dtype=torch.int32, device=toks.device)
+         if weights is None else weights.to(torch.int32)).repeat(depth)
+    table = torch.zeros((depth * width,), dtype=torch.int32,
+                        device=toks.device)
+
+    def library():
+        return table.index_add_(0, ids, w)
+
+    ms, plain_ms, library_ms = _time_three(kernel, plain, library, 10)
+    nbytes = 4 * n + (4 * n if weights is not None else 0) + \
+        4 * depth * width
+    return dict(name=name, ok=ok, max_abs_err=err, tolerance="exact",
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes,
+                path=path)
+
+
+def run_stripes_case(name, toks, vocab, window, *, path=False) -> dict:
+    from repro_torch.kernels.stripes import stripe_counts, stripe_counts_plain
+
+    def kernel():
+        return stripe_counts(toks, vocab, window)
+
+    def plain():
+        return stripe_counts_plain(toks, vocab, window)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = max_err(got, ref)
+    ok = bool(torch.equal(got, ref)) and bool(torch.equal(got, got.T))
+    # the yardstick: ONE bincount of the precomputed pair ids a*V + b, both
+    # directions, over the pairs whose ids both lie in [0, V)
+    t = toks.long()
+    n = t.numel()
+    pair_ids = []
+    for j in range(1, window + 1):
+        a, b = t[:n - j], t[j:]
+        keep = (a >= 0) & (a < vocab) & (b >= 0) & (b < vocab)
+        a, b = a[keep], b[keep]
+        pair_ids += [a * vocab + b, b * vocab + a]
+    ids = torch.cat(pair_ids)
+    del pair_ids
+
+    def library():
+        return torch.bincount(ids, minlength=vocab * vocab)
+
+    ms, plain_ms, library_ms = _time_three(kernel, plain, library, 5)
+    nbytes = 4 * n + 4 * vocab * vocab
+    return dict(name=name, ok=ok, max_abs_err=err, tolerance="exact",
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes,
+                pairs=int(ids.numel()) // 2, path=path)
+
+
+def print_row(kernel: str, row: dict) -> None:
+    print(f"kernel {kernel} [{row['name']}]: "
+          f"{'OK' if row['ok'] else 'MISMATCH'} "
+          f"max_abs_err={row['max_abs_err']} ({row['tolerance']}) "
+          f"kernel_ms={row['ms']} plain_ms={row['plain_ms']} "
+          f"library_ms={row['library_ms']} bound_ms={row['bound_ms']}",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: stream stats at the trainer's data shape
+# ---------------------------------------------------------------------------
+
+def stream_stats_phase(batches, dev) -> dict:
+    from repro_torch.core import tree_fold
+    from repro_torch.data import (init_stats, make_stream_stats,
+                                  packed_stats, summarize, update_stats)
+    from repro_torch.kernels.cms import cms_counts
+    from repro_torch.kernels.segment_fold import segment_fold
+
+    m = make_stream_stats()
+    state = init_stats(m, device=dev)
+    update_stats(init_stats(m, device=dev), *batches[0])   # warm-up
+    torch.cuda.synchronize()
+    cms_counts.launches = 0
+    segment_fold.launches = 0
+    t0 = time.perf_counter()
+    packed = []
+    for toks, mask in batches:
+        state = update_stats(state, toks, valid_mask=mask)
+        packed.append(packed_stats(toks, mask))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"cms_update": cms_counts.launches,
+                "segment_fold": segment_fold.launches}
+    n_tokens = sum(int(t.numel()) for t, _ in batches)
+    valid = sum(int(mask.sum()) for _, mask in batches)
+    if launches["cms_update"] != len(batches):
+        raise RuntimeError(f"cms_update launched {launches['cms_update']} "
+                           f"times over {len(batches)} batches")
+    if launches["segment_fold"] != len(batches):
+        raise RuntimeError(f"packed_stats launched segment_fold "
+                           f"{launches['segment_fold']} times over "
+                           f"{len(batches)} batches")
+    if int(state["count"]) != valid:
+        raise RuntimeError(f"token count {int(state['count'])} != valid "
+                           f"tokens {valid}")
+    # every batch's per-row packed_stats == the CPU run on the same batch
+    # == the direct count (real tokens and EOS tokens per row)
+    for i, ((toks, mask), got) in enumerate(zip(batches, packed)):
+        cpu_out = packed_stats(toks.cpu(), mask.cpu())
+        keep = mask.to(torch.bool)
+        want = {"tokens": keep.sum(1).to(torch.int32),
+                "docs": (keep & (toks == 0)).sum(1).to(torch.int32)}
+        for col in ("tokens", "docs"):
+            if not (torch.equal(got[col].cpu(), cpu_out[col])
+                    and torch.equal(got[col], want[col])):
+                raise RuntimeError(f"packed_stats[{col!r}] of batch {i}: "
+                                   "card != cpu or != the direct count")
+
+    # the streamed state == the tree fold of per-batch states
+    per_batch = [update_stats(init_stats(m, device=dev), t, valid_mask=v)
+                 for t, v in batches]
+    folded = tree_fold(m, pytree.tree_map(lambda *xs: torch.stack(xs),
+                                          *per_batch))
+    for k in state:
+        if not torch.equal(state[k], folded[k]):
+            raise RuntimeError(f"streamed {k} != tree-folded {k}")
+    # the card's state after the first 2 batches == the CPU's, bit for bit
+    card = init_stats(m, device=dev)
+    cpu = init_stats(m, device="cpu")
+    for toks, mask in batches[:2]:
+        card = update_stats(card, toks, valid_mask=mask)
+        cpu = update_stats(cpu, toks.cpu(), valid_mask=mask.cpu())
+    for k in cpu:
+        if not torch.equal(card[k].cpu(), cpu[k]):
+            raise RuntimeError(f"card {k} != cpu {k} after 2 batches")
+    summary = summarize(m, state)
+    print(f"stream stats: batches={len(batches)} positions={n_tokens} "
+          f"valid_tokens={valid} wall_s={wall} "
+          f"tokens_per_s={n_tokens / wall} valid_tokens_per_s={valid / wall} "
+          f"launches={launches} approx_distinct={summary['approx_distinct']} "
+          "card==cpu after 2 batches, streamed==tree-folded, per-row "
+          "packed_stats==cpu==direct count", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: MapReduce jobs (Algorithms 1, 3, 4) and word count
+# ---------------------------------------------------------------------------
+
+def mapreduce_phase(seed: int, dev, stream_tokens) -> int:
+    """Mean-by-key (Algorithms 1/3/4) and max-by-key against float64 /
+    numpy oracles, each run's segment_fold launches counted against the
+    tier its plan chose: mean's int32 count leaf keeps it on the exact
+    segment tier (the reference's ``_kernel_exact`` rule), max-by-key (all
+    float32) rides the kernel tier."""
+    from repro_torch.core import (MapReduceJob, average_by_key_job, monoids,
+                                  word_count_job)
+    from repro_torch.kernels.segment_fold import segment_fold
+
+    keys_np, vals_np = mapreduce_records(seed)
+    n, k, shards = keys_np.size, 65536, 8
+    records = {"key": torch.from_numpy(keys_np).to(dev),
+               "value": torch.from_numpy(vals_np).to(dev)}
+    mean_job = average_by_key_job(k)
+    max_job = MapReduceJob(mapper=lambda r: (r["key"], r["value"]),
+                           monoid=monoids.max_, num_keys=k)
+    kernel_launches = 0
+    for job, strategy, count in (
+            (mean_job, "naive", n), (mean_job, "combiner", n),
+            (mean_job, "in_mapper", 1 << 12), (max_job, "naive", n),
+            (max_job, "combiner", n)):
+        recs = {key: v[:count] for key, v in records.items()}
+        job.run_local(recs, strategy=strategy, num_shards=shards)  # warm-up
+        torch.cuda.synchronize()
+        segment_fold.launches = 0
+        t0 = time.perf_counter()
+        out = job.run_local(recs, strategy=strategy, num_shards=shards)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = segment_fold.launches
+        st = job.stats(recs, strategy=strategy,
+                       num_shards=shards).with_measured(wall * 1e6)
+        tier = job.plan(recs, strategy=strategy,
+                        num_shards=shards).local_tier.kind
+        want = 0 if tier != "kernel" else (1 if strategy == "naive"
+                                           else shards)
+        if launches != want or (job is max_job and tier != "kernel"):
+            raise RuntimeError(f"{job.monoid.name} {strategy}: segment_fold "
+                               f"launched {launches} times on the {tier} "
+                               f"tier, expected {want}")
+        kernel_launches += launches
+        got = out.cpu().numpy().astype(np.float64)
+        if job is mean_job:
+            sums = np.zeros(k, np.float64)
+            np.add.at(sums, keys_np[:count],
+                      vals_np[:count].astype(np.float64))
+            cnt = np.maximum(np.bincount(keys_np[:count], minlength=k), 1)
+            oracle = sums / cnt
+        else:
+            oracle = np.full(k, -np.inf)
+            np.maximum.at(oracle, keys_np[:count],
+                          vals_np[:count].astype(np.float64))
+        err = float(np.abs(np.where(np.isinf(oracle), 0.0, got - oracle)
+                           ).max())
+        if not err <= 1e-4 or not np.array_equal(np.isinf(got),
+                                                 np.isinf(oracle)):
+            raise RuntimeError(f"{job.monoid.name} {strategy}: max |out - "
+                               f"oracle| = {err}")
+        print(f"mapreduce {job.monoid.name}_by_key {strategy}: "
+              f"records={count} shards={shards} keys={k} tier={tier} "
+              f"wall_s={wall} us_per_record={wall / count * 1e6} "
+              f"segment_fold.launches={launches} max_abs_err_vs_f64={err} "
+              f"model_error(measured/predicted)={st.model_error()} "
+              f"stats={st}", flush=True)
+
+    wc = word_count_job(151936)
+    counts = wc.run_local(stream_tokens, strategy="combiner", num_shards=8)
+    want = np.bincount(stream_tokens.cpu().numpy(), minlength=151936)
+    if not np.array_equal(counts.cpu().numpy(), want):
+        raise RuntimeError("word count != np.bincount")
+    st = wc.stats(stream_tokens, strategy="combiner", num_shards=8)
+    print(f"mapreduce word_count: tokens={stream_tokens.numel()} "
+          f"vocab=151936 == np.bincount; plan: {st.plan}", flush=True)
+    return kernel_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Algorithm 5 co-occurrence through the stripes kernel
+# ---------------------------------------------------------------------------
+
+def algorithm5_phase(tokens, vocab: int, window: int) -> int:
+    from repro_torch.core import monoids
+    from repro_torch.kernels.stripes import stripe_counts, stripe_counts_plain
+
+    stripe_counts.launches = 0
+    t0 = time.perf_counter()
+    table = monoids.cooccurrence_stripes(tokens, vocab, window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = stripe_counts.launches
+    if launches != 1:
+        raise RuntimeError(f"stripes launched {launches} times, expected 1")
+    if not torch.equal(table, stripe_counts_plain(tokens, vocab, window)):
+        raise RuntimeError("cooccurrence_stripes != the plain version")
+    print(f"algorithm 5: cooccurrence_stripes N={tokens.numel()} V={vocab} "
+          f"window={window} wall_s={wall} pairs={int(table.sum()) // 2} "
+          f"stripe_counts.launches={launches}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -349,8 +702,12 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 2
-    from repro_torch.kernels.segment_fold import (build, segment_fold,
+    from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.cms import LIBRARY as CMS_LIBRARY
+    from repro_torch.kernels.segment_fold import LIBRARY as FOLD_LIBRARY
+    from repro_torch.kernels.segment_fold import (segment_fold,
                                                   segment_fold_plain)
+    from repro_torch.kernels.stripes import LIBRARY as STRIPES_LIBRARY
 
     # phase 1: environment
     card = card_line()
@@ -364,40 +721,88 @@ def main(argv=None) -> int:
 
     # phase 2: build from the checkout's sources, then kernel vs plain
     t0 = time.perf_counter()
-    lib = build(verbose=True)
-    print(f"built {os.path.relpath(lib, _HERE)} in "
+    libs = build_all([FOLD_LIBRARY, CMS_LIBRARY, STRIPES_LIBRARY])
+    print(f"built {[os.path.relpath(p, _HERE) for p in libs]} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = []
     for case in kernel_cases(gen, dev):
         row = run_kernel_case(case, segment_fold, segment_fold_plain)
         rows.append(row)
-        print(f"kernel segment_fold [{row['name']}]: "
-              f"{'OK' if row['ok'] else 'MISMATCH'} "
-              f"max_abs_err={row['max_abs_err']} ({row['tolerance']}) "
-              f"kernel_ms={row['ms']} plain_ms={row['plain_ms']} "
-              f"library_ms={row['library_ms']} bound_ms={row['bound_ms']}",
-              flush=True)
+        print_row("segment_fold", row)
         torch.cuda.empty_cache()
-    bad = [r["name"] for r in rows if not r["ok"]]
+
+    batches = stream_batches(args.seed, dev)
+    for case in path_fold_cases(batches[0], *mapreduce_records(args.seed),
+                                dev):
+        row = run_kernel_case(case, segment_fold, segment_fold_plain)
+        rows.append(row)
+        print_row("segment_fold", row)
+    torch.cuda.empty_cache()
+    zipf = corpus_tokens(151936, 1 << 24, args.seed + 1, dev)
+    path_toks, path_mask = batches[0]
+    mask90 = torch.rand((zipf.numel(),), generator=gen, device=dev) < 0.9
+    cms_rows = [
+        run_cms_case("4x2048 N=2^24 Zipf (shared table)", zipf, 4, 2048,
+                     None),
+        run_cms_case("5x65536 N=2^24 Zipf (global table)", zipf, 5, 65536,
+                     None),
+        run_cms_case("4x2048 N=2^24 Zipf, 90% mask", zipf, 4, 2048, mask90),
+        run_cms_case("stream-stats batch: 4x2048 N=524288 ragged mask",
+                     path_toks.reshape(-1), 4, 2048,
+                     path_mask.reshape(-1).to(torch.int32), path=True),
+    ]
+    for row in cms_rows:
+        print_row("cms_update", row)
+    del mask90
+    torch.cuda.empty_cache()
+    toks4096 = corpus_tokens(4096, 1 << 24, args.seed + 2, dev)
+    stripes_rows = [
+        run_stripes_case("V=4096 W=4 N=2^24 corpus (64 MB global table)",
+                         toks4096, 4096, 4, path=True),
+        run_stripes_case("V=128 W=4 N=2^24 corpus (shared table)",
+                         corpus_tokens(128, 1 << 24, args.seed + 3, dev),
+                         128, 4),
+    ]
+    for row in stripes_rows:
+        print_row("stripes", row)
+        print(f"  pairs={row['pairs']}", flush=True)
+    torch.cuda.empty_cache()
+    bad = [r["name"] for r in rows + cms_rows + stripes_rows if not r["ok"]]
     if bad:
-        raise RuntimeError(f"segment_fold disagrees with its plain version: "
+        raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
 
-    # phase 3: the main path
-    launches = serve_full(args, segment_fold)
+    # phase 3: the serving path
+    serve_launches = serve_full(args, segment_fold)
     # phase 4: small-input reference
     serve_reference(args)
+    # phase 5: the stream-stats path
+    stream_launches = stream_stats_phase(batches, dev)
+    # phase 6: the MapReduce path
+    mapreduce_phase(args.seed, dev,
+                    torch.cat([t.reshape(-1) for t, _ in batches]))
+    # phase 7: Algorithm 5
+    stripes_launches = algorithm5_phase(toks4096, 4096, 4)
 
-    serve_row = next(r for r in rows if r["serve"])
-    record = {"kernels": [{
-        "name": "segment_fold", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/segment_fold.cu",
-        "replaces": "src/repro/kernels/segment_fold.py:86",
-        "launches": launches, "max_abs_err": serve_row["max_abs_err"],
-        "ms": serve_row["ms"], "plain_ms": serve_row["plain_ms"],
-        "bound_ms": serve_row["bound_ms"], "bound_by": "bytes",
-        "library_ms": serve_row["library_ms"]}]}
+    def entry(name, source, replaces, launches, row):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": "bytes", "library_ms": row["library_ms"]}
+
+    record = {"kernels": [
+        entry("segment_fold", "segment_fold.cu",
+              "src/repro/kernels/segment_fold.py:86", serve_launches,
+              next(r for r in rows if r["serve"])),
+        entry("cms_update", "cms_update.cu", "src/repro/kernels/cms.py:50",
+              stream_launches["cms_update"],
+              next(r for r in cms_rows if r["path"])),
+        entry("stripes", "stripes.cu", "src/repro/kernels/stripes.py:47",
+              stripes_launches, next(r for r in stripes_rows if r["path"])),
+    ]}
     print(f"card: {card}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

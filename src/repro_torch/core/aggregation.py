@@ -2,12 +2,14 @@
 
 The local half of the JAX package's ``core/aggregation.py``: the combiner
 that runs before any collective, the monoid families the collectives lower
-to, and the byte count of a value pytree.  Keyed folds live in
+to, the fast/slow (ICI/DCN) split of mesh axes the planner prices, and the
+byte count of a value pytree.  Keyed folds live in
 :mod:`repro_torch.core.plan` (``execute_fold``).
 """
 from __future__ import annotations
 
 import math
+from typing import Any, Sequence, Tuple
 
 import torch.utils._pytree as pytree
 
@@ -34,6 +36,20 @@ def local_fold(m: Monoid, xs: Pytree, *, axis: int = 0,
 _PSUM_LIKE = {"sum", "count"}
 _PMAX_LIKE = {"max", "bitwise_or"}   # 0/1 bitmaps: OR == max
 _PMIN_LIKE = {"min"}
+
+
+# Mesh axes wired over the slow inter-node link (DCN) rather than the fast
+# one (ICI); the JAX package's ``dist/collectives.py`` definition.
+DCN_AXIS_NAMES: Tuple[str, ...] = ("pod",)
+
+
+def split_axis_names(axes: Sequence[Any]) -> Tuple[Tuple[Any, ...],
+                                                   Tuple[Any, ...]]:
+    """Classify axis names into (ici, dcn): the planner combines fast axes
+    first, so the slow axis only ever sees pre-combined values."""
+    names = tuple(axes)
+    return (tuple(a for a in names if a not in DCN_AXIS_NAMES),
+            tuple(a for a in names if a in DCN_AXIS_NAMES))
 
 
 def tree_bytes(tree: Pytree) -> int:

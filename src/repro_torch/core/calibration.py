@@ -6,7 +6,10 @@ Per local tier (kernel / segment_ops / scan / tree):
 
 where ``n`` is the record count and ``b`` the bytes of one lifted monoid
 value.  ``layout='auto'`` in :func:`repro_torch.core.plan.plan_fold` is an
-argmin of this prediction over the FEASIBLE tiers.  Coefficients are keyed
+argmin of this prediction over the FEASIBLE tiers.  Per collective link
+(ici / dcn), which prices the shuffle stages of a plan across a shard axis:
+
+    t(bytes) = launches * t0_us + per_device_wire_bytes * us_per_byte  Coefficients are keyed
 ``"{monoid}|{dtype}"`` with a fallback chain down to the tier-wide ``"*"``
 entry.
 
@@ -39,8 +42,9 @@ class TierCoeff:
     """Coefficients of one tier's time model, in microseconds.
 
     t0_us: fixed launch/dispatch overhead.
-    us_per_byte: inverse throughput.
-    us_per_record: serial per-record cost (dominant for the scan tier).
+    us_per_byte: inverse throughput (for links: inverse wire bandwidth).
+    us_per_record: serial per-record cost (dominant for the scan tier; 0
+      for links).
     """
 
     t0_us: float
@@ -50,6 +54,9 @@ class TierCoeff:
     def local_us(self, num_records: int, record_bytes: int) -> float:
         return (self.t0_us + num_records * self.us_per_record
                 + num_records * record_bytes * self.us_per_byte)
+
+    def link_us(self, wire_bytes: float, launches: int = 1) -> float:
+        return launches * self.t0_us + wire_bytes * self.us_per_byte
 
 
 def _coeff_to_json(c: TierCoeff) -> Dict[str, float]:
@@ -68,6 +75,8 @@ class Calibration:
     """A versioned table of measured (or default) tier coefficients.
 
     tiers: tier kind -> {"monoid|dtype" | "monoid|*" | "*|dtype" | "*": TierCoeff}.
+    collectives: "ici" / "dcn" -> TierCoeff; a domain missing here falls
+      back to the shipped prior.
     source: 'default' for the shipped table, 'measured' for a written one.
     """
 
@@ -75,6 +84,8 @@ class Calibration:
     backend: str
     source: str
     tiers: Mapping[str, Mapping[str, TierCoeff]]
+    collectives: Mapping[str, TierCoeff] = dataclasses.field(
+        default_factory=dict)
 
     def tier_coeff(self, kind: str, monoid: str = "*",
                    dtype: str = "*") -> TierCoeff:
@@ -84,10 +95,19 @@ class Calibration:
                 return table[key]
         return TierCoeff(0.0, 0.0, 0.0)
 
+    def link_coeff(self, domain: str) -> TierCoeff:
+        if domain in self.collectives:
+            return self.collectives[domain]
+        return _DEFAULT_COLLECTIVES.get(domain, TierCoeff(0.0, 0.0))
+
     def predict_local_us(self, kind: str, *, monoid: str, dtype: str,
                          num_records: int, record_bytes: int) -> float:
         return self.tier_coeff(kind, monoid, dtype).local_us(
             num_records, record_bytes)
+
+    def predict_link_us(self, domain: str, wire_bytes: float,
+                        launches: int = 1) -> float:
+        return self.link_coeff(domain).link_us(wire_bytes, launches)
 
     def to_json(self) -> Dict:
         return {
@@ -96,6 +116,8 @@ class Calibration:
             "source": self.source,
             "tiers": {k: {key: _coeff_to_json(c) for key, c in t.items()}
                       for k, t in self.tiers.items()},
+            "collectives": {d: _coeff_to_json(c)
+                            for d, c in self.collectives.items()},
         }
 
     @classmethod
@@ -106,6 +128,8 @@ class Calibration:
             source=str(payload.get("source", "measured")),
             tiers={k: {key: _coeff_from_json(c) for key, c in t.items()}
                    for k, t in payload.get("tiers", {}).items()},
+            collectives={d: _coeff_from_json(c)
+                         for d, c in payload.get("collectives", {}).items()},
         )
 
 
@@ -124,8 +148,17 @@ _DEFAULT_TIERS: Dict[str, Dict[str, TierCoeff]] = {
                                    us_per_record=2e-2)},
 }
 
+# The link priors, the JAX package's defaults: ICI ~ tens of GB/s with a
+# ~10 us launch, DCN ~ sub-GB/s with ~100 us latency.  They are priors of the
+# cost model for a TPU pod's links, not times measured on any card; the
+# port's mesh tier (not yet ported) would measure NVLink / network links.
+_DEFAULT_COLLECTIVES: Dict[str, TierCoeff] = {
+    "ici": TierCoeff(t0_us=10.0, us_per_byte=1e-4),
+    "dcn": TierCoeff(t0_us=100.0, us_per_byte=2e-3),
+}
+
 _DEFAULT = Calibration(version=CALIB_VERSION, backend="any", source="default",
-                       tiers=_DEFAULT_TIERS)
+                       tiers=_DEFAULT_TIERS, collectives=_DEFAULT_COLLECTIVES)
 
 
 def default_calibration() -> Calibration:

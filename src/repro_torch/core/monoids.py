@@ -1,16 +1,29 @@
-"""The monoid zoo — the kernel-lowered family.
+"""The monoid zoo.
 
-``sum_``, ``count``, ``max_``, ``min_``, ``mean`` (the paper's running
-example, Algorithms 3/4) and ``bitwise_or`` — every monoid the planner can
-lower onto the segment-fold kernel.  Each is registered with law samples, so
-the law suite covers everything in :data:`REGISTRY`.
+* the kernel-lowered family: ``sum_``, ``count``, ``max_``, ``min_``,
+  ``mean`` (the paper's running example, Algorithms 3/4) and ``bitwise_or``
+  — every monoid the planner can lower onto the segment-fold kernel;
+* the rest of the algebra: ``prod``, ``welford``, ``logsumexp``,
+  ``attn_state``, ``affine_scan``, :func:`top_k` and the :func:`product`
+  combinator;
+* the §3 sketches: :func:`bloom_filter`, :func:`count_min` (batch update on
+  the ``cms_update`` CUDA kernel) and :func:`hyperloglog`, over the
+  multiply-xorshift hash :func:`_uhash`, bit for bit the JAX package's;
+* Algorithm 5's ``stripes`` and :func:`cooccurrence_stripes` (on the
+  ``stripes`` CUDA kernel).
+
+Each monoid in :data:`REGISTRY` is registered with law samples (the JAX
+registry's, seed for seed), so the law suite covers all of them.
 
 All monoid values are pytrees of tensors.  Shape-polymorphic monoids take
-their shapes, dtypes and device from ``identity_like(example)``.
+their shapes, dtypes and device from ``identity_like(example)``.  Lifts are
+written out of place (comparisons against ``arange`` instead of indexed
+writes) because the planner runs them under ``torch.func.vmap``.
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -38,6 +51,12 @@ sum_ = Monoid(
     name="sum",
     combine=_tree_binary(torch.add),
     identity_fn=_zeros_like_identity,
+)
+
+prod = Monoid(
+    name="prod",
+    combine=_tree_binary(torch.mul),
+    identity_fn=lambda *, example: pytree.tree_map(torch.ones_like, example),
 )
 
 
@@ -115,6 +134,398 @@ count = Monoid(
 )
 
 
+
+
+# ---------------------------------------------------------------------------
+# Welford / Chan parallel variance — streaming (count, mean, M2)
+# ---------------------------------------------------------------------------
+
+def _welford_combine(a, b):
+    na, ma, m2a = a
+    nb, mb, m2b = b
+    n = na + nb
+    nf = torch.clamp(n, min=1.0)
+    delta = mb - ma
+    return (n, ma + delta * (nb / nf), m2a + m2b + delta * delta * (na * nb / nf))
+
+
+def _welford_identity(*, example=None):
+    if example is None:
+        return (torch.zeros(()), torch.zeros(()), torch.zeros(()))
+    return tuple(torch.zeros_like(x) for x in example)
+
+
+welford = Monoid(
+    name="welford",
+    combine=_welford_combine,
+    identity_fn=_welford_identity,
+    lift=lambda x: (torch.ones_like(x), x, torch.zeros_like(x)),
+    extract=lambda m: {"count": m[0], "mean": m[1],
+                       "var": m[2] / torch.clamp(m[0], min=1.0)},
+)
+
+
+# ---------------------------------------------------------------------------
+# logsumexp and the attention-state monoid (online softmax)
+# ---------------------------------------------------------------------------
+
+def _safe_coeff(m_old, m_new):
+    """exp(m_old - m_new), with the convention exp(-inf - -inf) = 0."""
+    return torch.where(torch.isneginf(m_old), torch.zeros_like(m_old),
+                       torch.exp(m_old - m_new))
+
+
+def _lse_combine(a, b):
+    (ma, la), (mb, lb) = a, b
+    m = torch.maximum(ma, mb)
+    return (m, la * _safe_coeff(ma, m) + lb * _safe_coeff(mb, m))
+
+
+def _lse_identity(*, example=None):
+    if example is None:
+        return (torch.full((), -float("inf")), torch.zeros(()))
+    return (torch.full_like(example[0], -float("inf")),
+            torch.zeros_like(example[1]))
+
+
+logsumexp = Monoid(
+    name="logsumexp",
+    combine=_lse_combine,
+    identity_fn=_lse_identity,
+    lift=lambda x: (x, torch.ones_like(x)),
+    extract=lambda m: m[0] + torch.log(m[1]),
+)
+
+
+def _attn_combine(a, b):
+    """Merge two partial softmax-attention states (m, l, o): running max of
+    logits, running sum of exp(logit - m), running sum of exp(logit - m) * V
+    (m, l: (...,); o: (..., d)) — the flash-decoding merge."""
+    (ma, la, oa), (mb, lb, ob) = a, b
+    m = torch.maximum(ma, mb)
+    ca = _safe_coeff(ma, m)
+    cb = _safe_coeff(mb, m)
+    return (m, la * ca + lb * cb, oa * ca[..., None] + ob * cb[..., None])
+
+
+def _attn_identity(*, example=None):
+    if example is None:
+        raise ValueError("attn_state identity requires an example "
+                         "(shape-polymorphic)")
+    m, l, o = example
+    return (torch.full_like(m, -float("inf")), torch.zeros_like(l),
+            torch.zeros_like(o))
+
+
+attn_state = Monoid(
+    name="attn_state",
+    combine=_attn_combine,
+    identity_fn=_attn_identity,
+    extract=lambda s: s[2] / torch.clamp(s[1], min=1e-30)[..., None],
+)
+
+
+# ---------------------------------------------------------------------------
+# affine-map composition — linear recurrences (NOT commutative)
+# ---------------------------------------------------------------------------
+
+def _affine_combine(f, g):
+    """Compose x -> g(f(x)) for affine maps f=(a1,b1), g=(a2,b2):
+    (a2*a1, a2*b1 + b2)."""
+    a1, b1 = f
+    a2, b2 = g
+    return (a2 * a1, a2 * b1 + b2)
+
+
+def _affine_identity(*, example=None):
+    if example is None:
+        return (torch.ones(()), torch.zeros(()))
+    return (torch.ones_like(example[0]), torch.zeros_like(example[1]))
+
+
+affine_scan = Monoid(
+    name="affine_scan",
+    combine=_affine_combine,
+    identity_fn=_affine_identity,
+    commutative=False,
+    extract=lambda f: f[1],     # applied to initial state 0: h = b
+)
+
+
+# ---------------------------------------------------------------------------
+# top-k
+# ---------------------------------------------------------------------------
+
+def top_k(k: int) -> Monoid:
+    """Monoid of the k largest (value, id) pairs, values sorted descending."""
+
+    def combine(a, b):
+        (va, ia), (vb, ib) = a, b
+        v = torch.cat([va, vb], dim=-1)
+        i = torch.cat([ia, ib], dim=-1)
+        vals, idx = torch.topk(v, k, dim=-1)
+        return (vals, torch.take_along_dim(i, idx, dim=-1))
+
+    def identity_fn(*, example=None):
+        if example is None:
+            return (torch.full((k,), -float("inf")),
+                    torch.full((k,), -1, dtype=torch.int32))
+        v, i = example
+        return (torch.full_like(v, -float("inf")), torch.full_like(i, -1))
+
+    def lift(vi):
+        v, i = vi
+        v = torch.as_tensor(v)
+        i = torch.as_tensor(i)
+        dtype = torch.promote_types(v.dtype, torch.float32)
+        pad_v = torch.full((k - 1,), -float("inf"), dtype=dtype,
+                           device=v.device)
+        pad_i = torch.full((k - 1,), -1, dtype=torch.int32, device=i.device)
+        return (torch.cat([torch.atleast_1d(v).to(dtype), pad_v]),
+                torch.cat([torch.atleast_1d(i).to(torch.int32), pad_i]))
+
+    return Monoid(name=f"top{k}", combine=combine, identity_fn=identity_fn,
+                  lift=lift)
+
+
+# ---------------------------------------------------------------------------
+# hashing for the sketch monoids: JAX's uint32 arithmetic, in int64
+# ---------------------------------------------------------------------------
+
+# the JAX package's _HASH_PRIMES (repro/core/monoids.py), in order; the CUDA
+# kernel csrc/cms_update.cu holds the same table
+_HASH_PRIMES = (
+    0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F, 0x165667B1,
+    0xD3A2646C, 0xFD7046C5, 0xB55A4F09, 0x8DA6B343, 0xD8163841,
+)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, a: int) -> torch.Tensor:
+    """``h * a mod 2**32`` for ``h`` in [0, 2**32) held in int64, without
+    overflowing int64: multiply by the prime's two 16-bit halves."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def _uhash(x, seed: int) -> torch.Tensor:
+    """Multiply-xorshift universal hash of int token ids, bit for bit the
+    JAX package's uint32 ``_uhash``: the id's low 32 bits (JAX's int32 ->
+    uint32 convert) hashed mod 2**32.  Returns int64 in [0, 2**32)."""
+    x = torch.as_tensor(x).to(torch.int64) & _MASK32
+    a = _HASH_PRIMES[seed % len(_HASH_PRIMES)]
+    b = _HASH_PRIMES[(seed + 3) % len(_HASH_PRIMES)]
+    h = _mul32(x ^ (x >> 16), a)
+    h = _mul32(h ^ (h >> 13), b)
+    return h ^ (h >> 16)
+
+
+def _one_hot_rows(idx: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., width) bool: True at ``idx`` along the last axis."""
+    return torch.arange(width, device=idx.device) == idx[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Bloom filter (paper §3, [Bloom 1970])
+# ---------------------------------------------------------------------------
+
+def bloom_filter(num_bits: int, num_hashes: int = 4) -> Monoid:
+    """Bloom filter over int ids. Monoid under bitwise OR; identity = empty."""
+    assert num_bits % 8 == 0
+
+    def lift(item):
+        idx = torch.stack([_uhash(item, s) % num_bits
+                           for s in range(num_hashes)])
+        return _one_hot_rows(idx, num_bits).any(dim=0).to(torch.uint8)
+
+    return Monoid(
+        name=f"bloom({num_bits},{num_hashes})",
+        combine=_tree_binary(torch.bitwise_or),
+        identity_fn=lambda *, example=None: torch.zeros(
+            (num_bits,), dtype=torch.uint8,
+            device=_device_of(example) if example is not None else None),
+        lift=lift,
+    )
+
+
+def bloom_contains(filt: torch.Tensor, item, num_hashes: int = 4
+                   ) -> torch.Tensor:
+    num_bits = filt.shape[-1]
+    idx = torch.stack([_uhash(item, s) % num_bits for s in range(num_hashes)])
+    return torch.all(filt[idx.to(filt.device)] > 0)
+
+
+# ---------------------------------------------------------------------------
+# count-min sketch (paper §3, [Cormode & Muthukrishnan 2005])
+# ---------------------------------------------------------------------------
+
+def count_min(depth: int, width: int) -> Monoid:
+    """Count-min sketch: (depth, width) counters; monoid under elementwise +."""
+
+    def lift(item):
+        # one item -> a (depth, width) one-hot increment
+        idx = torch.stack([_uhash(item, d) % width for d in range(depth)])
+        return _one_hot_rows(idx, width).to(torch.int32)
+
+    return Monoid(
+        name=f"cms({depth},{width})",
+        combine=_tree_binary(torch.add),
+        identity_fn=lambda *, example=None: torch.zeros(
+            (depth, width), dtype=torch.int32,
+            device=_device_of(example) if example is not None else None),
+        lift=lift,
+    )
+
+
+def cms_query(sketch: torch.Tensor, item) -> torch.Tensor:
+    depth, width = sketch.shape
+    ests = torch.stack([sketch[d, (_uhash(item, d) % width).to(sketch.device)]
+                        for d in range(depth)])
+    return torch.min(ests)
+
+
+def cms_update_batch(sketch: torch.Tensor, items: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Vectorised in-mapper combine of a whole batch into the sketch, out of
+    place: the ``cms_update`` CUDA kernel's int32 counts for CUDA tensors
+    (its plain version for CPU tensors), added to ``sketch``."""
+    from ..kernels.cms import cms_counts
+
+    depth, width = sketch.shape
+    return sketch + cms_counts(items, depth, width, weights=weights)
+
+
+# ---------------------------------------------------------------------------
+# HyperLogLog (paper §3, [Flajolet et al. 2007])
+# ---------------------------------------------------------------------------
+
+def _rho(v: torch.Tensor, bitwidth: int) -> torch.Tensor:
+    """Position (1-based) of the leftmost 1 bit within `bitwidth` bits; 0 ->
+    bitwidth+1.  (``argmax`` returns the first maximum.)"""
+    shifts = torch.arange(bitwidth - 1, -1, -1, device=v.device)
+    bits = (v[..., None] >> shifts) & 1
+    first_one = torch.argmax(bits, dim=-1)
+    any_one = (bits > 0).any(dim=-1)
+    return torch.where(any_one, first_one + 1,
+                       torch.full_like(first_one, bitwidth + 1)
+                       ).to(torch.uint8)
+
+
+def _hll_bucket_rank(items, p: int):
+    suffix_bits = 32 - p
+    h = _uhash(items, 7)
+    return h >> suffix_bits, _rho(h & ((1 << suffix_bits) - 1), suffix_bits)
+
+
+def hyperloglog(precision: int = 8) -> Monoid:
+    """HLL with 2^precision registers; monoid under elementwise max."""
+    p = precision
+    m_regs = 1 << p
+
+    def lift(item):
+        idx, r = _hll_bucket_rank(item, p)
+        return torch.where(_one_hot_rows(idx, m_regs), r,
+                           torch.zeros_like(r)).to(torch.uint8)
+
+    def extract(regs):
+        if p >= 7:
+            alpha = 0.7213 / (1 + 1.079 / m_regs)
+        else:
+            alpha = {4: 0.673, 5: 0.697, 6: 0.709}.get(
+                p, 0.7213 / (1 + 1.079 / m_regs))
+        z = torch.sum(torch.exp2(-regs.to(torch.float32)))
+        est = alpha * m_regs * m_regs / z
+        # small-range (linear counting) correction
+        zeros = torch.sum(regs == 0)
+        lc = m_regs * torch.log(
+            m_regs / torch.clamp(zeros, min=1).to(torch.float32))
+        return torch.where((est <= 2.5 * m_regs) & (zeros > 0), lc, est)
+
+    return Monoid(
+        name=f"hll(p={p})",
+        combine=_tree_binary(torch.maximum),
+        identity_fn=lambda *, example=None: torch.zeros(
+            (m_regs,), dtype=torch.uint8,
+            device=_device_of(example) if example is not None else None),
+        lift=lift,
+        extract=extract,
+    )
+
+
+def hll_update_batch(regs: torch.Tensor, items: torch.Tensor,
+                     valid_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Vectorised in-mapper combine of a batch of ids into the registers,
+    out of place.  ``valid_mask`` marks the items that count; invalid items
+    contribute rank 0 — a no-op under the register max."""
+    p = int(math.log2(regs.shape[-1]))
+    idx, r = _hll_bucket_rank(items.reshape(-1), p)
+    if valid_mask is not None:
+        r = torch.where(valid_mask.reshape(-1).to(torch.bool), r,
+                        torch.zeros_like(r))
+    return regs.scatter_reduce(0, idx, r, reduce="amax", include_self=True)
+
+
+# ---------------------------------------------------------------------------
+# stripes — the paper's Algorithm 5 (associative arrays under elementwise sum)
+# ---------------------------------------------------------------------------
+
+# A stripe H_w is the dense count vector over the (bucketed) vocabulary for
+# focus word w: associative arrays under element-wise sum are ``sum_`` on
+# the dense representation.
+stripes = sum_
+
+
+def stripe_of_window(window: torch.Tensor, vocab: int,
+                     center: int) -> torch.Tensor:
+    """Lift one context window into the stripe for its center word (Alg 5
+    map): neighbour counts over the vocab (ids in [0, vocab))."""
+    neigh = torch.cat([window[:center], window[center + 1:]])
+    return _one_hot_rows(neigh, vocab).sum(dim=0).to(torch.int32)
+
+
+def cooccurrence_stripes(tokens: torch.Tensor, vocab: int,
+                         window: int) -> torch.Tensor:
+    """Full (vocab, vocab) co-occurrence via stripes: pairs (w, u) with
+    |pos(w) - pos(u)| <= window, counted both ways, on the ``stripes`` CUDA
+    kernel for CUDA tensors (its plain version for CPU tensors).  int32."""
+    from ..kernels.stripes import stripe_counts
+
+    return stripe_counts(tokens.reshape(-1), vocab, window)
+
+
+# ---------------------------------------------------------------------------
+# combinators
+# ---------------------------------------------------------------------------
+
+def product(**named: Monoid) -> Monoid:
+    """Product monoid over a dict of monoids — one fold for many stats."""
+    names = sorted(named)
+
+    def combine(a, b):
+        return {k: named[k].combine(a[k], b[k]) for k in names}
+
+    def identity_fn(*, example=None):
+        if example is None:
+            return {k: named[k].identity() for k in names}
+        return {k: named[k].identity_like(example[k]) for k in names}
+
+    def lift(x):
+        return {k: named[k].lift(x[k]) for k in names}
+
+    def extract(m):
+        return {k: named[k].extract(m[k]) for k in names}
+
+    return Monoid(
+        name="product(" + ",".join(f"{k}={named[k].name}" for k in names) + ")",
+        combine=combine,
+        identity_fn=identity_fn,
+        lift=lift,
+        extract=extract,
+        commutative=all(named[k].commutative for k in names),
+    )
+
+
 REGISTRY: Dict[str, Monoid] = {}
 
 # ---------------------------------------------------------------------------
@@ -165,3 +576,27 @@ register_monoid(count, lambda: [torch.tensor(c, dtype=torch.int32)
 register_monoid(bitwise_or, lambda: [
     torch.from_numpy(np.random.default_rng(s).integers(0, 255, 4)
                      .astype(np.uint8)) for s in (0, 1, 2)])
+register_monoid(prod, lambda: [_f32(s) * 0.5 + 1.0 for s in (0, 1, 2)])
+register_monoid(welford, lambda: [
+    (torch.tensor(float(n)), _f32(n, ()), torch.abs(_f32(n + 10, ())))
+    for n in (1, 2, 3)])
+register_monoid(logsumexp, lambda: [
+    (_f32(s, ()), torch.abs(_f32(s + 20, ())) + 0.1) for s in (0, 1, 2)])
+register_monoid(attn_state, lambda: [
+    (_f32(s, ()), torch.abs(_f32(s + 30, ())) + 0.1, _f32(s + 40, (4,)))
+    for s in (0, 1, 2)])
+register_monoid(affine_scan, lambda: [(_f32(s) * 0.5 + 1.0, _f32(s + 50))
+                                      for s in (0, 1, 2)])
+register_monoid(top_k(4), lambda: [
+    top_k(4).lift((torch.tensor(v, dtype=torch.float32),
+                   torch.tensor(i, dtype=torch.int32)))
+    for v, i in ((3.0, 7), (1.5, 2), (9.0, 5))])
+register_monoid(bloom_filter(64, 2), lambda: [
+    bloom_filter(64, 2).lift(torch.tensor(x, dtype=torch.int32))
+    for x in (3, 11, 42)])
+register_monoid(count_min(2, 32), lambda: [
+    count_min(2, 32).lift(torch.tensor(x, dtype=torch.int32))
+    for x in (3, 11, 42)])
+register_monoid(hyperloglog(4), lambda: [
+    hyperloglog(4).lift(torch.tensor(x, dtype=torch.int32))
+    for x in (3, 11, 42)])

@@ -19,19 +19,25 @@ kernel takes, and the float32 accumulator is exact for the inputs.  Forcing
 ``layout='kernel'`` on CPU tensors runs the kernel's plain version.
 Planning works on concrete tensors or ``meta``-device tensors alike.
 
-The mesh tier (``mesh_axes=``), ``lossy=`` compression and ``layout='async'``
-are later slices of the port (ROADMAP: "mesh tier").
+Planning across a shard axis is ported: ``plan_fold(mesh_axes=...,
+axis_sizes=...)`` adds the collective stages (reduce-scatter or allreduce,
+ICI axes before DCN, priced by the link model), and ``pre_combine=False``
+the un-combined pair shuffle of Algorithm 1 — what ``MapReduceJob.plan`` /
+``stats`` report.  Executing across devices (``execute_fold(mesh_axes=)``),
+``lossy=`` compression and ``layout='async'`` are a later slice of the port
+(ROADMAP: "mesh tier").
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.utils._pytree as pytree
 from torch.func import vmap
 
-from .aggregation import tree_bytes
+from .aggregation import (_PMAX_LIKE, _PMIN_LIKE, _PSUM_LIKE,
+                          split_axis_names, tree_bytes)
 from .calibration import Calibration, get_calibration
 from .monoid import (KernelLowering, Monoid, Pytree, register_kernel_lowering,
                      scan_fold, tree_fold)
@@ -41,6 +47,9 @@ LAYOUTS = ("auto", "kernel", "segment", "scan", "tree", "async")
 # layout spelling (user-facing) -> calibration tier kind (TierPlan.kind)
 _LAYOUT_TIER_KIND = {"kernel": "kernel", "segment": "segment_ops",
                      "scan": "scan", "tree": "tree"}
+
+# TierPlan.kind values that are collective (shuffle) stages, not local folds
+_COLLECTIVE_KINDS = ("gather_pairs", "allreduce", "reduce_scatter")
 
 # monoids PyTorch reduces natively by key (tier 2): scatter reduction name
 _SEGMENT_OPS = {
@@ -132,22 +141,31 @@ register_kernel_lowering("min", _semiring_lowering("min"))
 class TierPlan:
     """One stage of a lowered fold.
 
-    kind: 'kernel' | 'segment_ops' | 'scan' | 'tree'.
-    predicted_us: modeled wall time under the active calibration.
-    candidate_us: the (layout, predicted_us) table the planner chose from.
+    kind: 'kernel' | 'segment_ops' | 'scan' | 'tree' | 'gather_pairs' |
+          'allreduce' | 'reduce_scatter'.
+    wire_bytes: predicted bytes this stage puts on the wire, summed over the
+      participants of one reduction group (0 for on-device stages).
+    predicted_us: modeled wall time under the active calibration (0 when
+      the model has nothing to say, e.g. an unknown axis size).
+    candidate_us: the (candidate, predicted_us) table the planner chose
+      from — layouts for the local tier, shuffle algorithms for a
+      collective tier.
     """
 
     kind: str
     detail: str
     out_bytes: int
+    wire_bytes: int = 0
     predicted_us: float = 0.0
     candidate_us: Tuple[Tuple[str, float], ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """A lowered fold.  ``num_valid`` is the count of rows a concrete
-    ``valid_mask`` keeps (None without a mask or for a ``meta`` mask)."""
+    """A lowered fold: the local tier and any collective tiers.
+    ``num_valid`` is the count of rows a concrete ``valid_mask`` keeps
+    (None without a mask or for a ``meta`` mask); only valid rows count in
+    the shuffle byte model."""
 
     monoid: Monoid
     tiers: Tuple[TierPlan, ...]
@@ -159,7 +177,11 @@ class Plan:
 
     @property
     def local_tier(self) -> TierPlan:
-        return self.tiers[0]
+        return next(t for t in self.tiers if t.kind not in _COLLECTIVE_KINDS)
+
+    @property
+    def collective_wire_bytes(self) -> int:
+        return sum(t.wire_bytes for t in self.tiers)
 
     @property
     def predicted_us(self) -> float:
@@ -171,12 +193,95 @@ class Plan:
         ``layout='auto'`` argmins over."""
         return dict(self.local_tier.candidate_us)
 
+    @property
+    def shuffle_algorithm(self) -> Optional[str]:
+        """'reduce_scatter' | 'allreduce' for the first collective stage
+        (None when the plan has no collective stage)."""
+        for t in self.tiers:
+            if t.kind in ("allreduce", "reduce_scatter"):
+                return t.kind
+        return None
+
     def describe(self) -> str:
         parts = []
         for t in self.tiers:
             us = f" ~{t.predicted_us:.1f}us" if t.predicted_us > 0 else ""
             parts.append(f"{t.kind}[{t.detail}{us}]")
         return " -> ".join(parts)
+
+
+def collective_algorithm(m: Monoid) -> str:
+    """'ring' when the monoid's cross-device combine is a sum/max/min-family
+    reduction, 'gather' for the generic fallback."""
+    name = m.name
+    if (name in _PSUM_LIKE or name in _PMAX_LIKE or name in _PMIN_LIKE
+            or name in ("mean", "logsumexp", "attn_state")
+            or name.startswith("hll") or name.startswith("cms")):
+        return "ring"
+    return "gather"
+
+
+def collective_wire_bytes(nbytes: int, axis_size: int, algorithm: str) -> int:
+    """Total wire bytes across one reduction group of ``axis_size`` devices."""
+    if axis_size <= 1:
+        return 0
+    if algorithm in ("ring", "reduce_scatter"):
+        # ring allreduce = reduce-scatter + all-gather: 2(P-1)/P x nbytes each
+        return int(2 * nbytes * (axis_size - 1))
+    if algorithm == "gather":     # every device replicates its value P-1 times
+        return int(nbytes * (axis_size - 1) * axis_size)
+    raise ValueError(algorithm)
+
+
+def _per_device_shuffle_bytes(nbytes: int, axis_size: int, shuffle_kind: str,
+                              allreduce_algo: str) -> float:
+    """Wire bytes ONE device moves for a table shuffle — what the link model
+    prices.  reduce_scatter moves 2(P-1)/P x nbytes for any monoid;
+    allreduce matches it for the ring family and degrades to a (P-1) x
+    nbytes gather for generic monoids."""
+    if axis_size <= 1:
+        return 0.0
+    if shuffle_kind == "reduce_scatter" or allreduce_algo == "ring":
+        return 2.0 * nbytes * (axis_size - 1) / axis_size
+    return float(nbytes) * (axis_size - 1)
+
+
+def _link_domain(ax: Any) -> str:
+    """'dcn' for axes wired over DCN, 'ici' otherwise."""
+    return "dcn" if split_axis_names((ax,))[1] else "ici"
+
+
+def _plan_collective_tier(calib: Calibration, label: str, ax: Any,
+                          P: Optional[int], nbytes: int,
+                          num_segments: Optional[int],
+                          allreduce_algo: str) -> TierPlan:
+    """One collective stage, its shuffle algorithm chosen by predicted cost:
+    'reduce_scatter' (keyed tables whose key count divides the axis size)
+    or 'allreduce'; a predicted tie prefers reduce_scatter.  An unknown or
+    trivial axis size plans a 0-cost allreduce."""
+    candidates = ["allreduce"]
+    if num_segments is not None and P and P > 1 and num_segments % P == 0:
+        candidates.insert(0, "reduce_scatter")   # ties prefer reduce_scatter
+    if not P or P <= 1:
+        wire = collective_wire_bytes(nbytes, P, allreduce_algo) if P else 0
+        return TierPlan("allreduce",
+                        f"{label}:{ax} {allreduce_algo}"
+                        + ("" if P else " (size unknown)"),
+                        nbytes, wire)
+    cand_us = tuple(
+        (kind, calib.predict_link_us(
+            label, _per_device_shuffle_bytes(nbytes, P, kind, allreduce_algo)))
+        for kind in candidates)
+    costs = dict(cand_us)
+    kind = min(candidates, key=costs.get)
+    if kind == "reduce_scatter":
+        return TierPlan("reduce_scatter",
+                        f"{label}:{ax} reduce_scatter+all_gather",
+                        nbytes, collective_wire_bytes(nbytes, P, kind),
+                        predicted_us=costs[kind], candidate_us=cand_us)
+    return TierPlan("allreduce", f"{label}:{ax} {allreduce_algo}",
+                    nbytes, collective_wire_bytes(nbytes, P, allreduce_algo),
+                    predicted_us=costs[kind], candidate_us=cand_us)
 
 
 def _leading_dim(values: Pytree) -> int:
@@ -255,8 +360,10 @@ def _kernel_exact(value_shape: Pytree, num_records: int) -> bool:
 
 def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
               num_segments: Optional[int] = None, valid_mask=None,
-              mesh_axes=None, layout: str = "auto", lifted: bool = True,
-              map_fn: Optional[Callable] = None, lossy=None,
+              mesh_axes: Optional[Sequence[Any]] = None, layout: str = "auto",
+              lifted: bool = True, map_fn: Optional[Callable] = None,
+              axis_sizes: Optional[Mapping[Any, int]] = None,
+              pre_combine: bool = True, lossy=None,
               calibration: Optional[Calibration] = None) -> Plan:
     """Lower a fold to a :class:`Plan` without executing it.
 
@@ -265,11 +372,16 @@ def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
     FEASIBLE tiers; a forced layout that is infeasible raises here with the
     offending leaf named.  ``valid_mask`` (one bool per record) makes the
     fold ragged; a concrete mask is counted into ``Plan.num_valid``.
+
+    ``mesh_axes`` (with their sizes in ``axis_sizes``; an unknown size
+    predicts 0 wire bytes) adds the collective stages that combine the
+    local result across those axes, ICI axes first, each stage's shuffle
+    algorithm chosen by the link model.  ``pre_combine=False`` models the
+    paper's Algorithm 1 (no combiner: every valid lifted pair crosses the
+    wire, receivers fold) for byte accounting.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}")
-    if mesh_axes:
-        raise _not_ported("mesh_axes=")
     if lossy is not None:
         raise _not_ported("lossy= compression")
     if layout == "async":
@@ -372,7 +484,29 @@ def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
                              f"in-mapper scan (Alg 4, O(1) live){masked}",
                              out_bytes, predicted_us=costs["scan"],
                              candidate_us=candidate_us)
-    return Plan(monoid=m, tiers=(local,), num_records=n,
+
+    # -- collective tiers: ICI first, then DCN ------------------------------
+    sizes = dict(axis_sizes or {})
+    algo = collective_algorithm(m)
+    mesh_axes = tuple(mesh_axes or ())
+    ici, dcn = split_axis_names(mesh_axes)
+    if not pre_combine:
+        # Algorithm 1: every VALID lifted pair crosses the wire un-combined
+        pair_bytes = n_model * vbytes
+        wire = sum(collective_wire_bytes(pair_bytes, sizes.get(ax, 1),
+                                         "gather") for ax in mesh_axes)
+        pred = sum(calib.predict_link_us(_link_domain(ax),
+                                         float(pair_bytes) * (sizes[ax] - 1))
+                   for ax in mesh_axes if sizes.get(ax) and sizes[ax] > 1)
+        tiers = [TierPlan("gather_pairs",
+                          "no combiner: all pairs shuffled (Alg 1)",
+                          pair_bytes, wire, predicted_us=float(pred)), local]
+    else:
+        tiers = [local] + [
+            _plan_collective_tier(calib, label, ax, sizes.get(ax), out_bytes,
+                                  num_segments if keyed else None, algo)
+            for label, axes in (("ici", ici), ("dcn", dcn)) for ax in axes]
+    return Plan(monoid=m, tiers=tuple(tiers), num_records=n,
                 num_segments=num_segments, value_bytes=vbytes,
                 out_bytes=out_bytes, num_valid=num_valid)
 
@@ -521,7 +655,10 @@ def execute_fold(m: Monoid, values: Pytree, *, segment_ids=None,
     ``m.lift`` to each element first.
 
     Returns the folded value — or ``(value, plan)`` with ``with_plan=True``.
+    Folding across devices (``mesh_axes=``) is not ported yet.
     """
+    if mesh_axes:
+        raise _not_ported("execute_fold(mesh_axes=)")
     plan_mask = valid_mask
     if valid_mask is not None:
         # plan from the mask's SHAPE only: counting a device mask would
@@ -530,8 +667,8 @@ def execute_fold(m: Monoid, values: Pytree, *, segment_ids=None,
                                 device="meta")
     plan = plan_fold(m, values, segment_ids=segment_ids,
                      num_segments=num_segments, valid_mask=plan_mask,
-                     mesh_axes=mesh_axes, layout=layout, lifted=lifted,
-                     map_fn=map_fn, lossy=lossy, calibration=calibration)
+                     layout=layout, lifted=lifted, map_fn=map_fn,
+                     lossy=lossy, calibration=calibration)
     kind = plan.local_tier.kind
     if valid_mask is not None and axis != 0:
         raise ValueError("valid_mask requires the batch axis at 0")

@@ -3,7 +3,7 @@
 Replaces the TPU kernel ``repro/kernels/segment_fold.py:segment_fold_pallas``.
 The kernel is ``csrc/segment_fold.cu``, CUDA C++ for ``sm_90a``, built with
 ``nvcc`` at first use into ``build/repro_torch/`` (git-ignored) and loaded
-with ``ctypes``.  Its bound is memory: it must read ``N*D*elt + 4N`` bytes
+with ``ctypes`` (``kernels/_build.py``).  Its bound is memory: it must read ``N*D*elt + 4N`` bytes
 (+ ``N`` for the mask) and write ``S*W*4``, at 3.35 TB/s on an H100.  The
 TPU version scatters with a one-hot matmul on the MXU; the CUDA version
 folds each element with one atomic into a per-CTA shared-memory table when
@@ -28,16 +28,11 @@ nothing.  Max/min propagate NaN.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
+
+from ._build import NVCC_FLAGS, CudaLibrary, sm_count  # noqa: F401
 
 SEMIRINGS = ("sum", "max", "min")
 
@@ -46,83 +41,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3, torch.uint8: 4, torch.int16: 5, torch.int32: 6}
 KERNEL_DTYPES = tuple(_DTYPE_CODE)
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "segment_fold.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-
-
-# ---------------------------------------------------------------------------
-# build + load (at first use, never at import)
-# ---------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = ([os.path.join(home, "bin", "nvcc")] if home else []) + \
-        [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in candidates:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build the segment_fold CUDA kernel")
-
-
-def library_path() -> Path:
-    """Where the shared library for the current source lives (keyed by the
-    source's content hash, so an edited source is rebuilt)."""
-    digest = hashlib.sha1(_SOURCE.read_bytes()).hexdigest()[:12]
-    return _BUILD_DIR / f"libsegment_fold-{digest}.so"
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/segment_fold.cu`` with nvcc unless already built."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(_SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr, end="")
-        os.replace(tmp, out)      # atomic: a concurrent build never sees half
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
-
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-_sm_counts: Dict[int, int] = {}
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.segment_fold_launch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sm_counts[idx]
+LIBRARY = CudaLibrary("segment_fold", {"segment_fold_launch": [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]})
+library_path = LIBRARY.library_path
 
 
 # ---------------------------------------------------------------------------
@@ -227,13 +150,13 @@ def segment_fold(values: torch.Tensor, seg_ids: torch.Tensor,
     n, d = values.shape
     out = torch.empty((num_segments, d + int(with_count)),
                       dtype=torch.float32, device=dev)
-    lib = _library()
+    lib = LIBRARY.load()
     with torch.cuda.device(dev):
         err = lib.segment_fold_launch(
             values.data_ptr(), _DTYPE_CODE[values.dtype], seg_ids.data_ptr(),
             mask.data_ptr() if mask is not None else None, out.data_ptr(),
             n, d, num_segments, _SEMIRING_CODE[semiring], int(with_count),
-            _sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
+            sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_fold kernel launch failed: CUDA error "
                            f"{err} (N={n}, D={d}, S={num_segments}, "

@@ -22,20 +22,11 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..device import resolve_device
 from ..models import decode_step, init_cache, init_params
 from ..models.common import ModelConfig
 from ..runtime.engine import (ContinuousEngine, EngineBackend, ServeConfig,
                               decode_metrics_plan)
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; CUDA without a card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' was requested but no CUDA device "
-                           "is available; pass device='cpu' to run the plain "
-                           "versions on the CPU")
-    return device
 
 
 def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,

@@ -47,11 +47,18 @@ def test_law_samples_and_combines_match_jax(name):
 
 
 def test_registry_is_the_kernel_lowered_family():
-    assert set(tm.REGISTRY) == {"sum", "count", "max", "min", "mean",
-                                "bitwise_or"}
+    """The JAX registry minus the monoids of later slices (the decay
+    monoids: windows; cache_stats: prefix cache; lossy_*: training, which
+    ``repro.optim`` registers when some other test has imported it); the
+    kernel-lowered family is exactly the monoids with a registered
+    lowering."""
+    later = {n for n in jm.REGISTRY
+             if n.startswith(("decayed_", "cache_stats", "lossy_"))}
+    assert set(tm.REGISTRY) == set(jm.REGISTRY) - later
     assert tm.missing_law_samples() == []
-    for name, m in tm.REGISTRY.items():
-        assert m.kernel_lowering() is not None, name
+    lowered = {name for name, m in tm.REGISTRY.items()
+               if m.kernel_lowering() is not None}
+    assert lowered == {"sum", "count", "max", "min", "mean", "bitwise_or"}
     with pytest.raises(ValueError, match="already registered"):
         tm.register_monoid(tm.sum_, lambda: [])
 
