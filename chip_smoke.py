@@ -9,14 +9,18 @@ Phases, each of which must pass or the script exits non-zero:
 2. kernels: build every CUDA kernel from the sources in
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once,
    sm_90a), launch each at real sizes and at each path's shapes (for
-   ``segment_fold``: serve, ``packed_stats``, max-by-key), and hold it
-   against its plain PyTorch version; time kernel, plain version and the
-   one-call PyTorch yardstick with CUDA events.
+   ``segment_fold``: serve, ``packed_stats``, max-by-key; for
+   ``flash_attention``: the prefill's 4 x 64 bucket, S 4096, ragged and
+   Sq != Sk), and hold it against its plain PyTorch version; time kernel,
+   plain version and the one-call PyTorch yardstick with CUDA events.
 3. serve: ``build_engine`` for qwen3-0.6b at full width (28 layers, bf16,
    random weights from ``--seed``) answers ``--requests`` requests; each
-   decode step's metrics fold must have launched ``segment_fold`` once.
-   Then one decode step's eager wall time against its CUDA-graph replay.
-4. reference: a small float32 model served on the card and on the CPU with
+   decode step's metrics fold must have launched ``segment_fold`` once,
+   and each prefill call ``flash_attention`` once per layer.  Then one
+   decode step's eager wall time against its CUDA-graph replay, and one
+   (4, 64) prefill's eager wall time.
+4. reference: a small float32 model served on the card (prefill through
+   the ``flash_attention`` kernel) and on the CPU (its plain version) with
    the same weights gives the same tokens.
 5. stream stats: ``update_stats`` over 16 ragged ``SyntheticCorpus``
    batches at qwen3-0.6b's training data shape (vocab 151936, seq 4096,
@@ -52,6 +56,9 @@ import torch
 import torch.utils._pytree as pytree
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
+# dense peaks of an H100 SXM (data sheet): bf16 on the tensor cores, float32
+# on the CUDA cores
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_HERE, "src"))
@@ -261,7 +268,7 @@ def run_kernel_case(case, segment_fold, segment_fold_plain) -> dict:
 # phases 3 and 4: serving
 # ---------------------------------------------------------------------------
 
-def serve_full(args, segment_fold):
+def serve_full(args, segment_fold, flash_attention):
     from repro_torch.configs import get_config
     from repro_torch.models import num_params
     from repro_torch.serving import (ServeConfig, build_engine,
@@ -292,9 +299,11 @@ def serve_full(args, segment_fold):
                           engine.backend.vocab_size, 32)
     steps0, prefills0 = engine.stats.steps, engine.stats.prefill_calls
     segment_fold.launches = 0
+    flash_attention.launches = 0
     results, wall = serve_trace(engine, trace)
     torch.cuda.synchronize()
     launches = segment_fold.launches
+    flash_launches = flash_attention.launches
     steps = engine.stats.steps - steps0
     prefills = engine.stats.prefill_calls - prefills0
 
@@ -312,6 +321,11 @@ def serve_full(args, segment_fold):
         raise RuntimeError(f"segment_fold launched {launches} times over "
                            f"{steps} decode steps; the per-step fold must "
                            "launch the CUDA kernel exactly once per step")
+    if prefills <= 0 or flash_launches != cfg.num_layers * prefills:
+        raise RuntimeError(f"flash_attention launched {flash_launches} times "
+                           f"over {prefills} prefill calls; each prefill "
+                           f"must launch it once per layer "
+                           f"({cfg.num_layers})")
     gen = sum(len(r.tokens) for r in results)
     ttft = np.array([r.ttft_s for r in results])
     counts = engine.compile_counts()
@@ -324,11 +338,12 @@ def serve_full(args, segment_fold):
           f"ttft_p99_ms={np.percentile(ttft, 99) * 1e3} "
           f"decode_steps={steps} prefill_calls={prefills} "
           f"segment_fold.launches={launches} "
+          f"flash_attention.launches={flash_launches} "
           f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30}",
           flush=True)
     print(f"program shapes: {counts} (bound {engine.compile_bound()})")
     decode_breakdown(engine)
-    return launches
+    return launches, flash_launches
 
 
 def decode_breakdown(engine, iters: int = 20) -> None:
@@ -357,6 +372,23 @@ def decode_breakdown(engine, iters: int = 20) -> None:
     print(f"decode step ({S} slots, full width): eager_wall_ms={eager_ms} "
           f"graph_replay_ms={graph_ms} host_bound_share="
           f"{1 - graph_ms / eager_ms}", flush=True)
+    # one prefill program of the serve phase's largest shape, (4, 64),
+    # eager, beside the 64 eager decode steps it replaces
+    k, bucket = engine.config.prefill_batch, engine.config.prefill_buckets[-1]
+    cachek = be.init_cache(k, True)
+    toks = torch.randint(1, be.vocab_size, (k, bucket), dtype=torch.int32,
+                         device=be.device)
+    lengths = torch.full((k,), bucket, dtype=torch.int32, device=be.device)
+    be.prefill(be.params, cachek, toks, lengths)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        be.prefill(be.params, cachek, toks, lengths)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) / iters * 1e3
+    print(f"prefill ({k} x {bucket}, full width, one pass): eager_wall_ms="
+          f"{prefill_ms} against {bucket} eager decode steps = "
+          f"{bucket * eager_ms} ms", flush=True)
 
 
 def serve_reference(args):
@@ -375,12 +407,21 @@ def serve_reference(args):
     rng = np.random.default_rng(args.seed + 1)
     prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(3, 16)))
                .tolist() for _ in range(7)]
+    from repro_torch.kernels.flash_attention import flash_attention
+
     out = {}
     for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
         eng = ContinuousEngine(make_backend(cfg, params, config, dev), config)
         uids = [eng.submit(p) for p in prompts]
+        before = flash_attention.launches
         for _ in eng.run(max_steps=200):
             pass
+        launched = flash_attention.launches - before
+        want = cfg.num_layers * eng.stats.prefill_calls if dev == "cuda" \
+            else 0
+        if launched != want:
+            raise RuntimeError(f"{dev}: flash_attention launched {launched} "
+                               f"times, expected {want}")
         out[dev] = [eng.result(u) for u in uids]
     worst = 0.0
     for a, b in zip(out["cpu"], out["cuda"]):
@@ -390,7 +431,8 @@ def serve_reference(args):
     if worst > 1e-3:
         raise RuntimeError(f"logprob sums differ by {worst} (> 1e-3)")
     print(f"reference: f32 smoke model, {len(prompts)} requests, cuda tokens "
-          f"== cpu tokens, max |logprob_sum diff| = {worst}", flush=True)
+          f"(prefill on the flash_attention kernel) == cpu tokens (its plain "
+          f"version), max |logprob_sum diff| = {worst}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -500,13 +542,82 @@ def run_stripes_case(name, toks, vocab, window, *, path=False) -> dict:
                 pairs=int(ids.numel()) // 2, path=path)
 
 
+# flash_attention cases: (name, B, H, KV, Sq, Sk, d, dtype, causal); case a
+# is the prefill path's shape (4 prompts x a 64-token bucket, qwen3-0.6b)
+FLASH_CASES = [
+    ("a: prefill path B4 S64 H16/KV8 d128 bf16 causal", 4, 16, 8, 64, 64, 128,
+     torch.bfloat16, True),
+    ("b: B1 S4096 H16/KV8 d128 bf16 causal", 1, 16, 8, 4096, 4096, 128,
+     torch.bfloat16, True),
+    ("c: B1 S4096 H16/KV8 d128 f32 causal", 1, 16, 8, 4096, 4096, 128,
+     torch.float32, True),
+    ("d: B2 S1024 H16/KV8 d128 bf16 non-causal", 2, 16, 8, 1024, 1024, 128,
+     torch.bfloat16, False),
+    ("e: B2 S100 H4/KV2 d64 f32 causal (ragged edges)", 2, 4, 2, 100, 100,
+     64, torch.float32, True),
+    ("f: B1 Sq64 Sk192 H4/KV2 d128 f32 causal (top-left)", 1, 4, 2, 64, 192,
+     128, torch.float32, True),
+]
+# f32: the same f32 sums in another order; bf16: one bf16 ulp of |o| ~ 2-4
+FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def flash_work(B, H, Sq, Sk, d, causal):
+    """Multiply-adds x 2 of q k^T and p v over the (query, key) pairs the
+    mask keeps (top-left causal: query i sees keys 0..min(i, Sk - 1))."""
+    i = np.arange(Sq)
+    pairs = int(np.minimum(i + 1, Sk).sum()) if causal else Sq * Sk
+    return 4 * B * H * pairs * d
+
+
+def run_flash_case(case, gen, dev) -> dict:
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    name, B, H, KV, Sq, Sk, d, dtype, causal = case
+    q, k, v = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+
+    def kernel():
+        return flash_attention(q, k, v, causal=causal)
+
+    def plain():
+        return flash_attention_plain(q, k, v, causal=causal)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = max_err(got, ref)
+    atol = FLASH_ATOL[dtype]
+    ok = err <= atol
+    iters = 5 if Sq >= 1024 else 50
+    ms = cuda_ms(kernel, iters)
+    plain_ms = cuda_ms(plain, iters)
+    library_ms = None
+    if Sq == Sk:     # the yardstick's is_causal mask is ours only at Sq == Sk
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+        library_ms = cuda_ms(library, iters)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = flash_work(B, H, Sq, Sk, d, causal)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(name=name, ok=ok, max_abs_err=err, tolerance=f"atol={atol}",
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
+                flops=flops,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                path=name.startswith("a:"))
+
+
 def print_row(kernel: str, row: dict) -> None:
     print(f"kernel {kernel} [{row['name']}]: "
           f"{'OK' if row['ok'] else 'MISMATCH'} "
           f"max_abs_err={row['max_abs_err']} ({row['tolerance']}) "
           f"kernel_ms={row['ms']} plain_ms={row['plain_ms']} "
-          f"library_ms={row['library_ms']} bound_ms={row['bound_ms']}",
-          flush=True)
+          f"library_ms={row['library_ms']} bound_ms={row['bound_ms']}"
+          f" bound_by={row.get('bound_by', 'bytes')}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -704,6 +815,8 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.cms import LIBRARY as CMS_LIBRARY
+    from repro_torch.kernels.flash_attention import LIBRARY as FLASH_LIBRARY
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.segment_fold import LIBRARY as FOLD_LIBRARY
     from repro_torch.kernels.segment_fold import (segment_fold,
                                                   segment_fold_plain)
@@ -721,7 +834,8 @@ def main(argv=None) -> int:
 
     # phase 2: build from the checkout's sources, then kernel vs plain
     t0 = time.perf_counter()
-    libs = build_all([FOLD_LIBRARY, CMS_LIBRARY, STRIPES_LIBRARY])
+    libs = build_all([FOLD_LIBRARY, CMS_LIBRARY, STRIPES_LIBRARY,
+                      FLASH_LIBRARY])
     print(f"built {[os.path.relpath(p, _HERE) for p in libs]} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -768,13 +882,21 @@ def main(argv=None) -> int:
         print_row("stripes", row)
         print(f"  pairs={row['pairs']}", flush=True)
     torch.cuda.empty_cache()
-    bad = [r["name"] for r in rows + cms_rows + stripes_rows if not r["ok"]]
+    flash_rows = [run_flash_case(case, gen, dev) for case in FLASH_CASES]
+    for row in flash_rows:
+        print_row("flash_attention", row)
+        print(f"  flops={row['flops']} bytes={row['bound_bytes']}",
+              flush=True)
+    torch.cuda.empty_cache()
+    bad = [r["name"] for r in rows + cms_rows + stripes_rows + flash_rows
+           if not r["ok"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
 
     # phase 3: the serving path
-    serve_launches = serve_full(args, segment_fold)
+    serve_launches, flash_launches = serve_full(args, segment_fold,
+                                                flash_attention)
     # phase 4: small-input reference
     serve_reference(args)
     # phase 5: the stream-stats path
@@ -791,7 +913,8 @@ def main(argv=None) -> int:
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": "bytes", "library_ms": row["library_ms"]}
+                "bound_by": row.get("bound_by", "bytes"),
+                "library_ms": row["library_ms"]}
 
     record = {"kernels": [
         entry("segment_fold", "segment_fold.cu",
@@ -802,6 +925,9 @@ def main(argv=None) -> int:
               next(r for r in cms_rows if r["path"])),
         entry("stripes", "stripes.cu", "src/repro/kernels/stripes.py:47",
               stripes_launches, next(r for r in stripes_rows if r["path"])),
+        entry("flash_attention", "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:68", flash_launches,
+              next(r for r in flash_rows if r["path"])),
     ]}
     print(f"card: {card}")
     print(json.dumps(record))

@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 
 from .cms import cms_counts
+from .flash_attention import flash_attention
 # the counted wrapper itself (``segment_fold.launches``), re-exported
 from .segment_fold import segment_fold
 from .stripes import stripe_counts
@@ -39,3 +40,13 @@ def stripes(tokens: torch.Tensor, vocab: int, window: int) -> torch.Tensor:
     package's ``ops.stripes`` contract (the kernel's exact int32 counts,
     cast; ``kernels.stripes.stripe_counts.launches`` counts the launch)."""
     return stripe_counts(tokens, vocab, window).to(torch.float32)
+
+
+def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = True) -> torch.Tensor:
+    """Attention in the JAX package's layout, q ``(B, H, Sq, d)`` and k, v
+    ``(B, KV, Sk, d)``, its ``ops.flash_attn`` contract (top-left causal
+    mask, output in q's dtype).  The tile sizes are the kernel's own, so
+    there are no ``block_q`` / ``block_k`` knobs;
+    ``kernels.flash_attention.flash_attention.launches`` counts the launch."""
+    return flash_attention(q, k, v, causal=causal)

@@ -9,8 +9,10 @@ model-agnostic :class:`repro_torch.runtime.engine.ContinuousEngine` and hosts
 the CLI.  Requests arrive on a Poisson trace, queue FIFO, and are admitted
 into rolling slots; each decode step folds the per-request metrics through
 ONE planner-lowered keyed fold — on the card, one launch of the CUDA
-``segment_fold`` kernel.  Everything runs on ``cuda`` unless the caller
-passes ``device="cpu"`` (``--device cpu``); there is no silent fallback.
+``segment_fold`` kernel — and each admission's prefill runs the bucket in
+one pass, one launch of the CUDA ``flash_attention`` kernel per layer.
+Everything runs on ``cuda`` unless the caller passes ``device="cpu"``
+(``--device cpu``); there is no silent fallback.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 
 from ..configs import get_config
 from ..device import resolve_device
-from ..models import decode_step, init_cache, init_params
+from ..kernels.flash_attention import flash_attention
+from ..models import decode_step, init_cache, init_params, prefill
 from ..models.common import ModelConfig
 from ..runtime.engine import (ContinuousEngine, EngineBackend, ServeConfig,
                               decode_metrics_plan)
@@ -32,7 +35,8 @@ from ..runtime.engine import (ContinuousEngine, EngineBackend, ServeConfig,
 def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
                  device) -> EngineBackend:
     """An :class:`EngineBackend` over the dense transformer: a one-token
-    decode and a cache constructor with per-slot positions."""
+    decode, a one-pass prefill of a padded bucket and a cache constructor
+    with per-slot positions."""
     if config.model_parallel != 1:
         raise NotImplementedError(
             "model_parallel > 1 needs the mesh tier, a later slice of the "
@@ -42,12 +46,16 @@ def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
         logits, cache = decode_step(p, cfg, cache, cur)
         return logits[:, -1].to(torch.float32), cache
 
+    def prefill_bucket(p, cache, toks, lengths):
+        return prefill(p, cfg, cache, toks, lengths)
+
     def make_cache(batch: int, pos_per_slot: bool):
         return init_cache(params, cfg, batch, config.max_seq,
                           pos_per_slot=pos_per_slot)
 
     return EngineBackend(decode=decode, init_cache=make_cache, params=params,
-                         vocab_size=cfg.vocab_size, device=torch.device(device))
+                         vocab_size=cfg.vocab_size, device=torch.device(device),
+                         prefill=prefill_bucket)
 
 
 def build_engine(config: ServeConfig, *, device="cuda",
@@ -159,6 +167,7 @@ def main(argv=None):
     trace = poisson_trace(rng, args.requests, args.rate, args.min_prompt,
                           args.max_prompt, engine.backend.vocab_size,
                           args.gen)
+    launches0 = flash_attention.launches
     results, wall = serve_trace(engine, trace, quiet=False)
 
     ttfts = np.array([r.ttft_s for r in results])
@@ -168,6 +177,7 @@ def main(argv=None):
           f"{wall:.2f}s ({new_tokens / wall:.0f} tok/s) | "
           f"steps={st.steps} slot_reuses={st.slot_reuses} "
           f"prefills={st.prefill_calls} batched={st.batched_admissions} "
+          f"flash_attention.launches={flash_attention.launches - launches0} "
           f"ttft p50={np.percentile(ttfts, 50) * 1e3:.1f}ms "
           f"p99={np.percentile(ttfts, 99) * 1e3:.1f}ms")
     print(f"program shapes: {engine.compile_counts()} "

@@ -1,17 +1,22 @@
-"""GQA attention with qk-norm and RoPE: the decode path of the dense family.
+"""GQA attention with qk-norm and RoPE: the dense family's full-sequence
+and decode attention.
 
 The port of the parts of ``repro/models/attention.py`` that serving runs.
-Shapes: x (B, S, D); q (B, S, H, hd); k, v (B, S, KV, hd).  Scores
-accumulate in float32, softmax runs in float32 and is cast back to the
-activation dtype before the value product, as in the JAX package.
+Shapes: x (B, S, D); q (B, S, H, hd); k, v (B, S, KV, hd).  The
+full-sequence causal :func:`attention` (prefill) runs on the
+``flash_attention`` kernel: float32 scores and softmax weights, output in
+the activation dtype.  The decode step accumulates scores in float32, runs
+softmax in float32 and casts it back to the activation dtype before the
+value product, as in the JAX package.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..kernels.flash_attention import flash_attention
 from .common import ModelConfig, rms_norm, rotary_embed
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
@@ -57,6 +62,30 @@ def _gqa_values(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
     """(..., Sq, Sk) boolean causal keep-mask."""
     return k_pos[..., None, :] <= q_pos[..., :, None]
+
+
+def attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, window: Optional[int] = None
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Causal self-attention over the full sequence, the counterpart of the
+    JAX package's ``attention`` (its XLA and chunked ``attn_state`` forms
+    are one function; here it is one launch of the ``flash_attention``
+    kernel, on the CPU its plain version).  ``positions`` (B, S) must be
+    the uniform ``arange`` the kernel's top-left mask assumes.  Returns the
+    (B, S, D) output and the layer's (k, v), each (B, S, KV, hd), for the
+    prefill to write into its cache."""
+    if window is not None:
+        raise NotImplementedError("sliding-window attention is a later "
+                                  "slice of the port (ROADMAP: windows)")
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    # (B, S, heads, hd) viewed as (B, heads, S, hd): the kernel reads the
+    # strides, and its output keeps q's (B, S, H, hd) memory layout
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True).transpose(1, 2)
+    out = o.reshape(B, S, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd, -1)
+    return out, (k, v)
 
 
 def decode_positions(pos: torch.Tensor, batch: int) -> torch.Tensor:

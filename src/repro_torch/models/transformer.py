@@ -1,4 +1,5 @@
-"""Model assembly for the dense family: init, decode cache, decode step.
+"""Model assembly for the dense family: init, full-sequence forward,
+one-pass prefill, decode cache, decode step.
 
 The port of the serving half of ``repro/models/transformer.py``.  The JAX
 package stacks the layers over a leading ``n_periods`` dim and runs them
@@ -6,6 +7,9 @@ with ``lax.scan``; here ``params["layers"]`` is a list of per-layer dicts run
 by a Python loop (``models/convert.py`` unstacks JAX weights).  The decode
 cache mirrors that: ``{"pos": (B,) or (), "layers": [{"k", "v"}, ...]}``, and
 :func:`decode_step` updates it in place (the JAX engine donates its cache).
+:func:`forward` and :func:`prefill` run the same layer function over a whole
+sequence, its attention on the ``flash_attention`` kernel; :func:`prefill`
+leaves the cache as the decode step run over the sequence would.
 
 MoE, SSM, MLA, cross-attention and the encoder are later slices of the port
 (``init_params`` / ``init_cache`` raise for them).
@@ -120,6 +124,68 @@ def _decode_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     return x + dense_ffn(p["ffn"], cfg, h)
 
 
+def _full_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    mixed, kv = attn.attention(p["mix"], cfg, h, positions)
+    x = x + mixed
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + dense_ffn(p["ffn"], cfg, h), kv
+
+
+def _embed(params: Pytree, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    x = embed_lookup(params["embed"], tokens).to(cfg.dtype)
+    if cfg.scale_embed:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
+             cache_layers=None) -> torch.Tensor:
+    """Final hidden states of (B, S) tokens; with ``cache_layers``, each
+    layer's (k, v) is written in place into rows [0, S) of its cache."""
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    for i, p in enumerate(params["layers"]):
+        x, (k, v) = _full_layer(p, cfg, x, positions)
+        if cache_layers is not None:
+            cache_layers[i]["k"][:, :S] = k
+            cache_layers[i]["v"][:, :S] = v
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+@torch.no_grad()
+def forward(params: Pytree, cfg: ModelConfig,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Token ids (B, S) -> final hidden states (B, S, D): the JAX package's
+    ``forward`` for the dense family (no context, no MoE stats, no remat;
+    forward only, as the attention kernel is)."""
+    return _forward(params, cfg, tokens)
+
+
+@torch.no_grad()
+def prefill(params: Pytree, cfg: ModelConfig, cache: Pytree,
+            tokens: torch.Tensor,
+            lengths: torch.Tensor) -> Tuple[torch.Tensor, Pytree]:
+    """A whole (B, S) bucket of prompts in one pass -> ((B, V) float32
+    logits at each row's position ``lengths - 1``, the cache).
+
+    Writes K/V rows [0, S) of every layer, pad rows past a prompt's length
+    included, and sets ``pos`` to S: the cache the decode step run over the
+    S tokens leaves, and the same logits at ``lengths - 1``.  The hidden
+    rows are gathered before ``unembed``, so only B rows of logits exist.
+    """
+    B, S = tokens.shape
+    h = _forward(params, cfg, tokens, cache["layers"])
+    rows = torch.arange(B, device=h.device)
+    logits = unembed(params, cfg, h[rows, lengths.long() - 1])
+    return logits, {"pos": torch.full_like(cache["pos"], S),
+                    "layers": cache["layers"]}
+
+
 def unembed(params: Pytree, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Logits in float32: products of the activation-dtype inputs summed in
     float32, as ``preferred_element_type=float32`` does."""
@@ -133,9 +199,7 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     """One serving step: (B, 1) new tokens -> (B, 1, V) float32 logits and
     the cache, its KV rows written in place and ``pos`` advanced."""
     pos = cache["pos"]
-    x = embed_lookup(params["embed"], tokens).to(cfg.dtype)
-    if cfg.scale_embed:
-        x = x * math.sqrt(cfg.d_model)
+    x = _embed(params, cfg, tokens)
     for p, c in zip(params["layers"], cache["layers"]):
         x = _decode_layer(p, cfg, x, c, pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

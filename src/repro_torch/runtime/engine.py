@@ -10,10 +10,15 @@ CUDA device the planner lowers that fold onto the hand-written
 
 PyTorch runs eagerly, so the JAX engine's compiled programs become program
 *shapes*: ONE decode step at ``(num_slots, 1)``, ONE prefill per
-``(k, bucket)`` — k same-bucket admissions run the decode step together over
-their prompts padded to the bucket, as the JAX ``lax.scan`` does — and ONE
-slot write per k.  :meth:`ContinuousEngine.compile_counts` counts the
-distinct shapes each program ran with; :meth:`compile_bound` is the ceiling.
+``(k, bucket)`` and ONE slot write per k.  A prefill takes k same-bucket
+admissions, their prompts padded to the bucket, in ONE call of the
+backend's ``prefill`` (for the dense model: the full-sequence forward, its
+attention on the ``flash_attention`` kernel), which leaves the cache rows
+and first-token logits that the JAX engine's ``lax.scan`` of the decode
+step over the bucket leaves.  A backend without ``prefill`` (the recurrent
+families of later slices) gets that scan, as a loop of decode steps.
+:meth:`ContinuousEngine.compile_counts` counts the distinct shapes each
+program ran with; :meth:`compile_bound` is the ceiling.
 
 The cache and the metrics table stay on the device between steps; the host
 reads the sampled tokens once per step and the table when a request
@@ -244,7 +249,12 @@ class EngineBackend:
     may update the cache in place.  ``init_cache(batch, pos_per_slot)``
     builds a fresh cache pytree on ``device`` whose leaves carry the batch
     dim at axis 0, plus a ``pos`` leaf — ``(batch,)`` when
-    ``pos_per_slot``.
+    ``pos_per_slot``.  ``prefill(params, cache, toks, lengths)``, where
+    given, runs ``(k, bucket)`` int32 prompts padded to the bucket through
+    the model in one pass over a fresh k-row cache and returns ``((k, V)
+    float32 logits at each row's ``lengths - 1``, cache)``, the cache's
+    K/V rows ``[0, bucket)`` written as the decode step run over the
+    bucket writes them; ``None`` makes the engine run that decode loop.
     """
 
     decode: Callable[[Any, Any, torch.Tensor], Tuple[torch.Tensor, Any]]
@@ -252,6 +262,8 @@ class EngineBackend:
     params: Any
     vocab_size: int
     device: torch.device
+    prefill: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
+                               Tuple[torch.Tensor, Any]]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -467,9 +479,10 @@ class ContinuousEngine:
             self._retire(retire, events, now)
 
     def _admit_chunk(self, jobs, bucket: int) -> Dict[int, int]:
-        """Prefill up to k same-bucket requests together (the decode step
-        run over the bucket's tokens), write their caches into the rolling
-        cache at their slots, and return each request's first token."""
+        """Prefill up to k same-bucket requests together (one backend
+        ``prefill`` call, or the decode step run over the bucket's tokens),
+        write their caches into the rolling cache at their slots, and
+        return each request's first token."""
         cfg, dev = self.config, self._device
         k = len(jobs)
         toks = np.full((k, bucket), cfg.pad_id, np.int32)
@@ -482,13 +495,18 @@ class ContinuousEngine:
         toks_t = torch.from_numpy(toks).to(dev)
         lengths_t = torch.from_numpy(lengths).to(dev)
         self._ran(f"prefill_k{k}_b{bucket}", toks_t)
-        cachek = self.backend.init_cache(k, True)
-        last = torch.zeros((k, self.backend.vocab_size), dtype=torch.float32,
-                           device=dev)
-        for i in range(bucket):
-            logits, cachek = self.backend.decode(self.backend.params, cachek,
-                                                 toks_t[:, i:i + 1])
-            last = torch.where((lengths_t - 1 == i)[:, None], logits, last)
+        be = self.backend
+        cachek = be.init_cache(k, True)
+        if be.prefill is not None:
+            last, cachek = be.prefill(be.params, cachek, toks_t, lengths_t)
+        else:
+            last = torch.zeros((k, be.vocab_size), dtype=torch.float32,
+                               device=dev)
+            for i in range(bucket):
+                logits, cachek = be.decode(be.params, cachek,
+                                           toks_t[:, i:i + 1])
+                last = torch.where((lengths_t - 1 == i)[:, None], logits,
+                                   last)
         sampled = self._sample_rows(last, seeds, np.zeros((k,), np.int64))
         rows = metric_rows(last, sampled, cfg.eos_id)
 

@@ -1,5 +1,6 @@
 """Tests that need the card: the CUDA kernels against their plain versions,
-and the serving, stream-stats and MapReduce paths through them.  They import no JAX (the card's machine
+and the serving (prefill and decode), stream-stats and MapReduce paths
+through them.  They import no JAX (the card's machine
 has none) and skip without a GPU; run them there with
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -12,6 +13,8 @@ import torch.utils._pytree as pytree
 
 from repro_torch.kernels import segment_fold, segment_fold_plain
 from repro_torch.kernels.cms import cms_counts, cms_counts_plain
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.stripes import stripe_counts, stripe_counts_plain
 
 
@@ -205,3 +208,71 @@ def test_cuda_mapreduce_jobs(cuda_device, strategy):
                                                  vals.double().cpu(), "amax")
         torch.testing.assert_close(out.cpu().double(), oracle, rtol=0,
                                    atol=1e-5)
+
+
+# chip_smoke.py's flash cases a (the prefill path's shape), e (ragged
+# edges) and f (Sq != Sk: the top-left mask): (B, H, KV, Sq, Sk, d)
+FLASH_CASES = {"a": (4, 16, 8, 64, 64, 128), "e": (2, 4, 2, 100, 100, 64),
+               "f": (1, 4, 2, 64, 192, 128)}
+
+
+def _qkv(gen, dev, B, H, KV, Sq, Sk, d, dtype):
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [
+    (torch.float32, 1e-4),      # the same f32 sums in another order
+    (torch.bfloat16, 3e-2)])    # one bf16 ulp of |o| ~ 2-4 on the rounding
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype, atol):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = _qkv(gen, cuda_device, *FLASH_CASES[case], dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    # the model's (B, S, heads, d) layout, read through the strides
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    strided = flash_attention(*views, causal=True)
+    assert strided.stride() == views[0].stride()
+    assert torch.equal(strided, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 48, 96, 256])
+def test_cuda_flash_attention_head_dims(cuda_device, d, causal):
+    """Every head-dim bucket of the kernel (32, 64, 128, 256; d padded up
+    to it) on a ragged length, float32."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = _qkv(gen, cuda_device, 2, 6, 3, 70, 70, d, torch.float32)
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_launches_flash_once_per_layer(cuda_device):
+    """A full-width qwen3-0.6b engine run: every prefill call launches the
+    flash-attention kernel once per layer (28), every decode step the
+    segment fold once."""
+    from repro_torch.serving import ServeConfig, build_engine
+
+    config = ServeConfig(arch="qwen3-0.6b", full=True, num_slots=4,
+                         prefill_buckets=(16, 32), max_new_tokens=4,
+                         prefill_batch=2)
+    eng = build_engine(config, device=cuda_device)
+    flash0, fold0 = flash_attention.launches, segment_fold.launches
+    for prompt in ([5, 9, 2, 7], [11, 3] * 9, [6, 6, 6], list(range(1, 30))):
+        eng.submit(prompt)
+    for _ in eng.run(max_steps=50):
+        pass
+    torch.cuda.synchronize()
+    assert eng.stats.prefill_calls >= 2 and eng.stats.completed == 4
+    assert flash_attention.launches - flash0 == 28 * eng.stats.prefill_calls
+    assert segment_fold.launches - fold0 == eng.stats.steps

@@ -38,6 +38,7 @@ def test_scan_sees_the_whole_port():
     assert "src/repro_torch/runtime/engine.py" in names
     for module in ("core/mapreduce.py", "data/__init__.py",
                    "data/pipeline.py", "data/stats.py", "kernels/cms.py",
+                   "kernels/flash_attention.py",
                    "kernels/stripes.py", "kernels/_build.py",
                    "examples/quickstart.py",
                    "examples/streaming_analytics.py"):

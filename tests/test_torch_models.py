@@ -1,5 +1,13 @@
 """The port's dense transformer vs the JAX package's, on the same weights.
 
+The full-sequence ``forward`` (attention through ``flash_attention``'s plain
+version on the CPU) against ``repro.models.forward`` in its XLA and chunked
+``attn_state`` forms, final hidden states at atol=1e-4 in float32; in bf16
+each package is held against its own float32 as the decode test below is.
+The one-pass ``prefill`` against the JAX engine's prefill, the decode step
+scanned over the padded bucket: every cache row of every layer at 1e-5,
+the logits at ``lengths - 1`` at 1e-4.
+
 The qwen3-0.6b smoke config (4 layers, d_model 64, GQA 4/2, qk-norm, tied
 embeddings) initialised by the JAX package, carried over with
 ``params_from_jax``, then ``decode_step`` on both sides for 6 steps at
@@ -21,11 +29,14 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import decode_step as jax_decode_step
+from repro.models import forward as jax_forward
 from repro.models import init_cache as jax_init_cache
 from repro.models import init_params as jax_init_params
+from repro.models.transformer import RunCtx
 from repro_torch.configs import get_config
-from repro_torch.models import (decode_step, init_cache, init_params,
-                                num_params, params_from_jax)
+from repro_torch.models import (decode_step, forward, init_cache,
+                                init_params, num_params, params_from_jax,
+                                prefill)
 from repro_torch.models.attention import cache_span_update
 from repro_torch.models.common import rms_norm, rotary_embed
 
@@ -156,3 +167,80 @@ def test_other_families_are_later_slices():
                               layer_pattern=("mamba",))
     with pytest.raises(NotImplementedError, match="dense family"):
         init_params(cfg, torch.Generator(), device="cpu")
+
+
+FWD_B, FWD_S = 2, 12
+
+
+def _forward_both(jdtype, tdtype):
+    """{attn_chunk: JAX hidden states}, the port's, as float32 numpy."""
+    jcfg, tcfg, jparams, tparams = _pair(jdtype, tdtype)
+    toks = np.random.default_rng(2).integers(
+        0, jcfg.vocab_size, (FWD_B, FWD_S)).astype(np.int32)
+    want = {}
+    for chunk in (None, FWD_S // 2):
+        h, _ = jax_forward(jparams, jcfg, jnp.asarray(toks),
+                           ctx=RunCtx(attn_chunk=chunk))
+        want[chunk] = np.asarray(h.astype(jnp.float32))
+    got = forward(tparams, tcfg, torch.from_numpy(toks))
+    assert got.dtype == tdtype and got.shape == (FWD_B, FWD_S, jcfg.d_model)
+    return want, got.float().numpy()
+
+
+@pytest.fixture(scope="module")
+def float32_forward():
+    return _forward_both(jnp.float32, torch.float32)
+
+
+@pytest.mark.parametrize("chunk", [None, FWD_S // 2])
+def test_forward_matches_jax_float32(float32_forward, chunk):
+    want, got = float32_forward
+    np.testing.assert_allclose(got, want[chunk], rtol=0, atol=1e-4)
+
+
+def test_forward_matches_jax_bfloat16(float32_forward):
+    """Each package's bf16 hidden states against its own float32: the
+    port's no further off than the JAX package's (x1.25), and the two bf16
+    results within 5e-2 of each other."""
+    want32, got32 = float32_forward
+    want, got = _forward_both(jnp.bfloat16, torch.bfloat16)
+    ref_j = np.abs(want[None] - want32[None])
+    ref_t = np.abs(got - got32)
+    assert ref_t.mean() <= 1.25 * ref_j.mean()
+    assert ref_t.max() <= 1.25 * ref_j.max()
+    assert np.abs(got - want[None]).max() <= 5e-2
+
+
+def test_prefill_matches_the_jax_engines_scan():
+    """k=2 prompts of ragged lengths padded to a bucket of 8: the JAX
+    engine's prefill (the decode step scanned over the bucket, the logits
+    kept at each row's last prompt token) against the port's one pass."""
+    jcfg, tcfg, jparams, tparams = _pair(jnp.float32, torch.float32)
+    k, bucket, max_seq = 2, 8, 14
+    lengths = np.array([5, 8], np.int32)
+    rng = np.random.default_rng(4)
+    toks = np.zeros((k, bucket), np.int32)             # pad id 0
+    for r, n in enumerate(lengths):
+        toks[r, :n] = rng.integers(1, jcfg.vocab_size, n)
+
+    jcache = jax_init_cache(jparams, jcfg, k, max_seq, pos_per_slot=True)
+    step = jax.jit(lambda p, c, t: jax_decode_step(p, jcfg, c, t))
+    last = np.zeros((k, jcfg.vocab_size), np.float32)
+    for i in range(bucket):
+        logits, jcache = step(jparams, jcache, jnp.asarray(toks[:, i:i + 1]))
+        last = np.where((lengths - 1 == i)[:, None],
+                        np.asarray(logits[:, -1]), last)
+
+    tcache = init_cache(tparams, tcfg, k, max_seq, pos_per_slot=True)
+    got, tcache = prefill(tparams, tcfg, tcache, torch.from_numpy(toks),
+                          torch.from_numpy(lengths))
+    assert got.dtype == torch.float32 and got.shape == (k, jcfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), last, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(tcache["pos"].numpy(), [bucket] * k)
+    np.testing.assert_array_equal(np.asarray(jcache["pos"]), [bucket] * k)
+    for name in ("k", "v"):
+        want = np.asarray(jcache["layers"]["slot_0"][name])   # (L, k, S, ...)
+        for layer in range(jcfg.num_layers):
+            np.testing.assert_allclose(
+                tcache["layers"][layer][name].numpy(), want[layer],
+                rtol=0, atol=1e-5, err_msg=f"layer {layer} {name}")

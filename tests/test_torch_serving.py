@@ -167,3 +167,24 @@ def test_build_engine_serves_random_weights_on_cpu():
     res = eng.result(uid)
     assert 1 <= len(res.tokens) <= 3 and np.isfinite(res.logprob_sum)
     assert sum(eng.compile_counts().values()) <= eng.compile_bound()
+
+
+def test_one_pass_prefill_equals_the_decode_loop(weights):
+    """The dense backend's one-pass prefill against the engine's decode loop
+    (what a backend without ``prefill`` gets): the same tokens, slots, stop
+    steps, stats and program shapes, logprob sums within 1e-4."""
+    _, tcfg, _, tparams = weights
+    config = ServeConfig(**{**CONFIG, "eos_id": -1})
+    backend = make_backend(tcfg, tparams, config, "cpu")
+    assert backend.prefill is not None
+    one_pass = ContinuousEngine(backend, config)
+    looped = ContinuousEngine(dataclasses.replace(backend, prefill=None),
+                              config)
+    want, got = _serve(looped, TRACE), _serve(one_pass, TRACE)
+    for w, g in zip(want, got):
+        assert (g.tokens, g.slot, g.stop_step) == (w.tokens, w.slot,
+                                                    w.stop_step)
+        assert abs(g.logprob_sum - w.logprob_sum) <= 1e-4
+    assert dataclasses.asdict(one_pass.stats) == \
+        dataclasses.asdict(looped.stats)
+    assert one_pass.compile_counts() == looped.compile_counts()
