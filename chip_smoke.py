@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py [--seed 0] [--requests 16]
+  python3 chip_smoke.py [--seed 0] [--requests 16] [--serve-only]
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -10,18 +10,21 @@ Phases, each of which must pass or the script exits non-zero:
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once,
    sm_90a), launch each at real sizes and at each path's shapes (for
    ``segment_fold``: serve, ``packed_stats``, max-by-key; for
-   ``flash_attention``: the prefill's 4 x 64 bucket, S 4096, ragged and
-   Sq != Sk), and hold it against its plain PyTorch version; time kernel,
-   plain version and the one-call PyTorch yardstick with CUDA events.
+   ``flash_attention``: the prefill's 4 x 64 bucket in bf16 and f16, S
+   4096, ragged, Sq != Sk, head_dim 8), and hold it against its plain
+   PyTorch version (16-bit attention also against two lower-precision
+   controls it must be told apart from); time kernel, plain version and
+   the one-call PyTorch yardstick with CUDA events.
 3. serve: ``build_engine`` for qwen3-0.6b at full width (28 layers, bf16,
    random weights from ``--seed``) answers ``--requests`` requests; each
    decode step's metrics fold must have launched ``segment_fold`` once,
    and each prefill call ``flash_attention`` once per layer.  Then one
-   decode step's eager wall time against its CUDA-graph replay, and one
-   (4, 64) prefill's eager wall time.
+   decode step's eager wall time against its CUDA-graph replay, one
+   (4, 64) prefill's eager wall time, and an engine step and the sampler
+   alone at temperature 0 and 0.8.
 4. reference: a small float32 model served on the card (prefill through
    the ``flash_attention`` kernel) and on the CPU (its plain version) with
-   the same weights gives the same tokens.
+   the same weights gives the same tokens, greedy and at temperature 0.8.
 5. stream stats: ``update_stats`` over 16 ragged ``SyntheticCorpus``
    batches at qwen3-0.6b's training data shape (vocab 151936, seq 4096,
    global batch 128): one ``cms_update`` launch per batch, one
@@ -56,9 +59,13 @@ import torch
 import torch.utils._pytree as pytree
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
-# dense peaks of an H100 SXM (data sheet): bf16 on the tensor cores, float32
-# on the CUDA cores
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# dense peaks of an H100 SXM (data sheet): bf16 and f16 on the tensor cores.
+# float32 at the f32 contract's cheapest rate on this card: three bf16
+# tensor-core products per product (989e12 / 3), which beats the CUDA cores'
+# 67e12; TF32 (495e12) rounds the inputs to 10 mantissa bits, so it is not
+# that contract
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 989e12 / 3}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_HERE, "src"))
@@ -83,6 +90,31 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, repeat: int = 3) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed (the host's launch gaps removed); best of
+    ``repeat`` replays."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(repeat):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def max_err(a, b) -> float:
@@ -389,16 +421,56 @@ def decode_breakdown(engine, iters: int = 20) -> None:
     print(f"prefill ({k} x {bucket}, full width, one pass): eager_wall_ms="
           f"{prefill_ms} against {bucket} eager decode steps = "
           f"{bucket * eager_ms} ms", flush=True)
+    for temperature in (0.0, 0.8, 0.0, 0.8):
+        step, sample = engine_step_ms(engine, temperature, iters)
+        print(f"engine step ({S} slots busy, full width, temperature "
+              f"{temperature}): eager_wall_ms={step} sampler_wall_ms="
+              f"{sample}", flush=True)
+
+
+def engine_step_ms(engine, temperature: float, iters: int):
+    """Eager wall times at ``temperature`` on the serve engine's backend:
+    one ``ContinuousEngine.step`` (decode, sampling, metrics fold, host
+    bookkeeping) with every slot busy, and the engine's sampler alone on
+    (slots, vocab) logits."""
+    from repro_torch.serving import ContinuousEngine
+
+    config = dataclasses.replace(engine.config, temperature=temperature,
+                                 max_new_tokens=iters + 4)
+    eng = ContinuousEngine(engine.backend, config)
+    for i in range(config.num_slots):
+        eng.submit(list(range(1 + i, 9 + i)))
+    for _ in range(2):           # admission (prefill) and a warm step
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+
+    S = config.num_slots
+    logits = 3 * torch.randn((S, engine.backend.vocab_size),
+                             device=engine.backend.device)
+    seeds, tok_idx = np.arange(S, dtype=np.int64), np.full((S,), 5, np.int64)
+    eng._sample_rows(logits, seeds, tok_idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        eng._sample_rows(logits, seeds, tok_idx)
+    torch.cuda.synchronize()
+    return step_ms, (time.perf_counter() - t0) / iters * 1e3
 
 
 def serve_reference(args):
-    """A float32 smoke model on the card vs the same weights on the CPU."""
+    """A float32 smoke model on the card vs the same weights on the CPU,
+    greedy and sampled (temperature 0.8: the threefry stream is the same
+    on both devices)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import init_params
     from repro_torch.serving import ContinuousEngine, ServeConfig, make_backend
 
-    config = ServeConfig(num_slots=3, prefill_buckets=(8, 16),
-                         max_new_tokens=6, prefill_batch=2, seed=args.seed)
     cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
                               dtype=torch.float32)
     gen = torch.Generator().manual_seed(args.seed)
@@ -407,32 +479,39 @@ def serve_reference(args):
     rng = np.random.default_rng(args.seed + 1)
     prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(3, 16)))
                .tolist() for _ in range(7)]
-    from repro_torch.kernels.flash_attention import flash_attention
 
-    out = {}
-    for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
-        eng = ContinuousEngine(make_backend(cfg, params, config, dev), config)
-        uids = [eng.submit(p) for p in prompts]
-        before = flash_attention.launches
-        for _ in eng.run(max_steps=200):
-            pass
-        launched = flash_attention.launches - before
-        want = cfg.num_layers * eng.stats.prefill_calls if dev == "cuda" \
-            else 0
-        if launched != want:
-            raise RuntimeError(f"{dev}: flash_attention launched {launched} "
-                               f"times, expected {want}")
-        out[dev] = [eng.result(u) for u in uids]
-    worst = 0.0
-    for a, b in zip(out["cpu"], out["cuda"]):
-        if a.tokens != b.tokens or a.stopped != b.stopped:
-            raise RuntimeError(f"cuda tokens {b.tokens} != cpu {a.tokens}")
-        worst = max(worst, abs(a.logprob_sum - b.logprob_sum))
-    if worst > 1e-3:
-        raise RuntimeError(f"logprob sums differ by {worst} (> 1e-3)")
-    print(f"reference: f32 smoke model, {len(prompts)} requests, cuda tokens "
-          f"(prefill on the flash_attention kernel) == cpu tokens (its plain "
-          f"version), max |logprob_sum diff| = {worst}", flush=True)
+    for temperature in (0.0, 0.8):
+        config = ServeConfig(num_slots=3, prefill_buckets=(8, 16),
+                             max_new_tokens=6, prefill_batch=2,
+                             seed=args.seed, temperature=temperature)
+        out = {}
+        for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+            eng = ContinuousEngine(make_backend(cfg, params, config, dev),
+                                   config)
+            uids = [eng.submit(p) for p in prompts]
+            before = flash_attention.launches
+            for _ in eng.run(max_steps=200):
+                pass
+            launched = flash_attention.launches - before
+            want = cfg.num_layers * eng.stats.prefill_calls \
+                if dev == "cuda" else 0
+            if launched != want:
+                raise RuntimeError(f"{dev}: flash_attention launched "
+                                   f"{launched} times, expected {want}")
+            out[dev] = [eng.result(u) for u in uids]
+        worst = 0.0
+        for a, b in zip(out["cpu"], out["cuda"]):
+            if a.tokens != b.tokens or a.stopped != b.stopped:
+                raise RuntimeError(f"temperature {temperature}: cuda tokens "
+                                   f"{b.tokens} != cpu {a.tokens}")
+            worst = max(worst, abs(a.logprob_sum - b.logprob_sum))
+        if worst > 1e-3:
+            raise RuntimeError(f"temperature {temperature}: logprob sums "
+                               f"differ by {worst} (> 1e-3)")
+        print(f"reference: f32 smoke model, temperature {temperature}, "
+              f"{len(prompts)} requests, cuda tokens (prefill on the "
+              f"flash_attention kernel) == cpu tokens (its plain version), "
+              f"max |logprob_sum diff| = {worst}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -557,9 +636,20 @@ FLASH_CASES = [
      64, torch.float32, True),
     ("f: B1 Sq64 Sk192 H4/KV2 d128 f32 causal (top-left)", 1, 4, 2, 64, 192,
      128, torch.float32, True),
+    ("g: qwen2.5-14b smoke heads B2 S100 H8/KV2 d8 bf16 causal", 2, 8, 2, 100,
+     100, 8, torch.bfloat16, True),
+    ("h: case a in f16 B4 S64 H16/KV8 d128 causal", 4, 16, 8, 64, 64, 128,
+     torch.float16, True),
 ]
-# f32: the same f32 sums in another order; bf16: one bf16 ulp of |o| ~ 2-4
-FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# f32: the same f32 sums in another order; bf16: one bf16 ulp of |o| ~ 2-4;
+# f16: two f16 ulps of |o| ~ 2-4, below the error of the same inputs run at
+# bf16 precision (checked per f16 case)
+FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2,
+              torch.float16: 4e-3}
+# 16-bit inputs: the largest share of output elements that may differ from
+# the plain version's; a kernel that rounded p to one 16-bit value (the
+# control, checked per case) differs in more
+FLASH_DIFFER_SHARE = 0.02
 
 
 def flash_work(B, H, Sq, Sk, d, causal):
@@ -568,6 +658,27 @@ def flash_work(B, H, Sq, Sk, d, causal):
     i = np.arange(Sq)
     pairs = int(np.minimum(i + 1, Sk).sum()) if causal else Sq * Sk
     return 4 * B * H * pairs * d
+
+
+def plain_p_rounded(q, k, v, causal):
+    """The plain contract with p rounded once to q's 16-bit dtype before
+    p v: what a kernel without the p_hi + p_lo split computes."""
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qf = q.to(torch.float32).reshape(B, KV, H // KV, Sq, d)
+    kf = k.to(torch.float32)[:, :, None]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    if causal:
+        pos = torch.arange(max(Sq, Sk), device=q.device)
+        s = s.masked_fill(pos[None, :Sk] > pos[:Sq, None], -math.inf)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(p.to(q.dtype).to(torch.float32),
+                     v.to(torch.float32)[:, :, None])
+    return (o / p.sum(dim=-1, keepdim=True)).reshape(B, H, Sq, d).to(q.dtype)
+
+
+def differ_share(a, b) -> float:
+    return float((a != b).float().mean())
 
 
 def run_flash_case(case, gen, dev) -> dict:
@@ -590,25 +701,42 @@ def run_flash_case(case, gen, dev) -> dict:
     err = max_err(got, ref)
     atol = FLASH_ATOL[dtype]
     ok = err <= atol
+    controls = {}
+    if dtype != torch.float32:
+        # the checks must be able to fail a lower precision: p rounded to
+        # one 16-bit value, and (f16) the same inputs run at bf16 precision
+        share = differ_share(got, ref)
+        controls["differ_share"] = share
+        controls["p_rounded_share"] = differ_share(
+            plain_p_rounded(q, k, v, causal), ref)
+        ok &= share <= FLASH_DIFFER_SHARE < controls["p_rounded_share"]
+        if dtype == torch.float16:
+            at_bf16 = flash_attention(q.bfloat16(), k.bfloat16(),
+                                      v.bfloat16(), causal=causal)
+            controls["bf16_err"] = max_err(at_bf16.to(dtype), ref)
+            ok &= controls["bf16_err"] > atol
     iters = 5 if Sq >= 1024 else 50
     ms = cuda_ms(kernel, iters)
+    device_ms = graph_ms(kernel)
     plain_ms = cuda_ms(plain, iters)
-    library_ms = None
+    library_ms = library_device_ms = None
     if Sq == Sk:     # the yardstick's is_causal mask is ours only at Sq == Sk
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True)
         library_ms = cuda_ms(library, iters)
+        library_device_ms = graph_ms(library)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = flash_work(B, H, Sq, Sk, d, causal)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     return dict(name=name, ok=ok, max_abs_err=err, tolerance=f"atol={atol}",
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                device_ms=device_ms, library_device_ms=library_device_ms,
                 bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
                 flops=flops,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                path=name.startswith("a:"))
+                controls=controls, path=name.startswith("a:"))
 
 
 def print_row(kernel: str, row: dict) -> None:
@@ -807,6 +935,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--serve-only", action="store_true",
+                    help="run phases 1 and 3 only and print no record (to "
+                         "compare the serve path of two checkouts, each "
+                         "with this script at its root, in one session)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -831,6 +963,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if args.serve_only:
+        serve_full(args, segment_fold, flash_attention)
+        print(f"card: {card}")
+        return 0
 
     # phase 2: build from the checkout's sources, then kernel vs plain
     t0 = time.perf_counter()
@@ -885,7 +1021,10 @@ def main(argv=None) -> int:
     flash_rows = [run_flash_case(case, gen, dev) for case in FLASH_CASES]
     for row in flash_rows:
         print_row("flash_attention", row)
-        print(f"  flops={row['flops']} bytes={row['bound_bytes']}",
+        print(f"  flops={row['flops']} bytes={row['bound_bytes']} "
+              f"device_ms={row['device_ms']} (graph replay; SDPA "
+              f"{row['library_device_ms']})"
+              + "".join(f" {k}={v}" for k, v in row["controls"].items()),
               flush=True)
     torch.cuda.empty_cache()
     bad = [r["name"] for r in rows + cms_rows + stripes_rows + flash_rows

@@ -8,13 +8,14 @@ C++ for ``sm_90a``, built with ``nvcc`` at first use into
 What bounds it: at the serving path's prefill shape (4 prompts x 64 tokens,
 16 / 8 heads of 128, bf16) it moves 3 MB of q, k, v and o against ~68 MFLOP,
 so bytes bound it (and in practice the launch); at long sequences (4096) it
-is ~69 GFLOP against 50 MB, so operations bound it.  The design keeps what
-the TPU kernel keeps out of device memory: one block per (batch*head, query
-tile) loops over the KV tiles with the running (m, l, o) in registers, so
-no score matrix reaches device memory, and reads the shared KV head by
-index (no repeated KV).  Its products are f32 FMAs on the CUDA cores (the
-simple version; see the source's header), which puts it far from the
-operations bound at long S.
+is ~69 GFLOP against 50 MB, so the tensor cores' rate bounds it.  The design
+keeps what the TPU kernel keeps out of device memory: one block per (batch,
+head, query tile) loops over the KV tiles with the running (m, l, o) in
+registers, so no score matrix reaches device memory, and reads the shared KV
+head by index (no repeated KV).  Its products run on the tensor cores
+(``mma.sync``), with the softmax weights split into two 16-bit halves and
+float32 inputs into three bf16 products, so the float32 contract below
+holds (see the source's header).
 
 :func:`flash_attention` is the counted wrapper the model's full-sequence
 attention calls: on a CUDA tensor it launches the kernel (or raises), on a
@@ -22,14 +23,15 @@ CPU tensor it runs :func:`flash_attention_plain`.
 ``flash_attention.launches`` counts kernel launches.
 
 Contract (the Pallas kernel's): q ``(B, H, Sq, d)``, k and v ``(B, KV, Sk,
-d)`` with ``H % KV == 0``, all float32 or all bfloat16, ``d`` in 16..256 and
-a multiple of 16.  Inputs are cast up to float32, scores and softmax
-weights stay float32, the output ``o / max(l, 1e-30)`` comes back in q's
-dtype.  ``causal`` masks top-left, ``k_pos <= q_pos``.  Unlike the Pallas
-kernel, any ``Sq`` and ``Sk`` are taken (no block-multiple assert), and the
-kernel reads any batch / head / row strides with a unit-stride last axis:
-the model hands it its ``(B, S, H, d)`` projections transposed as views,
-and the output has q's memory layout.
+d)`` with ``H % KV == 0``, all float32, all bfloat16 or all float16, any
+``d`` in 1..256 (the reference's attention takes any head dim and float
+type).  Inputs are cast up to float32, scores and softmax weights stay
+float32, the output ``o / max(l, 1e-30)`` comes back in q's dtype.
+``causal`` masks top-left, ``k_pos <= q_pos``.  Unlike the Pallas kernel,
+any ``Sq`` and ``Sk`` are taken (no block-multiple assert), and the kernel
+reads any batch / head / row strides with a unit-stride last axis: the model
+hands it its ``(B, S, H, d)`` projections transposed as views, and the
+output has q's memory layout.
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ LIBRARY = CudaLibrary("flash_attention", {"flash_attention_launch": [
     _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
     ctypes.c_float, _I, _P]})
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_HEAD_DIM = 256      # the largest attention head of any config (gemma3)
 PLAIN_BLOCK_K = 128     # the Pallas kernel's default KV block
 
 
@@ -66,11 +69,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"heads ({KV})")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
             v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must all be float32 or all bfloat16; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not (16 <= d <= 256 and d % 16 == 0):
-        raise ValueError(f"head_dim must be a multiple of 16 in [16, 256]; "
-                         f"got {d}")
+        raise TypeError(f"q, k, v must be all float32, all bfloat16 or all "
+                        f"float16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be in [1, {MAX_HEAD_DIM}]; got {d}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,19 +124,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError("q, k and v must share a device")
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return flash_attention(q, k, v, causal=causal)
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
     out = torch.empty_like(q)      # q's layout (dense q) or contiguous
     B, H, Sq, d = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if B == 0 or Sq == 0:
         return out
-    with torch.cuda.device(dev):
-        err = LIBRARY.load().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], 1.0 / math.sqrt(d), int(causal),
-            torch.cuda.current_stream(dev).cuda_stream)
+    # the raw handle of the current stream (the one the inductor's launchers
+    # read): torch.cuda.current_stream() builds a Stream object per call
+    err = LIBRARY.load().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], 1.0 / math.sqrt(d), int(causal),
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} (q {tuple(q.shape)}, k "

@@ -102,7 +102,9 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return F.silu(x) if cfg.act_fn == "silu" else F.gelu(x)
+    if cfg.act_fn == "silu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")    # jax.nn.gelu's default
 
 
 def dense_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,7 @@ import torch.utils._pytree as pytree
 
 from ..core import monoids
 from ..core.plan import Plan, execute_fold, plan_fold
+from . import prng
 from .batcher import Request, RequestBatcher
 
 # ---------------------------------------------------------------------------
@@ -300,15 +301,6 @@ class _SlotState:
         return len(self.tokens)
 
 
-def _mix_seed(base: int, seed: int, index: int) -> int:
-    """One 63-bit generator seed per (engine seed, request seed, token)."""
-    h = 0x9E3779B97F4A7C15
-    for v in (base, seed, index):
-        h = ((h ^ (int(v) & 0xFFFFFFFFFFFFFFFF)) * 0x100000001B3) \
-            & 0xFFFFFFFFFFFFFFFF
-    return h & 0x7FFFFFFFFFFFFFFF
-
-
 class ContinuousEngine:
     """Admit and retire requests *mid-decode* over rolling request slots.
 
@@ -373,15 +365,16 @@ class ContinuousEngine:
         temp = self.config.temperature
         if temp <= 0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
-        # per-request streams (seed, token index): sampling is independent
-        # of slot assignment and neighbours
-        probs = torch.softmax(logits.to(torch.float32) / temp, dim=-1)
-        out = []
-        for b in range(logits.shape[0]):
-            gen = torch.Generator(device=logits.device)
-            gen.manual_seed(_mix_seed(self.config.seed, seeds[b], tok_idx[b]))
-            out.append(torch.multinomial(probs[b], 1, generator=gen))
-        return torch.cat(out).to(torch.int32)
+        # the JAX engine's per-request key streams: fold_in(fold_in(
+        # PRNGKey(seed), request seed), token index), then categorical --
+        # independent of slot assignment and neighbours, and the same
+        # stream on every device; all rows at once
+        dev = logits.device
+        key = prng.fold_in(prng.fold_in(prng.prng_key(self.config.seed, dev),
+                                        torch.from_numpy(seeds).to(dev)),
+                           torch.from_numpy(tok_idx).to(dev))
+        return prng.categorical(key, logits.to(torch.float32) / temp
+                                ).to(torch.int32)
 
     # -- request lifecycle ---------------------------------------------------
 

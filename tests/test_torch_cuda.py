@@ -211,9 +211,10 @@ def test_cuda_mapreduce_jobs(cuda_device, strategy):
 
 
 # chip_smoke.py's flash cases a (the prefill path's shape), e (ragged
-# edges) and f (Sq != Sk: the top-left mask): (B, H, KV, Sq, Sk, d)
+# edges), f (Sq != Sk: the top-left mask) and g (qwen2.5-14b's smoke heads,
+# head_dim 8): (B, H, KV, Sq, Sk, d)
 FLASH_CASES = {"a": (4, 16, 8, 64, 64, 128), "e": (2, 4, 2, 100, 100, 64),
-               "f": (1, 4, 2, 64, 192, 128)}
+               "f": (1, 4, 2, 64, 192, 128), "g": (2, 8, 2, 100, 100, 8)}
 
 
 def _qkv(gen, dev, B, H, KV, Sq, Sk, d, dtype):
@@ -224,7 +225,8 @@ def _qkv(gen, dev, B, H, KV, Sq, Sk, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [
     (torch.float32, 1e-4),      # the same f32 sums in another order
-    (torch.bfloat16, 3e-2)])    # one bf16 ulp of |o| ~ 2-4 on the rounding
+    (torch.bfloat16, 3e-2),     # one bf16 ulp of |o| ~ 2-4 on the rounding
+    (torch.float16, 4e-3)])     # two f16 ulps of |o| ~ 2-4
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype, atol):
     gen = torch.Generator(device=cuda_device).manual_seed(5)
@@ -245,15 +247,28 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype, atol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [16, 48, 96, 256])
+@pytest.mark.parametrize("d", [8, 16, 24, 48, 96, 256])
 def test_cuda_flash_attention_head_dims(cuda_device, d, causal):
     """Every head-dim bucket of the kernel (32, 64, 128, 256; d padded up
-    to it) on a ragged length, float32."""
+    to a multiple of 16 inside it) on a ragged length, float32."""
     gen = torch.Generator(device=cuda_device).manual_seed(d)
     q, k, v = _qkv(gen, cuda_device, 2, 6, 3, 70, 70, d, torch.float32)
     got = flash_attention(q, k, v, causal=causal)
     want = flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 13])
+def test_cuda_flash_attention_unaligned_rows(cuda_device, d):
+    """Rows of 3 or 13 bf16 (no 16-byte chunks) and a sliced, offset base:
+    the element-wise load path."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = _qkv(gen, cuda_device, 2, 4, 2, 50, 50, d + 1, torch.bfloat16)
+    q, k, v = q[..., 1:], k[..., 1:], v[..., 1:]
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=3e-2)
 
 
 @pytest.mark.cuda

@@ -6,8 +6,9 @@ through ``repro_torch.kernels.ops.flash_attn`` against
 ``repro.kernels.ops.flash_attn`` (the Pallas kernel in interpret mode) on
 the same numpy inputs: float32 at atol = rtol = 1e-5 (the same f32
 arithmetic, blocks folded in another order), bfloat16 at 5e-2 (the JAX
-test's own tolerance: the two frameworks round the bf16 output of slightly
-different f32 sums).  The causal mask is top-left, as the Pallas kernel's;
+test's own bf16 tolerance: the two frameworks round the 16-bit output of
+slightly different f32 sums), float16 at atol 4e-3 (two f16 ulps of
+|o| ~ 2-4).  Any head dim 1..256 is taken.  The causal mask is top-left, as the Pallas kernel's;
 ``ref.flash_attention_ref`` (bottom-right) is compared at Sq == Sk only.
 """
 import ctypes
@@ -90,6 +91,26 @@ def test_matches_pallas_bfloat16(B, H, KV, S, d, bq, bk, causal):
                                atol=5e-2)
 
 
+# head dims no multiple of 16 (the qwen2.5-14b / starcoder2-15b smoke
+# configs' 8, deepseek-v2's 24) and float16, which the Pallas kernel casts to
+# float32 like any float: (d, dtype, atol).  float16 is held to two f16
+# ulps of |o| ~ 2-4: bf16 precision (2^-9 of |o|) would not pass.
+WIDE_CASES = [(8, "float32", 1e-5), (24, "float32", 1e-5),
+              (8, "bfloat16", 5e-2), (64, "float16", 4e-3)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dtype,tol", WIDE_CASES)
+def test_any_head_dim_and_float_type_match_pallas(d, dtype, tol, causal):
+    q, k, v = _qkv(31 + d, 2, 8, 2, 64, 64, d)
+    tdtype = getattr(torch, dtype)
+    got = ops.flash_attn(*_torch(q, k, v, dtype=tdtype), causal=causal)
+    assert got.dtype == tdtype and got.shape == (2, 8, 64, d)
+    want = _pallas(q, k, v, causal=causal, bq=32, bk=32,
+                   dtype=getattr(jnp, dtype))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
 @pytest.mark.parametrize("Sq,Sk,block", [(64, 128, 64), (128, 64, 64),
                                           (100, 100, 100)])
 def test_topleft_alignment_and_ragged_lengths_match_pallas(Sq, Sk, block):
@@ -158,16 +179,16 @@ def test_cpu_runs_the_plain_version_without_a_launch():
 def test_contract_errors():
     q, k, v = _torch(*_qkv(2, 1, 4, 2, 8, 8, 32))
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(q[..., :24], k[..., :24], v[..., :24])
+        flash_attention(*(torch.zeros((1, 2, 4, 272)),) * 3)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_plain(*(torch.zeros((1, 2, 4, 272)),) * 3)
     with pytest.raises(ValueError, match="multiple of the KV"):
         flash_attention(q[:, :3], k, v)
-    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+    with pytest.raises(TypeError, match="all float32, all bfloat16"):
         flash_attention(q.to(torch.int32), k.to(torch.int32),
                         v.to(torch.int32))
-    with pytest.raises(TypeError, match="float32 or all bfloat16"):
-        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="all float32, all bfloat16"):
+        flash_attention(q.half(), k, v.half())
     with pytest.raises(ValueError, match="alike"):
         flash_attention(q, k, v[:, :, :4])
     with pytest.raises(ValueError, match="cuda"):

@@ -38,7 +38,7 @@ from repro_torch.models import (decode_step, forward, init_cache,
                                 init_params, num_params, params_from_jax,
                                 prefill)
 from repro_torch.models.attention import cache_span_update
-from repro_torch.models.common import rms_norm, rotary_embed
+from repro_torch.models.common import ModelConfig, rms_norm, rotary_embed
 
 B, MAX_SEQ, STEPS = 3, 16, 6
 START_POS = (0, 3, 7)        # per-slot positions: rows decode independently
@@ -244,3 +244,36 @@ def test_prefill_matches_the_jax_engines_scan():
             np.testing.assert_allclose(
                 tcache["layers"][layer][name].numpy(), want[layer],
                 rtol=0, atol=1e-5, err_msg=f"layer {layer} {name}")
+
+
+def _port_config(jcfg, dtype):
+    """The port's ModelConfig from the reference's, field for field."""
+    names = [f.name for f in dataclasses.fields(ModelConfig) if f.name !=
+             "dtype"]
+    return ModelConfig(**{n: getattr(jcfg, n) for n in names}, dtype=dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-15b"])
+def test_forward_runs_head_dim_8_like_jax(arch):
+    """The qwen2.5-14b and starcoder2-15b smoke configs (head_dim 8, QKV
+    bias; starcoder2's non-gated tanh-GELU MLP) through the full-sequence
+    forward, against the JAX package's, float32 at atol=1e-4."""
+    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True),
+                               dtype=jnp.float32)
+    assert jcfg.head_dim == 8
+    tcfg = _port_config(jcfg, torch.float32)
+    jparams, _ = jax_init_params(jcfg, jax.random.PRNGKey(3))
+    jparams = jax.tree_util.tree_map(np.asarray, jparams)
+    # the reference initialises QKV biases at zero; make them count
+    rng = np.random.default_rng(3)
+    mix = jparams["layers"]["slot_0"]["mix"]
+    for name in ("bq", "bk", "bv"):
+        mix[name] = rng.normal(scale=0.1, size=mix[name].shape
+                               ).astype(np.float32)
+    tparams = params_from_jax(jparams, tcfg, device="cpu")
+    toks = rng.integers(0, jcfg.vocab_size, (FWD_B, FWD_S)).astype(np.int32)
+    want, _ = jax_forward(jax.tree_util.tree_map(jnp.asarray, jparams), jcfg,
+                          jnp.asarray(toks))
+    got = forward(tparams, tcfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)

@@ -1,11 +1,12 @@
 """The port's serving engine vs the JAX package's, end to end.
 
 Both engines serve the qwen3-0.6b smoke model in float32 with the SAME
-weights (the JAX init carried over by ``params_from_jax``), greedy, prefix
-cache off, over the same arrival trace (requests submitted at fixed engine
+weights (the JAX init carried over by ``params_from_jax``), prefix cache
+off, over the same arrival trace (requests submitted at fixed engine
 steps).  The slot and batch composition is therefore identical, and every
 request must come back with identical tokens, stop flag, slot and stop
-step, and a logprob sum within 1e-4.
+step, and a logprob sum within 1e-4: greedy, and at temperature 0.8, where
+both engines draw from the same threefry key streams.
 """
 import dataclasses
 
@@ -114,6 +115,22 @@ def test_engine_matches_jax_engine(weights):
     assert counts["step"] == 1
     assert all(v == 1 for v in counts.values())
     assert sum(counts.values()) <= teng.compile_bound() == jeng.compile_bound()
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_engine_samples_the_jax_engines_stream(weights, seed):
+    """temperature 0.8: the port's threefry keys (engine seed, request
+    seed, token index) and Gumbel-max give the JAX engine's tokens token for
+    token, at the same slot and batch composition."""
+    over = dict(temperature=0.8, seed=seed, eos_id=-1)
+    want = _serve(_jax_engine(weights, **over), TRACE)
+    got = _serve(_port_engine(weights, **over), TRACE)
+    for w, g in zip(want, got):
+        assert g.tokens == w.tokens, (g.uid, g.tokens, w.tokens)
+        assert g.slot == w.slot and g.stop_step == w.stop_step
+        assert abs(g.logprob_sum - w.logprob_sum) <= 1e-4
+    greedy = _serve(_port_engine(weights, eos_id=-1), TRACE)
+    assert [r.tokens for r in greedy] != [r.tokens for r in got]
 
 
 def test_metrics_table_is_one_masked_keyed_fold(weights):
