@@ -14,7 +14,10 @@ Phases, each of which must pass or the script exits non-zero:
    4096, ragged, Sq != Sk, head_dim 8), and hold it against its plain
    PyTorch version (16-bit attention also against two lower-precision
    controls it must be told apart from); time kernel, plain version and
-   the one-call PyTorch yardstick with CUDA events.
+   the one-call PyTorch yardstick with CUDA events.  ``segment_fold`` and
+   ``stripes`` rows (Zipf and uniform tokens at V 4096) also print the
+   device time of kernel and yardstick replayed from a CUDA graph and the
+   CUDA launches one call makes (``torch.profiler``'s device events).
 3. serve: ``build_engine`` for qwen3-0.6b at full width (28 layers, bf16,
    random weights from ``--seed``) answers ``--requests`` requests; each
    decode step's metrics fold must have launched ``segment_fold`` once,
@@ -115,6 +118,22 @@ def graph_ms(fn, iters: int = 20, repeat: int = 3) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / iters)
     return best
+
+
+def cuda_launches(fn):
+    """The kernels and memsets one call of ``fn`` puts on the card, counted
+    from ``torch.profiler``'s device events; None when the profiler records
+    no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    count = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return count or None
 
 
 def max_err(a, b) -> float:
@@ -285,6 +304,8 @@ def run_kernel_case(case, segment_fold, segment_fold_plain) -> dict:
     kernel_ms = cuda_ms(kernel, iters)
     plain_ms = cuda_ms(plain, iters)
     library_ms = cuda_ms(library, iters)
+    device_ms = graph_ms(kernel)
+    library_device_ms = graph_ms(library)
     out_elt = 4 if v.dtype.is_floating_point else v.element_size()
     nbytes = (n * d * v.element_size() + 4 * n
               + (n if mask is not None else 0) + S * (d + wc) * out_elt)
@@ -292,6 +313,8 @@ def run_kernel_case(case, segment_fold, segment_fold_plain) -> dict:
     return dict(name=case["name"], ok=ok, max_abs_err=err,
                 tolerance=f"rtol={case['rtol']} atol={case['atol']}",
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                device_ms=device_ms, library_device_ms=library_device_ms,
+                cuda_launches=cuda_launches(kernel),
                 bound_ms=bound_ms, bound_bytes=nbytes,
                 serve=case.get("serve", False))
 
@@ -615,8 +638,12 @@ def run_stripes_case(name, toks, vocab, window, *, path=False) -> dict:
 
     ms, plain_ms, library_ms = _time_three(kernel, plain, library, 5)
     nbytes = 4 * n + 4 * vocab * vocab
+    # bincount reads its input's max on the host, so it cannot be captured
+    # in a CUDA graph: no device time for the yardstick
     return dict(name=name, ok=ok, max_abs_err=err, tolerance="exact",
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                device_ms=graph_ms(kernel, iters=5), library_device_ms=None,
+                cuda_launches=cuda_launches(kernel),
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes,
                 pairs=int(ids.numel()) // 2, path=path)
 
@@ -745,7 +772,11 @@ def print_row(kernel: str, row: dict) -> None:
           f"max_abs_err={row['max_abs_err']} ({row['tolerance']}) "
           f"kernel_ms={row['ms']} plain_ms={row['plain_ms']} "
           f"library_ms={row['library_ms']} bound_ms={row['bound_ms']}"
-          f" bound_by={row.get('bound_by', 'bytes')}", flush=True)
+          f" bound_by={row.get('bound_by', 'bytes')}"
+          + (f" device_ms={row['device_ms']} library_device_ms="
+             f"{row['library_device_ms']} cuda_launches="
+             f"{row['cuda_launches']}" if "cuda_launches" in row else ""),
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1013,6 +1044,10 @@ def main(argv=None) -> int:
         run_stripes_case("V=128 W=4 N=2^24 corpus (shared table)",
                          corpus_tokens(128, 1 << 24, args.seed + 3, dev),
                          128, 4),
+        run_stripes_case("V=4096 W=4 N=2^24 uniform (64 MB global table)",
+                         torch.randint(0, 4096, (1 << 24,), generator=gen,
+                                       device=dev, dtype=torch.int32),
+                         4096, 4),
     ]
     for row in stripes_rows:
         print_row("stripes", row)

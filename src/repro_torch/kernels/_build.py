@@ -82,6 +82,8 @@ class CudaLibrary:
 
     def load(self) -> ctypes.CDLL:
         """The loaded library (built first if needed), with argtypes set."""
+        if self._lib is not None:    # the per-call path takes no lock
+            return self._lib
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(self.build()[0]))

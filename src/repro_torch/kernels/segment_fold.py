@@ -6,9 +6,11 @@ The kernel is ``csrc/segment_fold.cu``, CUDA C++ for ``sm_90a``, built with
 with ``ctypes`` (``kernels/_build.py``).  Its bound is memory: it must read ``N*D*elt + 4N`` bytes
 (+ ``N`` for the mask) and write ``S*W*4``, at 3.35 TB/s on an H100.  The
 TPU version scatters with a one-hot matmul on the MXU; the CUDA version
-folds each element with one atomic into a per-CTA shared-memory table when
-the ``(S, W)`` table fits in shared memory, and into the global table
-otherwise (see the source's header).
+gives each lane its own row, combines the rows of a run of equal ids in the
+warp, and folds each run with one native atomic (sign-split integer atomics
+for max / min) into a per-CTA shared-memory table when the ``(S, W)`` table
+fits in shared memory, and into the global table otherwise.  A small fold
+(the decode step's) is one CTA and one launch (see the source's header).
 
 :func:`segment_fold` is the wrapper the planner's kernel tier calls: on a
 CUDA tensor it launches the kernel (or raises), on a CPU tensor it runs
@@ -138,25 +140,32 @@ def segment_fold(values: torch.Tensor, seg_ids: torch.Tensor,
                          f"version); got a {values.device} tensor")
     _check(values, seg_ids, num_segments, semiring, with_count, valid_mask)
     dev = values.device
-    tensors = [seg_ids] + ([valid_mask] if valid_mask is not None else [])
-    if any(t.device != dev for t in tensors):
+    if seg_ids.device != dev or (valid_mask is not None
+                                 and valid_mask.device != dev):
         raise ValueError("values, seg_ids and valid_mask must share a device")
     if seg_ids.dtype != torch.int32:
         raise TypeError(f"seg_ids must be int32; got {seg_ids.dtype}")
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return segment_fold(values, seg_ids, num_segments,
+                                semiring=semiring, with_count=with_count,
+                                valid_mask=valid_mask)
     values = values.contiguous()
     seg_ids = seg_ids.contiguous()
-    mask = None if valid_mask is None else \
-        valid_mask.to(torch.bool).contiguous()
+    mask = valid_mask
+    if mask is not None:     # .to() costs a dispatch even when it is a no-op
+        mask = (mask if mask.dtype == torch.bool else mask.to(torch.bool)
+                ).contiguous()
     n, d = values.shape
     out = torch.empty((num_segments, d + int(with_count)),
                       dtype=torch.float32, device=dev)
-    lib = LIBRARY.load()
-    with torch.cuda.device(dev):
-        err = lib.segment_fold_launch(
-            values.data_ptr(), _DTYPE_CODE[values.dtype], seg_ids.data_ptr(),
-            mask.data_ptr() if mask is not None else None, out.data_ptr(),
-            n, d, num_segments, _SEMIRING_CODE[semiring], int(with_count),
-            sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
+    # the raw handle of the current stream: torch.cuda.current_stream()
+    # builds a Stream object per call
+    err = LIBRARY.load().segment_fold_launch(
+        values.data_ptr(), _DTYPE_CODE[values.dtype], seg_ids.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        n, d, num_segments, _SEMIRING_CODE[semiring], int(with_count),
+        sm_count(dev), torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"segment_fold kernel launch failed: CUDA error "
                            f"{err} (N={n}, D={d}, S={num_segments}, "

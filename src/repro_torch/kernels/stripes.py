@@ -8,8 +8,11 @@ tokens and write ``4*V*V``, at 3.35 TB/s on an H100.  The TPU version keeps
 the table in VMEM and adds one-hot outer products on the MXU over a
 pre-gathered ``(N, window)`` neighbour matrix; the CUDA version loads a
 token tile plus its ``window`` halo into shared memory and adds each pair
-with integer atomics, into a per-CTA shared table when ``V*V*4`` fits in
-shared memory and into the global table otherwise (see the source's header).
+with one integer atomic at its upper cell (the lower triangle is mirrored at
+the end): into a per-CTA shared table when ``V*V*4`` fits in shared memory,
+else into the global table, with the pairs of two hot ids (the most frequent
+ids of a sample of the tokens) in a per-CTA shared table (see the source's
+header).
 
 :func:`stripe_counts` is the wrapper ``monoids.cooccurrence_stripes`` and
 ``ops.stripes`` call: on a CUDA tensor it launches the kernel (or raises),
@@ -33,8 +36,9 @@ import torch
 from ._build import CudaLibrary, sm_count
 
 LIBRARY = CudaLibrary("stripes", {"stripes_launch": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]})
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]})
+_HOT_MAX = 128      # csrc/stripes.cu's kHotMax: the hot set's scratch
 
 
 def _check(tokens: torch.Tensor, vocab: int, window: int) -> None:
@@ -76,6 +80,9 @@ def stripe_counts(tokens: torch.Tensor, vocab: int,
                          f"version); got a {tokens.device} tensor")
     _check(tokens, vocab, window)
     dev = tokens.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return stripe_counts(tokens, vocab, window)
     # ids outside int32 are out of [0, V) either way; the cast keeps them so
     flat = tokens.clamp(-1, vocab).to(torch.int32).contiguous() \
         if tokens.dtype == torch.int64 else tokens.contiguous()
@@ -83,10 +90,10 @@ def stripe_counts(tokens: torch.Tensor, vocab: int,
     n = flat.numel()
     if n == 0:
         return out
-    with torch.cuda.device(dev):
-        err = LIBRARY.load().stripes_launch(
-            flat.data_ptr(), out.data_ptr(), n, vocab, window, sm_count(dev),
-            torch.cuda.current_stream(dev).cuda_stream)
+    hot = torch.empty((_HOT_MAX + 1,), dtype=torch.int32, device=dev)
+    err = LIBRARY.load().stripes_launch(
+        flat.data_ptr(), out.data_ptr(), hot.data_ptr(), n, vocab, window,
+        sm_count(dev), torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"stripes kernel launch failed: CUDA error {err} "
                            f"(N={n}, V={vocab}, window={window})")

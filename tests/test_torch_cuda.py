@@ -52,6 +52,143 @@ def test_cuda_kernel_matches_plain(cuda_device, semiring, dtype):
         assert torch.equal(got, want)
 
 
+def _device_launches(fn):
+    """Kernels and memsets one call of ``fn`` puts on the card:
+    ``chip_smoke.cuda_launches`` (the profiler's device events)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke.cuda_launches(fn)
+
+
+def _fold_both(v, ids, s, semiring, mask=None, with_count=False):
+    got = segment_fold(v, ids, s, semiring=semiring, with_count=with_count,
+                       valid_mask=mask)
+    torch.cuda.synchronize()
+    return got, segment_fold_plain(v, ids, s, semiring=semiring,
+                                   with_count=with_count, valid_mask=mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring", ["sum", "max", "min"])
+@pytest.mark.parametrize("d,s", [(1, 65536), (2, 128), (3, 8), (33, 40)])
+def test_cuda_fold_lanes_over_rows(cuda_device, d, s, semiring):
+    """D = 1, 2, 3 (a lane holds its row) and 33 (lanes walk the elements),
+    in the shared-table, global-table and one-CTA regimes; sums of small
+    integers are exact, so every case is compared bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    for n in (5, 3000, 70_001):
+        v = torch.randint(-50, 50, (n, d), generator=gen, device=cuda_device
+                          ).float()
+        ids = torch.randint(-1, s + 1, (n,), generator=gen,
+                            device=cuda_device, dtype=torch.int32)
+        mask = torch.rand((n,), generator=gen, device=cuda_device) < 0.8
+        got, want = _fold_both(v, ids, s, semiring, mask)
+        assert torch.equal(got, want), (n, d, s, semiring)
+        if semiring == "sum":
+            got, want = _fold_both(v, ids, s, semiring, mask, with_count=True)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring", ["sum", "max", "min"])
+@pytest.mark.parametrize("runs", ["one id", "packed_stats runs"])
+def test_cuda_fold_runs_of_equal_ids(cuda_device, runs, semiring):
+    """Every row on one id (all lanes of every warp aggregate), and runs of
+    4096 rows per id with a ragged masked tail per run, as packed_stats
+    folds a stream batch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    n, s = 128 * 4096, 128
+    v = torch.randint(0, 3, (n, 2), generator=gen, device=cuda_device).float()
+    if runs == "one id":
+        ids = torch.full((n,), 5, dtype=torch.int32, device=cuda_device)
+        mask = None
+    else:
+        ids = torch.arange(s, dtype=torch.int32, device=cuda_device
+                           ).repeat_interleave(4096)
+        lengths = torch.randint(1, 4097, (s,), generator=gen,
+                                device=cuda_device)
+        mask = (torch.arange(4096, device=cuda_device)[None, :]
+                < lengths[:, None]).reshape(-1)
+    got, want = _fold_both(v, ids, s, semiring, mask,
+                           with_count=semiring == "sum")
+    for g, w in zip(got, want) if semiring == "sum" else [(got, want)]:
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring", ["max", "min"])
+@pytest.mark.parametrize("d", [1, 16])
+def test_cuda_fold_int32_extremes(cuda_device, d, semiring):
+    """int32 values beyond +-2**24 and at int32's limits: the float32
+    contract rounds them, and the kernel's result equals the plain
+    version's bit for bit (empty segments hold iinfo.min / max)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    n, s = 50_000, 300
+    info = torch.iinfo(torch.int32)
+    v = torch.randint(info.min, info.max, (n, d), generator=gen,
+                      device=cuda_device, dtype=torch.int32)
+    v[::7] = info.max
+    v[3::7] = info.min
+    v[5::11] = (1 << 24) + 1
+    ids = torch.randint(0, s + 20, (n,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    got, want = _fold_both(v, ids, s, semiring)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring", ["max", "min"])
+@pytest.mark.parametrize("n", [64, 200_000])
+def test_cuda_fold_float_specials(cuda_device, n, semiring):
+    """NaN, +-inf and +-0.0: NaN wins wherever it lands, infinities order
+    as numbers, and a zero result is +0.0 for max unless every zero is
+    -0.0, -0.0 for min if any zero is (the kernel's stated rule)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0,
+                             -0.0, 1.0, -1.0], device=cuda_device)
+    pick = torch.randint(0, len(specials), (n, 2), generator=gen,
+                         device=cuda_device)
+    pick[: n // 2] = torch.randint(3, 5, (n // 2, 2), generator=gen,
+                                   device=cuda_device)     # zeros only
+    v = specials[pick]
+    s = max(2, n // 16)
+    ids = torch.randint(0, s, (n,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    got, want = _fold_both(v, ids, s, semiring)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    zeros = (got == 0).cpu()
+
+    def has(flags):      # (S, 2): some row of the segment has the flag
+        return torch.zeros((s, 2), dtype=torch.long).index_add_(
+            0, ids.long().cpu(), flags.long().cpu()) > 0
+
+    neg, pos = has((v == 0) & torch.signbit(v)), has((v == 0)
+                                                     & ~torch.signbit(v))
+    want_neg = (neg & ~pos) if semiring == "max" else neg
+    assert torch.equal(torch.signbit(got.cpu())[zeros], want_neg[zeros])
+
+
+@pytest.mark.cuda
+def test_cuda_fold_serve_shape_is_one_launch(cuda_device):
+    """The decode step's 8 x 3 masked fold: one CTA, one CUDA launch, the
+    table written with plain stores."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    v = torch.randn((8, 3), generator=gen, device=cuda_device)
+    ids = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    mask = torch.tensor([1, 1, 0, 1, 1, 1, 0, 1], dtype=torch.bool,
+                        device=cuda_device)
+    assert _device_launches(
+        lambda: segment_fold(v, ids, 8, valid_mask=mask)) == 1
+    got, want = _fold_both(v, ids, 8, "sum", mask)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_cuda_engine_folds_through_the_kernel(cuda_device):
     """The serving path on the card: one kernel launch per decode step, and
@@ -133,6 +270,33 @@ def test_cuda_stripes_matches_plain(cuda_device, vocab, window):
     assert torch.equal(got, want)
     assert torch.equal(got, got.T)
     assert torch.equal(stripe_counts(toks.long(), vocab, window), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,vocab,window", [
+    ("one repeated id", 4096, 4), ("uniform", 4096, 4), ("uniform", 238, 4),
+    ("uniform", 239, 4), ("10 distinct ids", 4096, 3)])
+def test_cuda_stripes_regimes(cuda_device, tokens, vocab, window):
+    """Every pair on one cell; uniform ids (no hot id); V either side of the
+    shared-table limit at window 4; a hot set larger than the ids seen.
+    Exact and symmetric against the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    n = 300_007
+    if tokens == "one repeated id":
+        toks = torch.full((n,), 7, dtype=torch.int32, device=cuda_device)
+    elif tokens == "uniform":
+        toks = torch.randint(0, vocab, (n,), generator=gen,
+                             device=cuda_device, dtype=torch.int32)
+    else:
+        toks = torch.randint(0, 10, (n,), generator=gen, device=cuda_device,
+                             dtype=torch.int32) * 397
+    got = stripe_counts(toks, vocab, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, stripe_counts_plain(toks, vocab, window))
+    assert torch.equal(got, got.T)
+    if tokens == "one repeated id":
+        pairs = sum(n - j for j in range(1, window + 1))
+        assert int(got[7, 7]) == 2 * pairs and int(got.sum()) == 2 * pairs
 
 
 @pytest.mark.cuda

@@ -81,3 +81,22 @@ def test_contract_errors():
     with pytest.raises(ValueError, match="cuda"):
         stripe_counts(t.to("meta"), 10, 2)
     assert LIBRARY.library_path().name.startswith("libstripes-")
+
+
+def test_kernel_variants_each_edit_the_kernel_source_once():
+    """``kernel_variants.py`` (the chip A/B of stripes design choices) builds
+    each variant by editing ``csrc/stripes.cu``: every edit must still find
+    its text exactly once, so the variants time what they name."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "kernel_variants.py"
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    source = LIBRARY.source.read_text()
+    assert "as built" in variants.VARIANTS
+    for name, edits in variants.VARIANTS.items():
+        for old, new in edits:
+            assert source.count(old) == 1, name
+            assert new not in source, name
