@@ -14,8 +14,10 @@ Phases, each of which must pass or the script exits non-zero:
    4096, ragged, Sq != Sk, head_dim 8), and hold it against its plain
    PyTorch version (16-bit attention also against two lower-precision
    controls it must be told apart from); time kernel, plain version and
-   the one-call PyTorch yardstick with CUDA events.  ``segment_fold`` and
-   ``stripes`` rows (Zipf and uniform tokens at V 4096) also print the
+   the one-call PyTorch yardstick with CUDA events.  ``segment_fold``,
+   ``cms_update`` (Zipf and uniform tokens at 4 x 2048 and 5 x 65536; the
+   stream-stats batch with an int32 mask, a bool mask, and int64 tokens)
+   and ``stripes`` rows (Zipf and uniform tokens at V 4096) also print the
    device time of kernel and yardstick replayed from a CUDA graph and the
    CUDA launches one call makes (``torch.profiler``'s device events).
 3. serve: ``build_engine`` for qwen3-0.6b at full width (28 layers, bf16,
@@ -598,10 +600,15 @@ def run_cms_case(name, toks, depth, width, weights, *, path=False) -> dict:
         return table.index_add_(0, ids, w)
 
     ms, plain_ms, library_ms = _time_three(kernel, plain, library, 10)
-    nbytes = 4 * n + (4 * n if weights is not None else 0) + \
-        4 * depth * width
+    # the bytes the kernel must read: each id (4 or 8) and weight (1 or 4)
+    # as it is given, and the table written once
+    nbytes = n * toks.element_size() + 4 * depth * width + \
+        (n * weights.element_size() if weights is not None else 0)
     return dict(name=name, ok=ok, max_abs_err=err, tolerance="exact",
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                device_ms=graph_ms(kernel),
+                library_device_ms=graph_ms(library),
+                cuda_launches=cuda_launches(kernel),
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes,
                 path=path)
 
@@ -1021,21 +1028,32 @@ def main(argv=None) -> int:
         print_row("segment_fold", row)
     torch.cuda.empty_cache()
     zipf = corpus_tokens(151936, 1 << 24, args.seed + 1, dev)
-    path_toks, path_mask = batches[0]
+    uniform = torch.randint(0, 151936, (1 << 24,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    path_toks, path_mask = (t.reshape(-1) for t in batches[0])
     mask90 = torch.rand((zipf.numel(),), generator=gen, device=dev) < 0.9
     cms_rows = [
         run_cms_case("4x2048 N=2^24 Zipf (shared table)", zipf, 4, 2048,
                      None),
-        run_cms_case("5x65536 N=2^24 Zipf (global table)", zipf, 5, 65536,
+        run_cms_case("5x65536 N=2^24 Zipf (1.31 MB table)", zipf, 5, 65536,
                      None),
         run_cms_case("4x2048 N=2^24 Zipf, 90% mask", zipf, 4, 2048, mask90),
         run_cms_case("stream-stats batch: 4x2048 N=524288 ragged mask",
-                     path_toks.reshape(-1), 4, 2048,
-                     path_mask.reshape(-1).to(torch.int32), path=True),
+                     path_toks, 4, 2048, path_mask.to(torch.int32)),
+        # the call update_stats makes: int32 ids, the bool mask as it is
+        run_cms_case("stream-stats batch as update_stats passes it: int32 "
+                     "tokens, bool mask", path_toks, 4, 2048, path_mask,
+                     path=True),
+        run_cms_case("stream-stats batch, int64 tokens and bool mask",
+                     path_toks.long(), 4, 2048, path_mask),
+        # uniform ids: no hot id, so what the global regime's sample costs
+        run_cms_case("4x2048 N=2^24 uniform", uniform, 4, 2048, None),
+        run_cms_case("5x65536 N=2^24 uniform (1.31 MB table)", uniform, 5,
+                     65536, None),
     ]
     for row in cms_rows:
         print_row("cms_update", row)
-    del mask90
+    del mask90, uniform
     torch.cuda.empty_cache()
     toks4096 = corpus_tokens(4096, 1 << 24, args.seed + 2, dev)
     stripes_rows = [

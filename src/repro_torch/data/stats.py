@@ -83,9 +83,10 @@ def _batch_value(state: Dict[str, torch.Tensor], tokens: torch.Tensor,
     flat = tokens.reshape(-1)
     mask = None if valid_mask is None else \
         valid_mask.to(torch.bool).reshape(-1)
-    weights = None if mask is None else mask.to(torch.int32)
+    # the bool mask is the kernel's weight as it is (the plain version
+    # takes it as 0/1)
     cms = monoids.cms_update_batch(torch.zeros_like(state["cms"]), flat,
-                                   weights=weights)
+                                   weights=mask)
     hll = monoids.hll_update_batch(torch.zeros_like(state["hll"]), flat,
                                    valid_mask=mask)
     bloom = torch.zeros_like(state["bloom"])

@@ -114,3 +114,49 @@ def test_kernel_source_hashes_with_the_same_primes():
     assert primes == [int(p) for p in jm._HASH_PRIMES]
     assert LIBRARY.library_path().name.startswith("libcms_update-")
     assert Path(LIBRARY.source).suffix == ".cu"
+
+
+@pytest.mark.parametrize("weights", ["none", "bool", "uint8"])
+def test_int64_tokens_and_byte_weights_match_pallas(weights):
+    """The wrapper's input types the kernel reads as they are: int64 ids
+    with high bits set hash their low 32 bits, and a bool or uint8 weight
+    counts each token that many times -- the Pallas kernel on the low 32
+    bits, each repeated by its weight, exactly."""
+    rng = np.random.default_rng(3)
+    n = 1200
+    low = rng.integers(-2 ** 31, 2 ** 31, n, np.int64)
+    low[::3] = rng.integers(0, 5000, (n + 2) // 3)   # repeated small ids
+    toks = low + (rng.integers(-2 ** 31, 2 ** 31, n, np.int64) << 32)
+    w = None
+    reps = np.ones(n, np.int64)
+    if weights == "bool":
+        w = rng.random(n) < 0.8
+        reps = w.astype(np.int64)
+    elif weights == "uint8":
+        w = rng.integers(0, 256, n).astype(np.uint8)
+        reps = w.astype(np.int64)
+    got = cms_counts(torch.from_numpy(toks), 3, 256,
+                     weights=None if w is None else torch.from_numpy(w))
+    assert got.dtype == torch.int32 and got.shape == (3, 256)
+    want = cms_update_pallas(jnp.asarray(np.repeat(low.astype(np.int32),
+                                                   reps)), 3, 256,
+                             block_n=256)
+    np.testing.assert_array_equal(_i64(got.numpy()), _i64(want))
+
+
+def test_kernel_variants_each_edit_the_kernel_source_once():
+    """``kernel_variants.py`` (the chip A/B of cms_update design choices)
+    builds each variant by editing ``csrc/cms_update.cu``: every edit must
+    still find its text exactly once, so the variants time what they name."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "kernel_variants.py"
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    source = LIBRARY.source.read_text()
+    assert "as built" in variants.CMS_VARIANTS
+    for name, edits in variants.CMS_VARIANTS.items():
+        for old, new in edits:
+            assert source.count(old) == 1, name
+            assert new not in source, name

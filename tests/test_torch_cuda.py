@@ -253,6 +253,92 @@ def test_cuda_cms_update_matches_plain(cuda_device, depth, width, weights):
     assert torch.equal(cms_counts(toks.long(), depth, width, weights=w), got)
 
 
+# cms_update cases: name -> (tokens, N, depth, width, weights).  Tables of
+# 4 x 2048 sit in one CTA's shared memory; 232448 bytes (227 KB) and up to
+# 8 x ~221 KB are split over a cluster; 5 x 100000 (2 MB) is global.
+CMS_CASES = {
+    "every token one id": ("one id", 300_001, 4, 2048, None),
+    "every token one id, cluster table": ("one id", 300_001, 5, 65536, "mask"),
+    "every token one id, global table": ("one id", 300_001, 5, 100_000, None),
+    "uniform ids": ("uniform", 300_001, 4, 2048, None),
+    "uniform ids, cluster table": ("uniform", 300_001, 5, 65536, None),
+    "uniform ids, global table": ("uniform", 300_001, 5, 100_000, "int"),
+    "largest one-CTA table": ("zipf", 300_001, 1, 56_576, "mask"),
+    "227 KB table": ("zipf", 300_001, 4, 14_528, None),
+    "227 KB + 4 bytes": ("zipf", 300_001, 1, 58_113, "int"),
+    "cluster table 5 x 65536": ("zipf", 1 << 20, 5, 65536, None),
+    "cluster table, width split unevenly": ("zipf", 300_001, 3, 100_003,
+                                            "mask"),
+    "above a cluster's capacity": ("zipf", 300_001, 5, 100_000, "u8"),
+    "N=1": ("zipf", 1, 4, 2048, None),
+    "N=1, cluster table": ("zipf", 1, 5, 65536, "int"),
+    "N=1, global table": ("zipf", 1, 5, 100_000, "mask"),
+    "N below one CTA's share": ("zipf", 1000, 4, 2048, "mask"),
+    "N below one CTA's share, cluster table": ("zipf", 3000, 5, 65536, None),
+    "N below one CTA's share, global table": ("zipf", 1500, 5, 100_000,
+                                              None),
+    "negative int32 weights": ("zipf", 300_001, 4, 2048, "negative"),
+    "negative int32 weights, cluster table": ("zipf", 300_001, 5, 65536,
+                                              "negative"),
+    "bool weights, global table": ("zipf", 300_001, 5, 100_000, "mask"),
+    "uint8 weights": ("zipf", 300_001, 4, 2048, "u8"),
+    "uint8 weights, cluster table": ("zipf", 300_001, 5, 65536, "u8"),
+    "int64 tokens with high bits": ("int64", 300_001, 4, 2048, "mask"),
+    "int64 tokens with high bits, cluster table": ("int64", 300_001, 5,
+                                                   65536, None),
+    "int64 tokens with high bits, global table": ("int64", 300_001, 5,
+                                                  100_000, "u8"),
+}
+
+
+def _cms_inputs(case, dev):
+    tokens, n, depth, width, weights = CMS_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    if tokens == "one id":
+        toks = torch.full((n,), 12345, dtype=torch.int32, device=dev)
+    elif tokens == "uniform":
+        toks = torch.randint(0, 151936, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    else:
+        toks = _zipf_tokens(gen, n, 151936, dev)
+    if tokens == "int64":
+        high = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen,
+                             device=dev, dtype=torch.int64)
+        toks = toks.long() + (high << 32)
+    w = None
+    if weights == "mask":
+        w = torch.rand((n,), generator=gen, device=dev) < 0.9
+    elif weights == "int":
+        w = torch.randint(-3, 4, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    elif weights == "negative":
+        w = torch.randint(-1000, 1, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    elif weights == "u8":
+        w = torch.randint(0, 256, (n,), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    return toks, depth, width, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CMS_CASES))
+def test_cuda_cms_update_regimes(cuda_device, case):
+    """One id, uniform ids, every table regime and its edges (one CTA's
+    shared memory, split over a cluster, global), N of 1 and below one
+    CTA's share, every weight type and int64 ids with high bits set: exact
+    against the plain version, one launch each."""
+    toks, depth, width, w = _cms_inputs(case, cuda_device)
+    before = cms_counts.launches
+    got = cms_counts(toks, depth, width, weights=w)
+    torch.cuda.synchronize()
+    assert cms_counts.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (depth, width)
+    assert torch.equal(got, cms_counts_plain(toks, depth, width, weights=w))
+    if toks.dtype == torch.int64:   # the low 32 bits are the id
+        low = (toks & 0xFFFFFFFF).to(torch.int32)
+        assert torch.equal(cms_counts(low, depth, width, weights=w), got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("vocab,window", [(128, 4), (238, 2), (239, 1),
                                           (1024, 5), (4096, 4)])
