@@ -21,7 +21,8 @@ Phases, each of which must pass or the script exits non-zero:
    device time of kernel and yardstick replayed from a CUDA graph and the
    CUDA launches one call makes (``torch.profiler``'s device events).
 3. serve: ``build_engine`` for qwen3-0.6b at full width (28 layers, bf16,
-   random weights from ``--seed``) answers ``--requests`` requests; each
+   random weights from ``--seed``, the prefix cache on as by default)
+   answers ``--requests`` requests; each
    decode step's metrics fold must have launched ``segment_fold`` once,
    and each prefill call ``flash_attention`` once per layer.  Then one
    decode step's eager wall time against its CUDA-graph replay, one
@@ -44,6 +45,20 @@ Phases, each of which must pass or the script exits non-zero:
    ``np.bincount``.
 7. Algorithm 5: ``cooccurrence_stripes`` over 2**24 corpus tokens (V=4096,
    window 4) launches ``stripes`` and equals its plain version.
+8. prefix cache: ``flash_attention`` with per-row query offsets (the warm
+   prefill: the serve config's call in bf16, f16 and f32, and a long one)
+   against its plain version with phase 2's checks, offsets of zero equal
+   to the top-left call bit for bit, SDPA with the same boolean mask timed
+   beside it; a float32 smoke model with the cache on gives the CPU's
+   tokens, and on the card a cold engine's (greedy and at temperature
+   0.8); then phase 3's weights serve ``benchmarks/bench_prefix.py``'s
+   trace (A) and phase 3's config with a 48-token shared prefix (B) on a
+   warm and a cold engine: TTFT p50 / p99 and warm / cold (the reference's
+   <= 0.6 gate is printed, not enforced), hit rate, bytes saved, each
+   prefill call's eager wall time by (k, bucket) and the stats flush per
+   step; each prefill must launch ``flash_attention`` once per layer, the
+   fold-accounted bytes must equal the resident bytes, some prompt token
+   must come from the trie, and the program shapes stay within the bound.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -399,8 +414,19 @@ def serve_full(args, segment_fold, flash_attention):
           f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30}",
           flush=True)
     print(f"program shapes: {counts} (bound {engine.compile_bound()})")
+    prefix = getattr(engine, "prefix", None)   # None: a checkout without it
+    if prefix is not None:
+        ps = prefix.stats
+        print(f"prefix cache (on, the default): hit_rate={ps.hit_rate()} "
+              f"hit_tokens={ps.hit_tokens}/{ps.prompt_tokens} nodes="
+              f"{prefix.node_count} resident={prefix.total_bytes} "
+              f"fold_accounted={prefix.accounted_bytes()} folds="
+              f"{ps.folds} fold_rows={ps.fold_rows}", flush=True)
+        if prefix.accounted_bytes() != prefix.total_bytes:
+            raise RuntimeError("prefix cache: fold-accounted bytes != "
+                               "resident bytes")
     decode_breakdown(engine)
-    return launches, flash_launches
+    return launches, flash_launches, engine
 
 
 def decode_breakdown(engine, iters: int = 20) -> None:
@@ -694,7 +720,7 @@ def flash_work(B, H, Sq, Sk, d, causal):
     return 4 * B * H * pairs * d
 
 
-def plain_p_rounded(q, k, v, causal):
+def plain_p_rounded(q, k, v, causal, q_offset=None):
     """The plain contract with p rounded once to q's 16-bit dtype before
     p v: what a kernel without the p_hi + p_lo split computes."""
     B, H, Sq, d = q.shape
@@ -703,8 +729,11 @@ def plain_p_rounded(q, k, v, causal):
     kf = k.to(torch.float32)[:, :, None]
     s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
     if causal:
-        pos = torch.arange(max(Sq, Sk), device=q.device)
-        s = s.masked_fill(pos[None, :Sk] > pos[:Sq, None], -math.inf)
+        q_pos = torch.arange(Sq, device=q.device)
+        if q_offset is not None:
+            q_pos = (q_offset.long()[:, None] + q_pos)[:, None, None]
+        k_pos = torch.arange(Sk, device=q.device)
+        s = s.masked_fill(k_pos > q_pos[..., None], -math.inf)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     o = torch.matmul(p.to(q.dtype).to(torch.float32),
                      v.to(torch.float32)[:, :, None])
@@ -969,6 +998,357 @@ def algorithm5_phase(tokens, vocab: int, window: int) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the radix prefix cache (warm prefill on flash_attention with
+# per-row query offsets)
+# ---------------------------------------------------------------------------
+
+# (name, B, H, KV, Sq, Sk, d, dtype, offsets): the serve config's warm call
+# (phase 3's config: a 16-token suffix bucket over a 96-row cache) in each
+# float type, and a long one
+FLASH_OFFSET_CASES = [
+    ("warm: serve config B4 Sq16 Sk96 H16/KV8 d128 bf16 offsets 0/20/44/60",
+     4, 16, 8, 16, 96, 128, torch.bfloat16, (0, 20, 44, 60)),
+    ("warm: serve config B4 Sq16 Sk96 H16/KV8 d128 f16 offsets 0/20/44/60",
+     4, 16, 8, 16, 96, 128, torch.float16, (0, 20, 44, 60)),
+    ("warm: serve config B4 Sq16 Sk96 H16/KV8 d128 f32 offsets 0/20/44/60",
+     4, 16, 8, 16, 96, 128, torch.float32, (0, 20, 44, 60)),
+    ("long: B2 Sq128 Sk4096 H16/KV8 d128 bf16 offsets 3968/2000", 2, 16, 8,
+     128, 4096, 128, torch.bfloat16, (3968, 2000)),
+]
+
+
+def run_flash_offset_case(case, gen, dev) -> dict:
+    """``flash_attention`` with per-row query offsets against its plain
+    version (phase 2's tolerances and 16-bit controls); offsets all zero
+    must give the top-left call's output bit for bit.  SDPA with the same
+    mask as an explicit boolean tensor is timed only."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    name, B, H, KV, Sq, Sk, d, dtype, offsets = case
+    q, k, v = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+
+    def kernel():
+        return flash_attention(q, k, v, q_offset=off)
+
+    def plain():
+        return flash_attention_plain(q, k, v, q_offset=off)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = max_err(got, ref)
+    atol = FLASH_ATOL[dtype]
+    ok = err <= atol
+    controls = {}
+    zero = torch.zeros_like(off)
+    controls["zero_offsets_bitwise"] = bool(torch.equal(
+        flash_attention(q, k, v, q_offset=zero), flash_attention(q, k, v)))
+    ok &= controls["zero_offsets_bitwise"]
+    if dtype != torch.float32:
+        share = differ_share(got, ref)
+        controls["differ_share"] = share
+        controls["p_rounded_share"] = differ_share(
+            plain_p_rounded(q, k, v, True, off), ref)
+        ok &= share <= FLASH_DIFFER_SHARE < controls["p_rounded_share"]
+        if dtype == torch.float16:
+            at_bf16 = flash_attention(q.bfloat16(), k.bfloat16(),
+                                      v.bfloat16(), q_offset=off)
+            controls["bf16_err"] = max_err(at_bf16.to(dtype), ref)
+            ok &= controls["bf16_err"] > atol
+    iters = 5 if Sk >= 1024 else 50
+    ms = cuda_ms(kernel, iters)
+    device_ms = graph_ms(kernel)
+    plain_ms = cuda_ms(plain, iters)
+    q_pos = off.long()[:, None] + torch.arange(Sq, device=dev)
+    mask = (torch.arange(Sk, device=dev) <= q_pos[..., None])[:, None]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    library_ms = cuda_ms(library, iters)
+    library_device_ms = graph_ms(library)
+    # the keys the offsets let each row read, and the (query, key) pairs
+    keys = sum(min(o + Sq, Sk) for o in offsets)
+    pairs = sum(int(np.minimum(o + np.arange(Sq) + 1, Sk).sum())
+                for o in offsets)
+    nbytes = (2 * q.numel() + 2 * keys * KV * d) * q.element_size()
+    flops = 4 * H * pairs * d
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(name=name, ok=ok, max_abs_err=err, tolerance=f"atol={atol}",
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                device_ms=device_ms, library_device_ms=library_device_ms,
+                bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
+                flops=flops,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                controls=controls)
+
+
+def prefix_reference(args):
+    """A float32 smoke model with the prefix cache on, shared-prefix
+    prompts: the card's tokens == the CPU's; on the card the warm engine's
+    tokens == a cold engine's (greedy and at temperature 0.8), logprob sums
+    within 1e-3; each card prefill launches flash_attention once per
+    layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousEngine, ServeConfig, make_backend
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
+                              dtype=torch.float32)
+    gen = torch.Generator().manual_seed(args.seed)
+    params_cpu = init_params(cfg, gen, device="cpu")
+    params_gpu = pytree.tree_map(lambda t: t.to("cuda"), params_cpu)
+    rng = np.random.default_rng(args.seed + 8)
+    shared = rng.integers(1, cfg.vocab_size, 8).tolist()
+    prompts = [(shared if rng.random() < 0.75 else []) +
+               rng.integers(1, cfg.vocab_size, int(rng.integers(1, 7)))
+               .tolist() for _ in range(9)]
+    for temperature in (0.0, 0.8):
+        out, hits = {}, {}
+        for name, dev, params, on in (("cpu", "cpu", params_cpu, True),
+                                      ("cuda", "cuda", params_gpu, True),
+                                      ("cuda cold", "cuda", params_gpu,
+                                       False)):
+            config = ServeConfig(num_slots=3, prefill_buckets=(8, 16),
+                                 max_new_tokens=6, prefill_batch=2,
+                                 seed=args.seed, temperature=temperature,
+                                 prefix_cache=on)
+            eng = ContinuousEngine(make_backend(cfg, params, config, dev),
+                                   config)
+            uids = [eng.submit(p) for p in prompts]
+            before = flash_attention.launches
+            for _ in eng.run(max_steps=300):
+                pass
+            launched = flash_attention.launches - before
+            want = cfg.num_layers * eng.stats.prefill_calls \
+                if dev == "cuda" else 0
+            if launched != want:
+                raise RuntimeError(f"{name}: flash_attention launched "
+                                   f"{launched} times, expected {want}")
+            out[name] = [eng.result(u) for u in uids]
+            hits[name] = eng.prefix.stats.hit_tokens if on else 0
+        if hits["cuda"] <= 0 or hits["cuda"] != hits["cpu"]:
+            raise RuntimeError(f"prefix hits: cuda {hits['cuda']}, cpu "
+                               f"{hits['cpu']}")
+        worst = {}
+        for other in ("cpu", "cuda cold"):
+            worst[other] = 0.0
+            for a, b in zip(out[other], out["cuda"]):
+                if a.tokens != b.tokens or a.stopped != b.stopped:
+                    raise RuntimeError(
+                        f"temperature {temperature}: warm cuda tokens "
+                        f"{b.tokens} != {other} tokens {a.tokens}")
+                worst[other] = max(worst[other],
+                                   abs(a.logprob_sum - b.logprob_sum))
+            if worst[other] > 1e-3:
+                raise RuntimeError(f"temperature {temperature}: logprob sums "
+                                   f"differ from {other} by {worst[other]}")
+        print(f"prefix reference: f32 smoke model, temperature "
+              f"{temperature}, {len(prompts)} requests, {hits['cuda']} "
+              f"prompt tokens from the trie; warm cuda tokens == cpu tokens "
+              f"(max |logprob_sum diff| {worst['cpu']}) == cold cuda "
+              f"tokens ({worst['cuda cold']})", flush=True)
+
+
+def shared_prefix_trace(rng, vocab):
+    """``benchmarks/bench_prefix.py``'s trace, draw for draw: 16 Poisson
+    arrivals at 100 Hz; 75% of prompts open with one 12-token prefix and
+    add 1-4 tokens, the rest are 2-4 random tokens; 4 new tokens each."""
+    shared = rng.integers(1, vocab, 12).tolist()
+    t, out = 0.0, []
+    for _ in range(16):
+        t += float(rng.exponential(1.0 / 100.0))
+        if rng.random() < 0.75:
+            suffix = rng.integers(1, vocab, int(rng.integers(1, 5))).tolist()
+            prompt = shared + suffix
+        else:
+            prompt = rng.integers(1, vocab, int(rng.integers(2, 5))).tolist()
+        out.append((t, prompt, 4, 0))
+    return out
+
+
+def _timed_calls(engine):
+    """Wrap the engine's admission of one (k, bucket) chunk, the backend
+    prefill inside it and the prefix-stats flush with wall clocks (each
+    call synchronised); returns the dict they fill and an undo function."""
+    times = {"prefill": {}, "admit": {}, "flush": []}
+    be = engine.backend
+    prefill, flush = be.prefill, engine.prefix and engine.prefix.flush_stats
+    admit = engine._admit_chunk
+
+    def timed_admit(jobs, bucket):
+        t0 = time.perf_counter()
+        admit(jobs, bucket)
+        torch.cuda.synchronize()
+        key = (len(jobs), bucket,
+               "warm" if any(j.hit_len for j in jobs) else "cold")
+        times["admit"].setdefault(key, []).append(
+            (time.perf_counter() - t0) * 1e3)
+
+    def timed_prefill(params, cache, toks, lengths, *prefix):
+        t0 = time.perf_counter()
+        out = prefill(params, cache, toks, lengths, *prefix)
+        torch.cuda.synchronize()
+        key = (*toks.shape, "warm" if prefix else "cold")
+        times["prefill"].setdefault(key, []).append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_flush():
+        t0 = time.perf_counter()
+        n = flush()
+        torch.cuda.synchronize()
+        times["flush"].append(((time.perf_counter() - t0) * 1e3, n))
+        return n
+
+    be.prefill = timed_prefill
+    engine._admit_chunk = timed_admit
+    if flush:
+        engine.prefix.flush_stats = timed_flush
+
+    def undo():
+        be.prefill = prefill
+        del engine._admit_chunk
+        if flush:
+            engine.prefix.flush_stats = flush
+    return times, undo
+
+
+def prefix_warm_cold(label, params, cfg, config, trace, flash_attention):
+    """Two engines over the same weights, cache on (warm) and off (cold),
+    over the identical trace: a warm-up pass each (every program shape
+    runs; the warm engine's trie fills), then the measured passes (TTFT,
+    hit rate, bytes saved, launches), then a pass with each prefill call
+    and stats flush timed.  Returns the launches counted."""
+    from repro_torch.serving import ContinuousEngine, make_backend, serve_trace
+
+    engines = {}
+    for name, on in (("warm", True), ("cold", False)):
+        c = dataclasses.replace(config, prefix_cache=on)
+        engines[name] = ContinuousEngine(
+            make_backend(cfg, params, c, "cuda"), c)
+    warm, cold = engines["warm"], engines["cold"]
+    serve_trace(warm, trace)
+    serve_trace(cold, trace)
+    torch.cuda.synchronize()
+    ps = warm.prefix.stats
+    hit0 = (ps.hit_tokens, ps.prompt_tokens, ps.bytes_saved)
+    results, launches = {}, {}
+    for name in ("warm", "cold"):
+        eng = engines[name]
+        calls0 = eng.stats.prefill_calls
+        flash_attention.launches = 0
+        results[name], _ = serve_trace(eng, trace)
+        torch.cuda.synchronize()
+        flash = flash_attention.launches
+        calls = eng.stats.prefill_calls - calls0
+        if calls <= 0 or flash != cfg.num_layers * calls:
+            raise RuntimeError(f"{label} {name}: flash_attention launched "
+                               f"{flash} times over {calls} prefill calls "
+                               f"({cfg.num_layers} layers)")
+        launches[name] = (flash, calls)
+        for r in results[name]:
+            if any(not 0 <= t < cfg.vocab_size for t in r.tokens) or \
+                    not math.isfinite(r.logprob_sum):
+                raise RuntimeError(f"{label} {name}: bad result {r}")
+        counts = eng.compile_counts()
+        if sum(counts.values()) > eng.compile_bound():
+            raise RuntimeError(f"{label} {name}: program shapes {counts} "
+                               f"exceed the bound {eng.compile_bound()}")
+    hit_tokens = ps.hit_tokens - hit0[0]
+    prompt_tokens = ps.prompt_tokens - hit0[1]
+    bytes_saved = ps.bytes_saved - hit0[2]
+    if hit_tokens <= 0:
+        raise RuntimeError(f"{label}: no prompt token came from the trie")
+    if warm.prefix.accounted_bytes() != warm.prefix.total_bytes:
+        raise RuntimeError(f"{label}: fold-accounted bytes "
+                           f"{warm.prefix.accounted_bytes()} != resident "
+                           f"{warm.prefix.total_bytes}")
+    ttft = {n: np.array([r.ttft_s for r in results[n]]) * 1e3
+            for n in results}
+    p50 = {n: float(np.percentile(t, 50)) for n, t in ttft.items()}
+    p99 = {n: float(np.percentile(t, 99)) for n, t in ttft.items()}
+    ratio = p50["warm"] / p50["cold"]
+    print(f"prefix {label}: ttft_p50_ms warm={p50['warm']} cold="
+          f"{p50['cold']} warm/cold={ratio} (the reference's gate <= 0.6: "
+          f"{'met' if ratio <= 0.6 else 'not met'}, not enforced) "
+          f"ttft_p99_ms warm={p99['warm']} cold={p99['cold']} "
+          f"hit_rate={hit_tokens / max(prompt_tokens, 1)} "
+          f"hit_tokens={hit_tokens}/{prompt_tokens} bytes_saved="
+          f"{bytes_saved} nodes={warm.prefix.node_count} resident="
+          f"{warm.prefix.total_bytes} fold_accounted="
+          f"{warm.prefix.accounted_bytes()} evictions={ps.evictions} "
+          f"flash_attention.launches (launches, prefill calls)={launches} "
+          f"program_shapes={warm.compile_counts()} (bound "
+          f"{warm.compile_bound()})", flush=True)
+    for name in ("warm", "cold"):
+        times, undo = _timed_calls(engines[name])
+        serve_trace(engines[name], trace)
+        undo()
+        per = {what: {f"k{k}_b{b}_{kind}": (len(v), float(np.median(v)))
+                      for (k, b, kind), v in sorted(times[what].items())}
+               for what in ("prefill", "admit")}
+        line = f"prefix {label} {name}: eager wall ms per call (calls, " \
+               f"median): prefill {per['prefill']}; the admission around " \
+               f"it (prefix load, prefill, sampling, slot write, gather, " \
+               f"trie insert) {per['admit']}"
+        if times["flush"]:
+            ms = [t for t, _ in times["flush"]]
+            folds = sum(n for _, n in times["flush"])
+            line += (f"; stats flush per step: mean_ms={float(np.mean(ms))}"
+                     f" max_ms={max(ms)} steps={len(ms)} folds={folds}")
+        print(line, flush=True)
+    return sum(n for n, _ in launches.values())
+
+
+def prefix_phase(args, engine, flash_attention, gen, dev):
+    """Phase 8: the offset kernel cases, CPU and cold exactness, and warm
+    against cold at full width on phase 3's weights (trace A:
+    bench_prefix.py's; trace B: phase 3's config with a 48-token shared
+    prefix).  Returns the kernel rows and the launches the warm paths
+    made."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeConfig, poisson_trace
+
+    rows = [run_flash_offset_case(case, gen, dev)
+            for case in FLASH_OFFSET_CASES]
+    for row in rows:
+        print_row("flash_attention", row)
+        print(f"  flops={row['flops']} bytes={row['bound_bytes']} "
+              f"device_ms={row['device_ms']} (graph replay; SDPA with the "
+              f"mask as a boolean tensor {row['library_device_ms']})"
+              + "".join(f" {k}={v}" for k, v in row["controls"].items()),
+              flush=True)
+    bad = [r["name"] for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"flash_attention with query offsets disagrees "
+                           f"with its plain version: {bad}")
+    prefix_reference(args)
+
+    cfg = get_config("qwen3-0.6b", smoke=False)
+    params = engine.backend.params
+    vocab = cfg.vocab_size
+    trace_a = shared_prefix_trace(np.random.default_rng(args.seed), vocab)
+    config_a = ServeConfig(arch="qwen3-0.6b", full=True, num_slots=4,
+                           prefill_buckets=(4, 16), max_new_tokens=4,
+                           prefill_batch=4, prefix_block=4, seed=args.seed)
+    launches = prefix_warm_cold("trace A (bench_prefix.py)", params, cfg,
+                                config_a, trace_a, flash_attention)
+    trace_b = poisson_trace(np.random.default_rng(args.seed + 9), 16, 0.0,
+                            56, 64, vocab, 32, shared_frac=0.75,
+                            shared_len=48)
+    launches += prefix_warm_cold("trace B (phase 3 config, 48-token shared "
+                                 "prefix)", params, cfg, engine.config,
+                                 trace_b, flash_attention)
+    return rows, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1086,9 +1466,9 @@ def main(argv=None) -> int:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
 
-    # phase 3: the serving path
-    serve_launches, flash_launches = serve_full(args, segment_fold,
-                                                flash_attention)
+    # phase 3: the serving path (the prefix cache on, the default)
+    serve_launches, flash_launches, engine = serve_full(
+        args, segment_fold, flash_attention)
     # phase 4: small-input reference
     serve_reference(args)
     # phase 5: the stream-stats path
@@ -1098,6 +1478,14 @@ def main(argv=None) -> int:
                     torch.cat([t.reshape(-1) for t, _ in batches]))
     # phase 7: Algorithm 5
     stripes_launches = algorithm5_phase(toks4096, 4096, 4)
+    del toks4096, zipf
+    torch.cuda.empty_cache()
+    # phase 8: the prefix cache's warm prefill
+    prefix_rows, prefix_launches = prefix_phase(args, engine,
+                                                flash_attention, gen, dev)
+    print(f"prefix phase: flash_attention launches over the measured warm "
+          f"and cold passes = {prefix_launches} (28 per prefill call)",
+          flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

@@ -10,7 +10,10 @@
   the ``cms_update`` CUDA kernel) and :func:`hyperloglog`, over the
   multiply-xorshift hash :func:`_uhash`, bit for bit the JAX package's;
 * Algorithm 5's ``stripes`` and :func:`cooccurrence_stripes` (on the
-  ``stripes`` CUDA kernel).
+  ``stripes`` CUDA kernel);
+* the time-decay monoids (:func:`decayed_sum`, :func:`decayed_count`,
+  :func:`decayed_lru`, re-anchored by :func:`decayed_value`) and the prefix
+  cache's :func:`cache_stats` product.
 
 Each monoid in :data:`REGISTRY` is registered with law samples (the JAX
 registry's, seed for seed), so the law suite covers all of them.
@@ -22,6 +25,7 @@ writes) because the planner runs them under ``torch.func.vmap``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional
 
@@ -495,6 +499,99 @@ def cooccurrence_stripes(tokens: torch.Tensor, vocab: int,
 
 
 # ---------------------------------------------------------------------------
+# exponential time-decay monoids — windowed analytics, cache eviction
+# ---------------------------------------------------------------------------
+# State = (value, anchor_time): ``value`` is the decayed aggregate as of
+# ``anchor_time`` (the latest event time folded in).  combine re-anchors both
+# sides to the later time and merges; re-scaling by a common exp factor
+# commutes with + and max, so it is associative.  The identity anchors at
+# t = -inf with value 0: its decay weight to any finite time is exactly 0,
+# so it is a two-sided unit (an identity anchored at t = 0 would re-weight
+# values with earlier timestamps).
+
+def _f32_on(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    device = like.device if isinstance(like, torch.Tensor) else None
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _decay_weight(t_from, t_to, lam: float) -> torch.Tensor:
+    """exp(-lam * (t_to - t_from)) with the convention weight(-inf -> t) = 0.
+
+    The where() guard keeps the identity exact: exp(-inf - -inf) would be
+    NaN in the untaken branch, but the literal 0.0 is selected instead.
+    """
+    t_from = _f32_on(t_from, t_to)
+    t_to = _f32_on(t_to, t_from)
+    return torch.where(torch.isneginf(t_from), torch.zeros_like(t_from),
+                       torch.exp(-lam * (t_to - t_from)))
+
+
+def _decay_combine(lam: float, op):
+    def combine(a, b):
+        (va, ta), (vb, tb) = a, b
+        t = torch.maximum(_f32_on(ta, tb), _f32_on(tb, ta))
+        return (op(va * _decay_weight(ta, t, lam),
+                   vb * _decay_weight(tb, t, lam)), t)
+    return combine
+
+
+def _decay_identity(*, example=None):
+    if example is None:
+        return (torch.zeros(()), torch.full((), -math.inf))
+    v, t = example
+    return (torch.zeros_like(v),
+            torch.full_like(_f32_on(t, v), -math.inf))
+
+
+def _decay_monoid(name: str, half_life: float, op, lift) -> Monoid:
+    if half_life <= 0:
+        raise ValueError(f"half_life must be positive, got {half_life}")
+    lam = math.log(2.0) / float(half_life)
+    return Monoid(
+        name=f"{name}(hl={half_life:g})",
+        combine=_decay_combine(lam, op),
+        identity_fn=_decay_identity,
+        lift=lift,
+        extract=lambda s: s[0],     # aggregate as of the anchor time s[1]
+    )
+
+
+def _decay_lift(vt):
+    v, t = vt
+    return (_f32_on(v), _f32_on(t))
+
+
+def decayed_sum(half_life: float) -> Monoid:
+    """Exponentially-decayed sum: fold (value, time) events; the state is
+    the decayed total as of the newest event.  half_life in time units."""
+    return _decay_monoid("decayed_sum", half_life, torch.add, _decay_lift)
+
+
+def decayed_count(half_life: float) -> Monoid:
+    """Decayed event count: :func:`decayed_sum` with lift (t) -> (1, t) — a
+    rate estimator (events per recent half-life window)."""
+    return _decay_monoid(
+        "decayed_count", half_life, torch.add,
+        lambda t: (torch.ones_like(_f32_on(t)), _f32_on(t)))
+
+
+def decayed_lru(half_life: float) -> Monoid:
+    """Decayed-LRU score: max over accesses of the decayed access weight —
+    the cache-eviction score (recency with smooth aging).  Access weights
+    must be non-negative (0 is the identity value)."""
+    return _decay_monoid(
+        "decayed_lru", half_life, torch.maximum,
+        lambda vt: (torch.clamp(_f32_on(vt[0]), min=0.0), _f32_on(vt[1])))
+
+
+def decayed_value(state, t, half_life: float) -> torch.Tensor:
+    """Re-anchor a decay-monoid state to query time ``t`` (extract-at-t)."""
+    v, ts = state
+    lam = math.log(2.0) / float(half_life)
+    return v * _decay_weight(ts, _f32_on(t, ts), lam)
+
+
+# ---------------------------------------------------------------------------
 # combinators
 # ---------------------------------------------------------------------------
 
@@ -524,6 +621,16 @@ def product(**named: Monoid) -> Monoid:
         extract=extract,
         commutative=all(named[k].commutative for k in names),
     )
+
+
+def cache_stats(half_life: float) -> Monoid:
+    """Per-node prefix-cache bookkeeping, folded as ONE monoid: hit counts
+    and resident bytes (additive) and the :func:`decayed_lru` eviction
+    score in one :func:`product` value, so the radix prefix cache's whole
+    bookkeeping (``runtime/prefix_cache.py``) is one keyed ``execute_fold``
+    per engine step, keyed by trie-node id."""
+    m = product(bytes=sum_, hits=sum_, score=decayed_lru(half_life))
+    return dataclasses.replace(m, name=f"cache_stats(hl={half_life:g})")
 
 
 REGISTRY: Dict[str, Monoid] = {}
@@ -600,3 +707,24 @@ register_monoid(count_min(2, 32), lambda: [
 register_monoid(hyperloglog(4), lambda: [
     hyperloglog(4).lift(torch.tensor(x, dtype=torch.int32))
     for x in (3, 11, 42)])
+
+# decay monoids: samples are post-lift (value, anchor_time) states with
+# DISTINCT finite times, a negative one included, so a broken identity
+# anchored at t = 0 cannot slip through the law suite
+register_monoid(decayed_sum(16.0), lambda: [
+    (_f32(s, ()), torch.tensor(t, dtype=torch.float32))
+    for s, t in ((0, -3.0), (1, 2.5), (2, 7.0))])
+register_monoid(decayed_count(16.0), lambda: [
+    (torch.abs(_f32(s, ())) + 1.0, torch.tensor(t, dtype=torch.float32))
+    for s, t in ((3, -1.0), (4, 4.0), (5, 9.5))])
+register_monoid(decayed_lru(16.0), lambda: [
+    (torch.abs(_f32(s, ())), torch.tensor(t, dtype=torch.float32))
+    for s, t in ((6, -2.0), (7, 3.0), (8, 8.0))])
+# the prefix-cache stats product: the additive hit / byte columns with the
+# decayed-LRU score column, again at distinct finite anchor times
+register_monoid(cache_stats(32.0), lambda: [
+    {"bytes": torch.abs(_f32(s, ())) * 1e3,
+     "hits": torch.abs(_f32(s + 10, ())),
+     "score": (torch.abs(_f32(s + 20, ())),
+               torch.tensor(t, dtype=torch.float32))}
+    for s, t in ((11, -4.0), (12, 1.5), (13, 6.0))])

@@ -8,6 +8,10 @@
 //     weights p stay in f32; o accumulates in f32;
 //   * the causal mask is top-left, k_pos <= q_pos (not the bottom-right
 //     tril(k=Sk-Sq) of the plain softmax reference; they agree at Sq == Sk);
+//     with a per-row query offset (q_off, (B,) int32, the warm prefill of
+//     the radix prefix cache) query i of batch b sits at q_off[b] + i and
+//     keeps keys k_pos <= q_off[b] + i: the keys of its cached prefix and
+//     of its suffix so far;
 //   * the m_safe / alpha guards keep a row with no live key at o = 0;
 //   * the output is o / max(l, 1e-30), rounded once to q's dtype.
 // Unlike the Pallas kernel it takes ragged Sq and Sk (it masks the edge of
@@ -54,7 +58,11 @@
 //     the SM count, sets the time.
 //   * Causal: the block stops at the tile holding its last query, and each
 //     warp skips the 16-key slices wholly above its own diagonal; the mask
-//     is applied only on tiles that cross the diagonal or the Sk edge.  The
+//     is applied only on tiles that cross the diagonal or the Sk edge.  A
+//     query offset shifts the diagonal by q_off[b] keys, so a warm prefill
+//     reads its row's prefix and suffix keys straight from the per-layer
+//     cache (the (B, max_seq, KV, d) cache viewed through its strides) and
+//     skips the tiles past its last query, as the top-left path does.  The
 //     KV head is h / (H / KV), read by index: no repeated KV.
 //   * Unaligned inputs (a base or stride that is no multiple of 16 bytes)
 //     and the last partial 16-byte chunk of a row (d * size no multiple of
@@ -84,6 +92,7 @@ struct Args {
     int H, KV, Sq, Sk, d;
     float scale_log2;             // scale * log2(e): p = exp2(s2 - m2)
     int causal;
+    const int* q_off;             // (B,) query offsets, or null (all 0)
     int vec_q, vec_k, vec_v, vec_o;   // 16-byte aligned bases and strides
 };
 
@@ -346,8 +355,10 @@ flash_attention_kernel(const Args a) {
 
     const int dk = (a.d + 15) / 16;              // live k-steps of q . k
     const int dpad = 16 * dk;
+    // query row r sits at position off + r (off = 0: the top-left mask)
+    const int off = a.q_off != nullptr ? a.q_off[b] : 0;
     const int q_last = min(q0 + BQ, a.Sq) - 1;
-    const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
+    const int k_end = a.causal ? min(a.Sk, off + q_last + 1) : a.Sk;
     const int n_tiles = (k_end + BK - 1) / BK;
 
     auto load_kv = [&](int tile, int stage) {
@@ -375,8 +386,9 @@ flash_attention_kernel(const Args a) {
 
     // this warp's rows and the keys it can see
     const int w0 = q0 + 16 * warp;
-    const int kv_end_w = a.causal ? min(a.Sk, w0 + 16) : a.Sk;
+    const int kv_end_w = a.causal ? min(a.Sk, off + w0 + 16) : a.Sk;
     const int r_lo = w0 + g, r_hi = w0 + g + 8;
+    const int p_lo = off + r_lo, p_hi = off + r_hi;   // their positions
 
     float m[2] = {-INFINITY, -INFINITY};   // rows g, g + 8; log2 domain
     float l[2] = {0.f, 0.f};               // this thread's partials
@@ -487,7 +499,7 @@ flash_attention_kernel(const Args a) {
             // - m_safe) = exp(s * scale - m_safe / log2(e)); a masked score
             // is -inf and its p is 2^-inf = 0
             const bool need_mask =
-                k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > w0);
+                k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > off + w0);
             float mb[2] = {-INFINITY, -INFINITY};
 #pragma unroll
             for (int j = 0; j < NT; ++j)
@@ -495,7 +507,7 @@ flash_attention_kernel(const Args a) {
                 for (int e = 0; e < 4; ++e) {
                     if (need_mask) {
                         const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
-                        const int qp = e < 2 ? r_lo : r_hi;
+                        const int qp = e < 2 ? p_lo : p_hi;
                         if (kp >= a.Sk || (a.causal && kp > qp))
                             s[j][e] = -INFINITY;
                     }
@@ -633,7 +645,9 @@ int aligned16(const void* p, int size, long long s0, long long s1,
 // q: (B, H, Sq, d), k and v: (B, KV, Sk, d), o: (B, H, Sq, d), each given
 // by its base pointer and element strides of batch, head and row (the last
 // axis is unit-stride).  dtype: 0 = float32, 1 = bfloat16, 2 = float16, the
-// same for all four; d in 1..256.  Launches on `stream`; returns
+// same for all four; d in 1..256.  q_offset: null, or (B,) int32 query
+// offsets on the device (causal only: query i of batch b keeps the keys at
+// positions <= q_offset[b] + i).  Launches on `stream`; returns
 // cudaGetLastError() (0 on success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype,
@@ -642,9 +656,10 @@ extern "C" int flash_attention_launch(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    float scale, int causal, void* stream) {
+    float scale, int causal, const void* q_offset, void* stream) {
     if (batch < 0 || H < 1 || KV < 1 || H % KV != 0 || Sq < 0 || Sk < 0 ||
-        d < 1 || d > 256 || dtype < 0 || dtype > 2) {
+        d < 1 || d > 256 || dtype < 0 || dtype > 2 ||
+        (q_offset != nullptr && !causal)) {
         return cudaErrorInvalidValue;
     }
     if (batch == 0 || Sq == 0) return cudaSuccess;
@@ -653,6 +668,7 @@ extern "C" int flash_attention_launch(
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                  v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
                  H, KV, Sq, Sk, d, scale * kLog2e, causal,
+                 static_cast<const int*>(q_offset),
                  aligned16(q, size, q_sb, q_sh, q_ss),
                  aligned16(k, size, k_sb, k_sh, k_ss),
                  aligned16(v, size, v_sb, v_sh, v_ss),

@@ -11,6 +11,9 @@ into rolling slots; each decode step folds the per-request metrics through
 ONE planner-lowered keyed fold — on the card, one launch of the CUDA
 ``segment_fold`` kernel — and each admission's prefill runs the bucket in
 one pass, one launch of the CUDA ``flash_attention`` kernel per layer.
+With the radix prefix cache (on by default; ``--no-prefix-cache``) an
+admission prefills only its uncached suffix, in the same one pass, each
+row's queries at its prefix length.
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu``); there is no silent fallback.
 """
@@ -26,7 +29,8 @@ import torch
 from ..configs import get_config
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention
-from ..models import decode_step, init_cache, init_params, prefill
+from ..models import (decode_step, init_cache, init_params,
+                      positional_cache, prefill)
 from ..models.common import ModelConfig
 from ..runtime.engine import (ContinuousEngine, EngineBackend, ServeConfig,
                               decode_metrics_plan)
@@ -35,8 +39,10 @@ from ..runtime.engine import (ContinuousEngine, EngineBackend, ServeConfig,
 def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
                  device) -> EngineBackend:
     """An :class:`EngineBackend` over the dense transformer: a one-token
-    decode, a one-pass prefill of a padded bucket and a cache constructor
-    with per-slot positions."""
+    decode, a one-pass prefill of a padded bucket (after each row's cached
+    prefix, given ``prefix_len``) and a cache constructor with per-slot
+    positions; prefix sharing is on when every cache leaf is indexed by
+    position (``positional_cache``)."""
     if config.model_parallel != 1:
         raise NotImplementedError(
             "model_parallel > 1 needs the mesh tier, a later slice of the "
@@ -46,8 +52,8 @@ def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
         logits, cache = decode_step(p, cfg, cache, cur)
         return logits[:, -1].to(torch.float32), cache
 
-    def prefill_bucket(p, cache, toks, lengths):
-        return prefill(p, cfg, cache, toks, lengths)
+    def prefill_bucket(p, cache, toks, lengths, prefix_len=None):
+        return prefill(p, cfg, cache, toks, lengths, prefix_len)
 
     def make_cache(batch: int, pos_per_slot: bool):
         return init_cache(params, cfg, batch, config.max_seq,
@@ -55,7 +61,8 @@ def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
 
     return EngineBackend(decode=decode, init_cache=make_cache, params=params,
                          vocab_size=cfg.vocab_size, device=torch.device(device),
-                         prefill=prefill_bucket)
+                         prefill=prefill_bucket,
+                         prefix_sharing=positional_cache(cfg))
 
 
 def build_engine(config: ServeConfig, *, device="cuda",
@@ -84,16 +91,26 @@ def build_engine(config: ServeConfig, *, device="cuda",
 
 def poisson_trace(rng: np.random.Generator, n: int, rate_hz: float,
                   min_prompt: int, max_prompt: int, vocab: int,
-                  max_new: int, users: int = 1):
+                  max_new: int, users: int = 1,
+                  shared_frac: float = 0.0, shared_len: int = 0):
     """[(arrival_offset_s, prompt, max_new, user)] — synthetic open-loop
-    traffic, draw for draw the JAX package's generator without a shared
-    prefix (the prefix-cache slice brings that back)."""
+    traffic, draw for draw the JAX package's generator; requests attribute
+    uniformly to ``users`` synthetic users.
+
+    ``shared_frac`` of the requests open with a fixed ``shared_len``-token
+    prefix (one "system prompt" drawn per trace): the workload shape the
+    prefix KV cache exploits."""
+    shared = rng.integers(1, vocab, shared_len).tolist() if shared_len else []
     t = 0.0
     out = []
     for _ in range(n):
         t += float(rng.exponential(1.0 / rate_hz)) if rate_hz > 0 else 0.0
         plen = int(rng.integers(min_prompt, max_prompt + 1))
-        prompt = rng.integers(1, vocab, plen).tolist()
+        if shared and plen > shared_len and rng.random() < shared_frac:
+            prompt = shared + rng.integers(1, vocab,
+                                           plen - shared_len).tolist()
+        else:
+            prompt = rng.integers(1, vocab, plen).tolist()
         out.append((t, prompt, max_new, int(rng.integers(0, users))))
     return out
 
@@ -144,6 +161,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefill-batch", type=int, default=4,
                     help="max same-bucket admissions per prefill program")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable the radix prefix KV cache")
+    ap.add_argument("--prefix-block", type=int, default=4,
+                    help="tokens per prefix-cache trie node")
+    ap.add_argument("--shared-frac", type=float, default=0.0,
+                    help="fraction of requests opening with a shared prefix")
+    ap.add_argument("--shared-len", type=int, default=0,
+                    help="token length of the shared prefix")
     args = ap.parse_args(argv)
 
     buckets = tuple(int(b) for b in args.buckets.split(","))
@@ -153,7 +178,9 @@ def main(argv=None):
     config = ServeConfig(arch=args.arch, num_slots=args.slots,
                          prefill_buckets=buckets, max_new_tokens=args.gen,
                          temperature=args.temperature, seed=args.seed,
-                         full=args.full, prefill_batch=args.prefill_batch)
+                         full=args.full, prefill_batch=args.prefill_batch,
+                         prefix_cache=not args.no_prefix_cache,
+                         prefix_block=args.prefix_block)
     engine = build_engine(config, device=args.device)
 
     plan = decode_metrics_plan(config.num_slots, config.num_slots,
@@ -166,7 +193,8 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     trace = poisson_trace(rng, args.requests, args.rate, args.min_prompt,
                           args.max_prompt, engine.backend.vocab_size,
-                          args.gen)
+                          args.gen, shared_frac=args.shared_frac,
+                          shared_len=args.shared_len)
     launches0 = flash_attention.launches
     results, wall = serve_trace(engine, trace, quiet=False)
 
@@ -182,6 +210,14 @@ def main(argv=None):
           f"p99={np.percentile(ttfts, 99) * 1e3:.1f}ms")
     print(f"program shapes: {engine.compile_counts()} "
           f"(bound: {engine.compile_bound()})")
+    if engine.prefix is not None:
+        ps = engine.prefix.stats
+        print(f"prefix cache: nodes={engine.prefix.node_count} "
+              f"resident={engine.prefix.total_bytes}B "
+              f"(fold-accounted {engine.prefix.accounted_bytes()}B) "
+              f"hit_rate={ps.hit_rate():.0%} "
+              f"bytes_saved={ps.bytes_saved} evictions={ps.evictions} "
+              f"folds={ps.folds}")
     return 0
 
 

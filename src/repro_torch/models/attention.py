@@ -5,9 +5,12 @@ The port of the parts of ``repro/models/attention.py`` that serving runs.
 Shapes: x (B, S, D); q (B, S, H, hd); k, v (B, S, KV, hd).  The
 full-sequence causal :func:`attention` (prefill) runs on the
 ``flash_attention`` kernel: float32 scores and softmax weights, output in
-the activation dtype.  The decode step accumulates scores in float32, runs
-softmax in float32 and casts it back to the activation dtype before the
-value product, as in the JAX package.
+the activation dtype.  With a per-row query offset and a layer's cache it
+is the warm prefill of the radix prefix cache: each row's uncached suffix
+attends to its cached prefix rows and to itself in one launch.  The
+decode step accumulates scores in float32, runs softmax in float32 and
+casts it back to the activation dtype before the value product, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -64,26 +67,103 @@ def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
     return k_pos[..., None, :] <= q_pos[..., :, None]
 
 
+def query_positions(batch: int, seq: int, q_offset: Optional[torch.Tensor],
+                    device) -> torch.Tensor:
+    """(B, S) int32 positions of a full-sequence call: ``arange(S)`` per
+    row, shifted by the row's query offset when one is given."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device)
+    if q_offset is None:
+        return pos.expand(batch, seq)
+    return q_offset.to(torch.int32)[:, None] + pos
+
+
+def span_index(start: torch.Tensor, length: int, size: int):
+    """Flat row indices ``(dst, src)``, each (B * length,), that write a
+    (B, length, ...) span into rows ``[start[b], start[b] + length)`` of a
+    contiguous (B, size, ...) cache (see :func:`write_span`), dropping the
+    rows past ``size`` (the pad tail of a bucket; ``start[b] < size``).
+
+    Unlike :func:`cache_span_update`, the start is never clamped: moving
+    it would shift real suffix rows onto prefix rows.  A row past the end
+    is redirected to the last row that fits, carrying that row's own
+    value, so the duplicate writes agree and no host sync is needed.  A
+    caller that writes many layers computes the indices once.
+    """
+    start = start.to(torch.long)
+    B = start.shape[0]
+    j = torch.arange(length, device=start.device)
+    src = torch.minimum(j[None, :], (size - 1 - start)[:, None]).clamp_(min=0)
+    rows = torch.arange(B, device=start.device)[:, None]
+    return ((rows * size + start[:, None] + src).reshape(-1),
+            (rows * length + src).reshape(-1))
+
+
+def write_span(cache: torch.Tensor, new: torch.Tensor, span) -> None:
+    """``cache`` (B, size, ...) contiguous, ``new`` (B, length, ...): the
+    write :func:`span_index` describes, IN PLACE, as one gather and one
+    row copy."""
+    dst, src = span
+    flat = cache.view(-1, *cache.shape[2:])
+    flat.index_copy_(0, dst, new.reshape(-1, *new.shape[2:])
+                     .index_select(0, src).to(cache.dtype))
+
+
 def attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, *, window: Optional[int] = None
+              positions: Optional[torch.Tensor] = None, *,
+              q_offset: Optional[torch.Tensor] = None,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              span=None, window: Optional[int] = None
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Causal self-attention over the full sequence, the counterpart of the
     JAX package's ``attention`` (its XLA and chunked ``attn_state`` forms
     are one function; here it is one launch of the ``flash_attention``
-    kernel, on the CPU its plain version).  ``positions`` (B, S) must be
-    the uniform ``arange`` the kernel's top-left mask assumes.  Returns the
-    (B, S, D) output and the layer's (k, v), each (B, S, KV, hd), for the
-    prefill to write into its cache."""
+    kernel, on the CPU its plain version).
+
+    Query ``i`` of row ``b`` sits at position ``q_offset[b] + i`` (``i``
+    without an offset): RoPE and the causal mask follow from that.
+    ``positions`` need not be passed; one that is must equal those
+    positions, and any other raises (the kernel's mask cannot follow it).
+
+    Without ``cache`` the keys are the sequence's own: returns the (B, S, D)
+    output and the layer's (k, v), each (B, S, KV, hd), for the prefill to
+    write into its cache.  With a layer's ``cache`` (k, v), each (B,
+    max_seq, KV, hd): the rows ``[q_offset[b], q_offset[b] + S)`` are
+    written in place (rows past ``max_seq`` are pads and are dropped; the
+    offsets must be below ``max_seq``, the cache tensors contiguous),
+    attention runs over the whole cache under the offset mask (keys
+    ``<= q_offset[b] + i``: the cached prefix and the suffix so far), and
+    the cache is returned as the (k, v);
+    ``span`` takes the write indices of :func:`span_index` when the caller
+    has them.
+    """
     if window is not None:
         raise NotImplementedError("sliding-window attention is a later "
                                   "slice of the port (ROADMAP: windows)")
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    derived = query_positions(B, S, q_offset, x.device)
+    if positions is not None and not torch.equal(
+            positions.to(torch.int32).expand(B, S), derived):
+        raise ValueError(
+            "attention derives its query positions from q_offset (arange(S) "
+            "per row, shifted by the row's offset); the positions it was "
+            "handed differ, and the kernel's causal mask cannot follow them")
+    q, k, v = _project_qkv(p, cfg, x, derived)
+    if cache is not None:
+        kc, vc = cache
+        if span is None:
+            start = torch.zeros((B,), dtype=torch.int32, device=x.device) \
+                if q_offset is None else q_offset
+            span = span_index(start, S, kc.shape[1])
+        write_span(kc, k, span)
+        write_span(vc, v, span)
+        k, v = kc, vc
     # (B, S, heads, hd) viewed as (B, heads, S, hd): the kernel reads the
-    # strides, and its output keeps q's (B, S, H, hd) memory layout
+    # strides (the cache's too: no copy), and its output keeps q's
+    # (B, S, H, hd) memory layout
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True).transpose(1, 2)
+                        v.transpose(1, 2), causal=True,
+                        q_offset=q_offset).transpose(1, 2)
     out = o.reshape(B, S, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd, -1)
     return out, (k, v)
 

@@ -9,7 +9,9 @@ cache mirrors that: ``{"pos": (B,) or (), "layers": [{"k", "v"}, ...]}``, and
 :func:`decode_step` updates it in place (the JAX engine donates its cache).
 :func:`forward` and :func:`prefill` run the same layer function over a whole
 sequence, its attention on the ``flash_attention`` kernel; :func:`prefill`
-leaves the cache as the decode step run over the sequence would.
+leaves the cache as the decode step run over the sequence would, and with
+``prefix_len`` prefills each row's uncached suffix after its cached prefix
+(the radix prefix cache's warm admission) in the same one pass.
 
 MoE, SSM, MLA, cross-attention and the encoder are later slices of the port
 (``init_params`` / ``init_cache`` raise for them).
@@ -17,7 +19,7 @@ MoE, SSM, MLA, cross-attention and the encoder are later slices of the port
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -127,9 +129,10 @@ def _decode_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
 
 
 def _full_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor):
+                q_offset=None, cache=None, span=None):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    mixed, kv = attn.attention(p["mix"], cfg, h, positions)
+    mixed, kv = attn.attention(p["mix"], cfg, h, q_offset=q_offset,
+                               cache=cache, span=span)
     x = x + mixed
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + dense_ffn(p["ffn"], cfg, h), kv
@@ -144,15 +147,21 @@ def _embed(params: Pytree, cfg: ModelConfig,
 
 
 def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
-             cache_layers=None) -> torch.Tensor:
+             cache_layers=None, prefix_len=None) -> torch.Tensor:
     """Final hidden states of (B, S) tokens; with ``cache_layers``, each
-    layer's (k, v) is written in place into rows [0, S) of its cache."""
-    B, S = tokens.shape
+    layer's (k, v) is written in place into rows [0, S) of its cache, or,
+    with ``prefix_len``, into rows [prefix_len, prefix_len + S) after the
+    cached prefix rows it attends to."""
+    S = tokens.shape[1]
     x = _embed(params, cfg, tokens)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
+    if prefix_len is not None:      # every layer writes the same rows
+        span = attn.span_index(prefix_len, S, cache_layers[0]["k"].shape[1])
     for i, p in enumerate(params["layers"]):
-        x, (k, v) = _full_layer(p, cfg, x, positions)
+        if prefix_len is not None:
+            c = cache_layers[i]
+            x, _ = _full_layer(p, cfg, x, prefix_len, (c["k"], c["v"]), span)
+            continue
+        x, (k, v) = _full_layer(p, cfg, x)
         if cache_layers is not None:
             cache_layers[i]["k"][:, :S] = k
             cache_layers[i]["v"][:, :S] = v
@@ -170,8 +179,9 @@ def forward(params: Pytree, cfg: ModelConfig,
 
 @torch.no_grad()
 def prefill(params: Pytree, cfg: ModelConfig, cache: Pytree,
-            tokens: torch.Tensor,
-            lengths: torch.Tensor) -> Tuple[torch.Tensor, Pytree]:
+            tokens: torch.Tensor, lengths: torch.Tensor,
+            prefix_len: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Pytree]:
     """A whole (B, S) bucket of prompts in one pass -> ((B, V) float32
     logits at each row's position ``lengths - 1``, the cache).
 
@@ -179,13 +189,24 @@ def prefill(params: Pytree, cfg: ModelConfig, cache: Pytree,
     included, and sets ``pos`` to S: the cache the decode step run over the
     S tokens leaves, and the same logits at ``lengths - 1``.  The hidden
     rows are gathered before ``unembed``, so only B rows of logits exist.
+
+    With ``prefix_len`` ((B,) int; each below the cache length) the tokens
+    are each row's uncached SUFFIX and the cache already holds the row's
+    prefix K/V in rows [0, prefix_len): the suffix sits at positions
+    ``prefix_len + i``, writes rows [prefix_len, prefix_len + S) (those
+    past the cache's end are pads and are dropped), attends to the prefix
+    and to itself (one ``flash_attention`` launch per layer with the row's
+    query offset), ``pos`` becomes ``prefix_len + S``, and the logits are
+    those at suffix position ``lengths - 1``: what the decode step run over
+    the suffix from ``pos = prefix_len`` leaves.
     """
     B, S = tokens.shape
-    h = _forward(params, cfg, tokens, cache["layers"])
+    h = _forward(params, cfg, tokens, cache["layers"], prefix_len)
     rows = torch.arange(B, device=h.device)
     logits = unembed(params, cfg, h[rows, lengths.long() - 1])
-    return logits, {"pos": torch.full_like(cache["pos"], S),
-                    "layers": cache["layers"]}
+    pos = torch.full_like(cache["pos"], S) if prefix_len is None else \
+        (prefix_len + S).to(cache["pos"].dtype)
+    return logits, {"pos": pos, "layers": cache["layers"]}
 
 
 def unembed(params: Pytree, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:

@@ -10,20 +10,31 @@ CUDA device the planner lowers that fold onto the hand-written
 
 PyTorch runs eagerly, so the JAX engine's compiled programs become program
 *shapes*: ONE decode step at ``(num_slots, 1)``, ONE prefill per
-``(k, bucket)`` and ONE slot write per k.  A prefill takes k same-bucket
-admissions, their prompts padded to the bucket, in ONE call of the
-backend's ``prefill`` (for the dense model: the full-sequence forward, its
-attention on the ``flash_attention`` kernel), which leaves the cache rows
-and first-token logits that the JAX engine's ``lax.scan`` of the decode
-step over the bucket leaves.  A backend without ``prefill`` (the recurrent
-families of later slices) gets that scan, as a loop of decode steps.
+``(k, bucket)``, ONE slot write per k and, with the prefix cache on, ONE
+prefix gather per k.  A prefill takes k same-bucket admissions, their
+prompts padded to the bucket, in ONE call of the backend's ``prefill``
+(for the dense model: the full-sequence forward, its attention on the
+``flash_attention`` kernel), which leaves the cache rows and first-token
+logits that the JAX engine's ``lax.scan`` of the decode step over the
+bucket leaves.  A backend without ``prefill`` (the recurrent families of
+later slices) gets that scan, as a loop of decode steps.
 :meth:`ContinuousEngine.compile_counts` counts the distinct shapes each
 program ran with; :meth:`compile_bound` is the ceiling.
 
+The radix prefix KV cache (``runtime/prefix_cache.py``, on by default as in
+the JAX package): admission looks up each prompt's longest cached
+block-aligned prefix, writes its KV rows into the fresh k-row cache and
+prefills only the remaining SUFFIX, bucketed on suffix length.  The dense
+backend's ``prefill`` runs the suffix in the same one pass, each row's
+queries at its prefix length (``flash_attention``'s per-row query offset);
+a backend without ``prefill`` starts each row's decode loop at its prefix
+length.  The prefilled rows are gathered into one tensor per call, the
+trie's payloads are slices of it kept on the device, and the cache's
+bookkeeping is one keyed fold per engine step.
+
 The cache and the metrics table stay on the device between steps; the host
 reads the sampled tokens once per step and the table when a request
-retires, where the JAX engine pulls them too.  The radix prefix cache is a
-later slice of the port (``prefix_cache=True`` raises).
+retires, where the JAX engine pulls them too.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ from ..core import monoids
 from ..core.plan import Plan, execute_fold, plan_fold
 from . import prng
 from .batcher import Request, RequestBatcher
+from .prefix_cache import PrefixCache, PrefixCacheConfig, PrefixHit
 
 # ---------------------------------------------------------------------------
 # the per-request metrics fold (request slot == segment id)
@@ -123,8 +135,7 @@ def extract_metrics(table: torch.Tensor) -> Dict[str, np.ndarray]:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """One config object for the whole serving stack (the JAX package's
-    fields).  ``prefix_cache`` defaults to False here: the radix prefix KV
-    cache is a later slice of the port, and True raises."""
+    fields and defaults)."""
 
     arch: str = "qwen3-0.6b"
     num_slots: int = 4                       # rolling request slots (segment ids)
@@ -139,11 +150,14 @@ class ServeConfig:
     # batched same-bucket admission: up to this many waiting requests with
     # the same bucket prefill in ONE (k, bucket) program shape
     prefill_batch: int = 1
-    prefix_cache: bool = False
-    prefix_block: int = 4
-    prefix_capacity: int = 256
-    prefix_max_bytes: Optional[int] = None
-    prefix_half_life_s: float = 60.0
+    # radix prefix KV cache (runtime/prefix_cache.py): admissions look up
+    # the longest cached block-aligned prefix, write its KV rows into the
+    # prefill cache, and prefill only the remaining suffix
+    prefix_cache: bool = True
+    prefix_block: int = 4                    # tokens per trie node
+    prefix_capacity: int = 256               # trie nodes == stats-table rows
+    prefix_max_bytes: Optional[int] = None   # resident-KV budget (None = off)
+    prefix_half_life_s: float = 60.0         # decayed-LRU eviction half life
 
     def __post_init__(self):
         buckets = tuple(int(b) for b in self.prefill_buckets)
@@ -179,6 +193,14 @@ class ServeConfig:
             ks.append(k)
             k *= 2
         return tuple(ks)
+
+    @property
+    def prefix_slab(self) -> int:
+        """Per-request prefix rows a prefill can take: the largest block
+        multiple strictly below the biggest bucket (a hit must leave >= 1
+        suffix token to produce the first logits)."""
+        return ((self.max_prompt - 1) // self.prefix_block) \
+            * self.prefix_block
 
     @property
     def max_seq(self) -> int:
@@ -222,10 +244,12 @@ class StreamEvent:
 
     kind == "token": ``token``/``index`` are set; ``ttft_s`` on index 0.
     kind == "done":  ``result`` carries the full :class:`RequestResult`.
+    kind == "cache": emitted at admission when the prefix cache is on:
+      ``hit_tokens``/``prompt_tokens``/``bytes_saved``.
     """
 
     uid: int
-    kind: str                     # "token" | "done"
+    kind: str                     # "token" | "done" | "cache"
     slot: int
     step: int                     # engine step counter at emission
     time_s: float
@@ -234,6 +258,9 @@ class StreamEvent:
     index: Optional[int] = None   # position in the generated sequence
     ttft_s: Optional[float] = None
     result: Optional[RequestResult] = None
+    hit_tokens: Optional[int] = None      # prompt tokens served from cache
+    prompt_tokens: Optional[int] = None   # total prompt tokens
+    bytes_saved: Optional[int] = None     # KV bytes not re-prefilled
 
 
 # ---------------------------------------------------------------------------
@@ -250,12 +277,21 @@ class EngineBackend:
     may update the cache in place.  ``init_cache(batch, pos_per_slot)``
     builds a fresh cache pytree on ``device`` whose leaves carry the batch
     dim at axis 0, plus a ``pos`` leaf — ``(batch,)`` when
-    ``pos_per_slot``.  ``prefill(params, cache, toks, lengths)``, where
-    given, runs ``(k, bucket)`` int32 prompts padded to the bucket through
-    the model in one pass over a fresh k-row cache and returns ``((k, V)
-    float32 logits at each row's ``lengths - 1``, cache)``, the cache's
-    K/V rows ``[0, bucket)`` written as the decode step run over the
-    bucket writes them; ``None`` makes the engine run that decode loop.
+    ``pos_per_slot``.  ``prefill(params, cache, toks, lengths[,
+    prefix_len])``, where given, runs ``(k, bucket)`` int32 prompts padded
+    to the bucket through the model in one pass over a fresh k-row cache
+    and returns ``((k, V) float32 logits at each row's ``lengths - 1``,
+    cache)``, the cache's K/V rows ``[0, bucket)`` written as the decode
+    step run over the bucket writes them; with ``prefix_len`` ((k,) int32)
+    the cache already holds each row's cached prefix in rows ``[0,
+    prefix_len)``, the prompts are the suffixes, and the rows and logits
+    are those of the decode step run over the suffix from ``pos =
+    prefix_len``.  ``None`` makes the engine run that decode loop.
+
+    ``prefix_sharing`` is True iff every non-``pos`` cache leaf is indexed
+    by absolute position at axis 1 (``models.positional_cache``), the
+    property prefix KV sharing needs; a recurrent-state backend sets it
+    False and the engine keeps cold prefills.
     """
 
     decode: Callable[[Any, Any, torch.Tensor], Tuple[torch.Tensor, Any]]
@@ -263,8 +299,8 @@ class EngineBackend:
     params: Any
     vocab_size: int
     device: torch.device
-    prefill: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
-                               Tuple[torch.Tensor, Any]]] = None
+    prefill: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
+    prefix_sharing: bool = True
 
 
 # ---------------------------------------------------------------------------
@@ -301,14 +337,33 @@ class _SlotState:
         return len(self.tokens)
 
 
+@dataclasses.dataclass
+class _AdmitJob:
+    """One admission in flight: request + slot + prefix-cache hit."""
+
+    req: Request
+    slot: int
+    plen: int
+    bucket: int                   # SUFFIX bucket (prompt minus cached prefix)
+    seed: int
+    hit: Optional[PrefixHit]
+    first: int = 0                # first sampled token, set by _admit_chunk
+
+    @property
+    def hit_len(self) -> int:
+        return self.hit.length if self.hit is not None else 0
+
+
 class ContinuousEngine:
     """Admit and retire requests *mid-decode* over rolling request slots.
 
     ``submit`` enqueues a request on the FIFO admission queue; when slots
-    free, ``_admit`` groups same-bucket requests into one ``(k, bucket)``
-    prefill over a fresh k-row cache, writes the result into the rolling
-    cache (resetting each slot's position and metrics row) and streams each
-    first token (TTFT).  Every ``step()`` then advances ALL occupied slots
+    free, ``_admit`` looks up each prompt's longest cached prefix, groups
+    same-suffix-bucket requests into one ``(k, bucket)`` prefill over a
+    fresh k-row cache holding the cached prefix rows, writes the result
+    into the rolling cache (resetting each slot's position and metrics
+    row), feeds the new KV blocks back into the trie and streams each first
+    token (TTFT).  Every ``step()`` then advances ALL occupied slots
     one token — model forward, per-row sampling, and ONE planner-lowered
     keyed masked fold of the per-request metrics — and retires slots that
     hit ``eos_id`` or their token budget.
@@ -317,10 +372,6 @@ class ContinuousEngine:
     def __init__(self, backend: EngineBackend, config: ServeConfig, *,
                  clock: Callable[[], float] = time.perf_counter,
                  consumers: Sequence[Callable[[StreamEvent], None]] = ()):
-        if config.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=True: the radix prefix KV cache is not ported "
-                "yet (ROADMAP: prefix cache slice); use prefix_cache=False")
         self.backend = backend
         self.config = config
         self._clock = clock
@@ -340,6 +391,23 @@ class ContinuousEngine:
                                       device=self._device)
         # distinct input shapes each program ran with (eager "compiles")
         self._shapes: Dict[str, Set[Tuple]] = {}
+        # -- radix prefix KV cache (runtime/prefix_cache.py) ----------------
+        self.prefix: Optional[PrefixCache] = None
+        self._slab = 0
+        if config.prefix_cache and backend.prefix_sharing \
+                and config.prefix_slab >= config.prefix_block:
+            self.prefix = PrefixCache(
+                PrefixCacheConfig(block=config.prefix_block,
+                                  capacity=config.prefix_capacity,
+                                  max_bytes=config.prefix_max_bytes,
+                                  half_life_s=config.prefix_half_life_s),
+                clock=clock, device=self._device)
+            self._slab = config.prefix_slab
+            dtypes = {leaf.dtype for leaf in self._kv_leaves(self._cache)}
+            if len(dtypes) != 1:
+                raise ValueError(f"prefix sharing packs the cache leaves "
+                                 f"into one tensor; they must share a "
+                                 f"dtype, got {sorted(map(str, dtypes))}")
 
     # -- program shapes ------------------------------------------------------
 
@@ -348,15 +416,23 @@ class ContinuousEngine:
             tuple(tuple(t.shape) for t in tensors))
 
     def compile_counts(self) -> Dict[str, int]:
-        """Distinct input shapes per engine program that has run."""
-        return {name: len(s) for name, s in sorted(self._shapes.items())}
+        """Distinct input shapes per engine program that has run, plus the
+        prefix cache's stats fold and row reset when it is on."""
+        counts = {name: len(s) for name, s in sorted(self._shapes.items())}
+        if self.prefix is not None:
+            counts.update(self.prefix.compile_counts())
+        return counts
 
     def compile_bound(self) -> int:
         """The declared ceiling on distinct program shapes over ANY trace:
-        ``1 step + |k| x |buckets| prefills + |k| writes``."""
+        ``1 step + |k| x |buckets| prefills + |k| writes`` plus, with the
+        prefix cache on, ``|k| gathers + stats fold + row reset``."""
         cfg = self.config
         kk = len(cfg.prefill_k_ladder)
-        return 1 + kk * len(cfg.prefill_buckets) + kk
+        n = 1 + kk * len(cfg.prefill_buckets) + kk
+        if self.prefix is not None:
+            n += kk + 2
+        return n
 
     # -- sampling ------------------------------------------------------------
 
@@ -430,69 +506,101 @@ class ContinuousEngine:
         if not reqs:
             return
         cfg = self.config
-        jobs = [(req, slot, cfg.bucket_for(len(req.prompt)),
-                 self._seeds.pop(req.uid, req.uid))
-                for req, slot in zip(reqs, free)]
+        jobs: List[_AdmitJob] = []
+        for req, slot in zip(reqs, free):
+            plen = len(req.prompt)
+            # the trie walk: requests prefill only their uncached suffix,
+            # and the prefill bucket is chosen on SUFFIX length
+            hit = self.prefix.lookup(req.prompt) \
+                if self.prefix is not None else None
+            hit_len = hit.length if hit is not None else 0
+            jobs.append(_AdmitJob(
+                req=req, slot=slot, plen=plen, hit=hit,
+                seed=self._seeds.pop(req.uid, req.uid),
+                bucket=cfg.bucket_for(plen - hit_len)))
         # group same-bucket admissions into shared (k, bucket) prefills, k
         # drawn from the declared power-of-two ladder
-        groups: Dict[int, List[Tuple[Request, int, int, int]]] = {}
+        groups: Dict[int, List[_AdmitJob]] = {}
         for job in jobs:
-            groups.setdefault(job[2], []).append(job)
-        first: Dict[int, int] = {}
+            groups.setdefault(job.bucket, []).append(job)
         ladder = cfg.prefill_k_ladder
         for b, group in groups.items():
             while group:
                 k = max(x for x in ladder if x <= len(group))
-                first.update(self._admit_chunk(group[:k], b))
+                self._admit_chunk(group[:k], b)
                 group = group[k:]
 
-        # stream in arrival order regardless of chunk grouping
+        # stream in arrival order regardless of chunk grouping: the
+        # admission accounting ("cache") event, then the first token
         now = self._clock()
         retire: List[int] = []
-        for req, slot, bucket, seed in jobs:
-            tok = first[req.uid]
-            st = _SlotState(uid=req.uid, user=req.user, seed=seed,
-                            prompt_len=len(req.prompt), bucket=bucket,
-                            max_new=req.max_new_tokens,
-                            arrival_s=req.arrival_s,
-                            ttft_s=now - req.arrival_s, tokens=[tok], cur=tok)
-            self._slots[slot] = st
+        for job in jobs:
+            st = _SlotState(uid=job.req.uid, user=job.req.user,
+                            seed=job.seed, prompt_len=job.plen,
+                            bucket=job.bucket,
+                            max_new=job.req.max_new_tokens,
+                            arrival_s=job.req.arrival_s,
+                            ttft_s=now - job.req.arrival_s,
+                            tokens=[job.first], cur=job.first)
+            self._slots[job.slot] = st
             self.stats.admitted += 1
             self.stats.generated_tokens += 1
-            if self._used_before[slot]:
+            if self._used_before[job.slot]:
                 self.stats.slot_reuses += 1
-            self._used_before[slot] = True
-            events.append(StreamEvent(uid=st.uid, kind="token", slot=slot,
-                                      step=self._step_count, time_s=now,
-                                      user=st.user, token=tok, index=0,
+            self._used_before[job.slot] = True
+            if job.hit is not None:
+                events.append(StreamEvent(
+                    uid=st.uid, kind="cache", slot=job.slot,
+                    step=self._step_count, time_s=now, user=st.user,
+                    hit_tokens=job.hit.length, prompt_tokens=job.plen,
+                    bytes_saved=job.hit.nbytes))
+            events.append(StreamEvent(uid=st.uid, kind="token",
+                                      slot=job.slot, step=self._step_count,
+                                      time_s=now, user=st.user,
+                                      token=job.first, index=0,
                                       ttft_s=st.ttft_s))
-            if tok == cfg.eos_id or st.max_new <= 1:
-                retire.append(slot)
+            if job.first == cfg.eos_id or st.max_new <= 1:
+                retire.append(job.slot)
         if retire:
             self._retire(retire, events, now)
 
-    def _admit_chunk(self, jobs, bucket: int) -> Dict[int, int]:
+    def _admit_chunk(self, jobs: List[_AdmitJob], bucket: int) -> None:
         """Prefill up to k same-bucket requests together (one backend
-        ``prefill`` call, or the decode step run over the bucket's tokens),
-        write their caches into the rolling cache at their slots, and
-        return each request's first token."""
+        ``prefill`` call, or the decode step run over the bucket's tokens)
+        after their cached prefixes, write their caches into the rolling
+        cache at their slots, feed each request's first-slab KV rows back
+        into the trie, and set each job's first token."""
         cfg, dev = self.config, self._device
         k = len(jobs)
         toks = np.full((k, bucket), cfg.pad_id, np.int32)
-        lengths = np.zeros((k,), np.int32)
+        suffix_lens = np.zeros((k,), np.int32)
+        plens = np.zeros((k,), np.int32)
+        prefix_lens = np.zeros((k,), np.int32)
         seeds = np.zeros((k,), np.int64)
-        for r, (req, _, _, seed) in enumerate(jobs):
-            toks[r, :len(req.prompt)] = req.prompt
-            lengths[r] = len(req.prompt)
-            seeds[r] = seed
+        for r, job in enumerate(jobs):
+            suffix = job.req.prompt[job.hit_len:]
+            toks[r, :len(suffix)] = suffix
+            suffix_lens[r] = len(suffix)
+            plens[r] = job.plen
+            prefix_lens[r] = job.hit_len
+            seeds[r] = job.seed
         toks_t = torch.from_numpy(toks).to(dev)
-        lengths_t = torch.from_numpy(lengths).to(dev)
+        lengths_t = torch.from_numpy(suffix_lens).to(dev)
         self._ran(f"prefill_k{k}_b{bucket}", toks_t)
         be = self.backend
         cachek = be.init_cache(k, True)
+        prefix_t = None
+        if prefix_lens.any():
+            prefix_t = torch.from_numpy(prefix_lens).to(dev)
+            self._load_prefix(cachek, jobs, int(prefix_lens.max()))
         if be.prefill is not None:
-            last, cachek = be.prefill(be.params, cachek, toks_t, lengths_t)
+            extra = () if prefix_t is None else (prefix_t,)
+            last, cachek = be.prefill(be.params, cachek, toks_t, lengths_t,
+                                      *extra)
         else:
+            if prefix_t is not None:
+                # each row's decode loop starts at its prefix length
+                cachek["pos"] = prefix_t.to(cachek["pos"].dtype)
             last = torch.zeros((k, be.vocab_size), dtype=torch.float32,
                                device=dev)
             for i in range(bucket):
@@ -502,25 +610,73 @@ class ContinuousEngine:
                                    last)
         sampled = self._sample_rows(last, seeds, np.zeros((k,), np.int64))
         rows = metric_rows(last, sampled, cfg.eos_id)
+        # the first `slab` KV rows of every admitted request, one tensor
+        packed = self._gather(cachek, k) if self.prefix is not None else None
 
-        # write: each slot restarts at its prompt length, and its metrics
-        # row is reset to the prefill's first-token row (one write)
-        slots = torch.tensor([slot for _, slot, _, _ in jobs],
-                             dtype=torch.long, device=dev)
+        # write: each slot restarts at its full prompt length, and its
+        # metrics row is reset to the prefill's first-token row (one write)
+        slots = torch.tensor([job.slot for job in jobs], dtype=torch.long,
+                             device=dev)
         self._ran(f"write_k{k}", slots)
         for key, big in self._cache.items():
             if key == "pos":
-                big[slots] = lengths_t.to(big.dtype)
+                big[slots] = torch.from_numpy(plens).to(dev, big.dtype)
             else:
                 pytree.tree_map(lambda b, s: b.index_copy_(0, slots, s),
                                 big, cachek[key])
         self._table[slots] = rows
         sampled_np = sampled.cpu().numpy()
+        for r, job in enumerate(jobs):
+            job.first = int(sampled_np[r])
+        if packed is not None:
+            B = cfg.prefix_block
+            max_blocks = self._slab // B
+            for r, job in enumerate(jobs):
+                # a block's payload: one slice of the packed rows, on the
+                # device (one copy, not one per cache leaf)
+                self.prefix.insert(
+                    job.req.prompt,
+                    lambda i, r=r: [packed[r, i * B:(i + 1) * B].clone()],
+                    max_blocks=max_blocks)
         self.stats.prefill_calls += 1
         if k > 1:
             self.stats.batched_admissions += k
-        return {req.uid: int(sampled_np[r])
-                for r, (req, _, _, _) in enumerate(jobs)}
+
+    @staticmethod
+    def _kv_leaves(cache) -> List[torch.Tensor]:
+        """The cache's KV leaves (every leaf but ``pos``), batch at axis 0
+        and position at axis 1."""
+        return pytree.tree_leaves([leaf for key, leaf in cache.items()
+                                   if key != "pos"])
+
+    def _gather(self, cachek, k: int) -> torch.Tensor:
+        """Rows ``[0, slab)`` of every KV leaf of a k-row cache packed into
+        ONE (k, slab, F) tensor (F: the leaves' trailing sizes, in leaf
+        order), from which each trie block's payload is one slice."""
+        slab = self._slab
+        packed = torch.cat([leaf[:, :slab].reshape(k, slab, -1)
+                            for leaf in self._kv_leaves(cachek)], dim=2)
+        self._ran(f"gather_k{k}", packed)
+        return packed
+
+    def _load_prefix(self, cachek, jobs: List[_AdmitJob], rows: int) -> None:
+        """Write each job's cached prefix blocks into rows ``[0, hit_len)``
+        of its row of a fresh k-row cache (the rest stay zero): the
+        payloads concatenated into one (k, rows, F) tensor, then one copy
+        per KV leaf."""
+        leaves = self._kv_leaves(cachek)
+        width = sum(leaf[0, 0].numel() for leaf in leaves)
+        buf = leaves[0].new_zeros((len(jobs), rows, width))
+        for r, job in enumerate(jobs):
+            if job.hit_len:
+                buf[r, :job.hit_len] = torch.cat(
+                    [blk[0] for blk in job.hit.blocks])
+        off = 0
+        for leaf in leaves:
+            f = leaf[0, 0].numel()
+            leaf[:, :rows] = buf[..., off:off + f].reshape(
+                leaf[:, :rows].shape)
+            off += f
 
     def _retire(self, slots: List[int], events: List[StreamEvent],
                 now: float) -> None:
@@ -548,6 +704,10 @@ class ContinuousEngine:
         rolling population one token.  Returns the streamed events."""
         events: List[StreamEvent] = []
         self._admit(events)
+        if self.prefix is not None:
+            # ONE keyed stats fold per engine step carries every cache
+            # event this step produced (hits + inserts)
+            self.prefix.flush_stats()
         S = self.config.num_slots
         occupied = [i for i, s in enumerate(self._slots) if s is not None]
         if not occupied:

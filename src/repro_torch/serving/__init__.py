@@ -11,6 +11,8 @@
 Requests roll through a fixed population of slots; per-request aggregates
 fold through ONE planner-lowered keyed masked fold per decode step (request
 slot == segment id), on the card through the CUDA segment-fold kernel.
+The radix prefix KV cache (:class:`PrefixCache`) serves shared prompt
+prefixes from a trie, its bookkeeping one keyed fold per step.
 """
 from ..launch.serve import build_engine, make_backend, poisson_trace, serve_trace
 from ..runtime.batcher import BatcherStats, DecodeBatch, Request, RequestBatcher
@@ -19,10 +21,13 @@ from ..runtime.engine import (ContinuousEngine, EngineBackend, EngineStats,
                               StreamEvent, decode_metrics_init,
                               decode_metrics_plan, decode_metrics_step,
                               extract_metrics)
+from ..runtime.prefix_cache import (PrefixCache, PrefixCacheConfig,
+                                    PrefixCacheStats, PrefixHit)
 
 __all__ = [
     "BatcherStats", "ContinuousEngine", "DecodeBatch", "EngineBackend",
-    "EngineStats", "METRIC_COLS", "Request", "RequestBatcher",
+    "EngineStats", "METRIC_COLS", "PrefixCache", "PrefixCacheConfig",
+    "PrefixCacheStats", "PrefixHit", "Request", "RequestBatcher",
     "RequestResult", "ServeConfig", "StreamEvent", "build_engine",
     "decode_metrics_init", "decode_metrics_plan", "decode_metrics_step",
     "extract_metrics", "make_backend", "poisson_trace", "serve_trace",

@@ -541,3 +541,64 @@ def test_cuda_prefill_launches_flash_once_per_layer(cuda_device):
     assert eng.stats.prefill_calls >= 2 and eng.stats.completed == 4
     assert flash_attention.launches - flash0 == 28 * eng.stats.prefill_calls
     assert segment_fold.launches - fold0 == eng.stats.steps
+
+
+# flash_attention with per-row query offsets (the prefix cache's warm
+# prefill): (B, H, KV, Sq, Sk, d, offsets)
+FLASH_OFFSET_CASES = {
+    "serve": (4, 16, 8, 16, 96, 128, (0, 20, 44, 60)),
+    "ragged": (3, 4, 2, 37, 150, 64, (0, 50, 113)),
+    "d8": (2, 8, 2, 20, 70, 8, (7, 50)),
+    "long": (2, 16, 8, 128, 4096, 128, (3968, 2000))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [
+    (torch.float32, 1e-4), (torch.bfloat16, 3e-2), (torch.float16, 4e-3)])
+@pytest.mark.parametrize("case", sorted(FLASH_OFFSET_CASES))
+def test_cuda_flash_attention_query_offsets(cuda_device, case, dtype, atol):
+    """Query i of row b at q_offset[b] + i against the plain version; the
+    keys read through the strides of a (B, Sk, KV, d) cache; offsets of
+    zero give the top-left call's output bit for bit."""
+    B, H, KV, Sq, Sk, d, offsets = FLASH_OFFSET_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = _qkv(gen, cuda_device, B, H, KV, Sq, Sk, d, dtype)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    kc, vc = (t.transpose(1, 2).contiguous() for t in (k, v))  # the cache
+    strided = flash_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                              q_offset=off)
+    assert torch.equal(strided, got)
+    zero = torch.zeros_like(off)
+    assert torch.equal(flash_attention(q, k, v, q_offset=zero),
+                       flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+def test_cuda_warm_prefill_launches_flash_once_per_layer(cuda_device):
+    """A full-width qwen3-0.6b engine with the prefix cache on (the
+    default) over prompts that share a prefix: the warm prefills hit the
+    trie and launch the flash-attention kernel once per layer, like the
+    cold ones, and the stats fold accounts for every resident byte."""
+    from repro_torch.serving import ServeConfig, build_engine
+
+    config = ServeConfig(arch="qwen3-0.6b", full=True, num_slots=2,
+                         prefill_buckets=(8, 32), max_new_tokens=3,
+                         prefill_batch=2)
+    eng = build_engine(config, device=cuda_device)
+    shared = list(range(100, 120))
+    flash0 = flash_attention.launches
+    for tail in ([1, 2], [3], [4, 5, 6], [7, 8]):
+        eng.submit(shared + tail)
+    for _ in eng.run(max_steps=50):
+        pass
+    torch.cuda.synchronize()
+    assert eng.prefix.stats.hit_tokens >= 2 * 20
+    assert flash_attention.launches - flash0 == 28 * eng.stats.prefill_calls
+    assert eng.prefix.accounted_bytes() == eng.prefix.total_bytes
+    assert sum(eng.compile_counts().values()) <= eng.compile_bound()

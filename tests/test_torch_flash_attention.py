@@ -206,3 +206,46 @@ def test_binding_matches_the_c_signature():
             for p in params]
     assert LIBRARY.functions["flash_attention_launch"] == want
     assert LIBRARY.library_path().name.startswith("libflash_attention-")
+
+
+@pytest.mark.parametrize("offsets,Sq,Sk", [
+    ((0, 20, 44, 60), 16, 96),      # the serve config's warm call, smaller
+    ((0, 3, 7), 5, 12),             # offsets whose keys end before Sk
+    ((120, 0), 40, 200)])           # two KV blocks of the plain version
+def test_query_offsets_match_the_softmax_reference_per_row(offsets, Sq, Sk):
+    """Query i of row b at position q_offset[b] + i keeps the keys
+    [0, q_offset[b] + i]: per row, ``ref.flash_attention_ref`` (bottom-right
+    causal) on the keys [0, q_offset[b] + Sq) computes that, float32 at
+    1e-5."""
+    B = len(offsets)
+    q, k, v = _qkv(11, B, 4, 2, Sq, Sk, 32)
+    off = torch.tensor(offsets, dtype=torch.int32)
+    got = flash_attention(*_torch(q, k, v), q_offset=off).numpy()
+    for b, o in enumerate(offsets):
+        n = min(o + Sq, Sk)
+        want = np.asarray(ref.flash_attention_ref(
+            *_jax(q[b:b + 1, :, :n - o], k[b:b + 1, :, :n], v[b:b + 1, :, :n]),
+            causal=True))
+        np.testing.assert_allclose(got[b:b + 1, :, :n - o], want, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_query_offsets_equal_the_top_left_call_bitwise(dtype):
+    q, k, v = _torch(*_qkv(12, 2, 4, 2, 24, 40, 16), dtype=dtype)
+    zero = torch.zeros((2,), dtype=torch.int32)
+    assert torch.equal(flash_attention(q, k, v, q_offset=zero),
+                       flash_attention(q, k, v))
+    assert torch.equal(flash_attention_plain(q, k, v, q_offset=zero.long()),
+                       flash_attention_plain(q, k, v))
+
+
+def test_query_offset_contract_errors():
+    q, k, v = _torch(*_qkv(13, 2, 4, 2, 8, 16, 32))
+    with pytest.raises(ValueError, match="causal=True"):
+        flash_attention(q, k, v, causal=False,
+                        q_offset=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="integer tensor"):
+        flash_attention(q, k, v, q_offset=torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="integer tensor"):
+        flash_attention(q, k, v, q_offset=torch.zeros(2))

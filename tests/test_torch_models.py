@@ -277,3 +277,101 @@ def test_forward_runs_head_dim_8_like_jax(arch):
     got = forward(tparams, tcfg, torch.from_numpy(toks))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("max_seq,bucket,prompts,prefix", [
+    # ragged suffixes after prefixes of 4 and 2 rows
+    (20, 8, (9, 7), (4, 2)),
+    # bench_prefix's shape: max_seq 20, a 14-token prompt with 8 cached
+    # tokens takes bucket 16, so its span runs to row 23; a clamped span
+    # write would shift its suffix onto prefix rows 4-7
+    (20, 16, (14, 10), (8, 0))])
+def test_prefill_after_a_prefix_matches_the_jax_engines_scan(
+        max_seq, bucket, prompts, prefix):
+    """The JAX engine's warm prefill (``load_prefix``: the prefix rows
+    written at [0, prefix) and ``pos = prefix``; ``scan_suffix``: the decode
+    step scanned over the suffix bucket) against the port's one pass with
+    ``prefix_len``: logits at 1e-4, every real cache row [0, prompt) of
+    every layer at 1e-5, and ``pos``."""
+    jcfg, tcfg, jparams, tparams = _pair(jnp.float32, torch.float32)
+    k = len(prompts)
+    rng = np.random.default_rng(6)
+    full = [rng.integers(1, jcfg.vocab_size, n) for n in prompts]
+    step = jax.jit(lambda p, c, t: jax_decode_step(p, jcfg, c, t))
+
+    # the prefix rows: the decode step run over each whole prompt
+    jcache = jax_init_cache(jparams, jcfg, k, max_seq, pos_per_slot=True)
+    toks = np.zeros((k, max(prompts)), np.int32)
+    for r, p in enumerate(full):
+        toks[r, :len(p)] = p
+    for i in range(toks.shape[1]):
+        _, jcache = step(jparams, jcache, jnp.asarray(toks[:, i:i + 1]))
+    cold = {n: np.asarray(jcache["layers"]["slot_0"][n]) for n in ("k", "v")}
+
+    # load_prefix: rows [0, prefix) of a fresh cache, zeros past them
+    rows = np.arange(max_seq)[None, :, None, None] < \
+        np.asarray(prefix)[:, None, None, None]
+    slabs = {n: np.where(rows[None], cold[n], 0).astype(np.float32)
+             for n in cold}
+    jwarm = jax_init_cache(jparams, jcfg, k, max_seq, pos_per_slot=True)
+    jwarm["layers"]["slot_0"] = {n: jnp.asarray(slabs[n]) for n in slabs}
+    jwarm["pos"] = jnp.asarray(prefix, jnp.int32)
+    suffix = np.zeros((k, bucket), np.int32)
+    lengths = np.array([n - p for n, p in zip(prompts, prefix)], np.int32)
+    for r, (p, o) in enumerate(zip(full, prefix)):
+        suffix[r, :len(p) - o] = p[o:]
+    last = np.zeros((k, jcfg.vocab_size), np.float32)
+    for i in range(bucket):                       # scan_suffix
+        logits, jwarm = step(jparams, jwarm, jnp.asarray(suffix[:, i:i + 1]))
+        last = np.where((lengths - 1 == i)[:, None],
+                        np.asarray(logits[:, -1]), last)
+
+    tcache = init_cache(tparams, tcfg, k, max_seq, pos_per_slot=True)
+    for layer, c in enumerate(tcache["layers"]):
+        for n in ("k", "v"):
+            c[n].copy_(torch.from_numpy(slabs[n][layer]))
+    got, tcache = prefill(tparams, tcfg, tcache, torch.from_numpy(suffix),
+                          torch.from_numpy(lengths),
+                          torch.tensor(prefix, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), last, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                  np.asarray(prefix) + bucket)
+    for n in ("k", "v"):
+        want = np.asarray(jwarm["layers"]["slot_0"][n])
+        for layer in range(jcfg.num_layers):
+            for r, plen in enumerate(prompts):
+                np.testing.assert_allclose(
+                    tcache["layers"][layer][n][r, :plen].numpy(),
+                    want[layer, r, :plen], rtol=0, atol=1e-5,
+                    err_msg=f"layer {layer} {n} row {r}")
+                # and the warm rows are the cold prompt's rows
+                np.testing.assert_allclose(
+                    tcache["layers"][layer][n][r, :plen].numpy(),
+                    cold[n][layer, r, :plen], rtol=0, atol=1e-5)
+
+
+def test_attention_derives_positions_and_refuses_others():
+    """``attention`` places its queries at ``q_offset + arange(S)``: the
+    same positions may be passed, any others raise."""
+    from repro_torch.models.attention import attention
+
+    _, tcfg, _, tparams = _pair(jnp.float32, torch.float32)
+    p = tparams["layers"][0]["mix"]
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 5, tcfg.d_model)).astype(np.float32))
+    off = torch.tensor([0, 3], dtype=torch.int32)
+    want, _ = attention(p, tcfg, x)
+    same, _ = attention(p, tcfg, x, torch.arange(5).expand(2, 5))
+    assert torch.equal(same, want)
+    cache = [torch.zeros((2, 12, tcfg.num_kv_heads, tcfg.head_dim))
+             for _ in range(2)]
+    shifted, _ = attention(p, tcfg, x, off[:, None] + torch.arange(5),
+                           q_offset=off, cache=cache)
+    assert shifted.shape == want.shape
+    for bad in (torch.arange(1, 6).expand(2, 5),
+                torch.tensor([[0, 1, 2, 3, 4], [0, 2, 4, 6, 8]])):
+        with pytest.raises(ValueError, match="derives its query positions"):
+            attention(p, tcfg, x, bad)
+    with pytest.raises(ValueError, match="derives its query positions"):
+        attention(p, tcfg, x, torch.arange(5).expand(2, 5), q_offset=off,
+                  cache=cache)

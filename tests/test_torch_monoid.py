@@ -47,13 +47,16 @@ def test_law_samples_and_combines_match_jax(name):
 
 
 def test_registry_is_the_kernel_lowered_family():
-    """The JAX registry minus the monoids of later slices (the decay
-    monoids: windows; cache_stats: prefix cache; lossy_*: training, which
-    ``repro.optim`` registers when some other test has imported it); the
-    kernel-lowered family is exactly the monoids with a registered
-    lowering."""
-    later = {n for n in jm.REGISTRY
-             if n.startswith(("decayed_", "cache_stats", "lossy_"))}
+    """The JAX registry minus the monoids of a later slice (lossy_*:
+    training, which ``repro.optim`` registers when some other test has
+    imported it); the decay monoids and ``cache_stats`` came with the
+    prefix cache.  The kernel-lowered family is exactly the monoids with a
+    registered lowering."""
+    later = {n for n in jm.REGISTRY if n.startswith("lossy_")}
+    assert {n for n in tm.REGISTRY if n.startswith(("decayed_",
+                                                     "cache_stats"))} == {
+        "decayed_sum(hl=16)", "decayed_count(hl=16)", "decayed_lru(hl=16)",
+        "cache_stats(hl=32)"}
     assert set(tm.REGISTRY) == set(jm.REGISTRY) - later
     assert tm.missing_law_samples() == []
     lowered = {name for name, m in tm.REGISTRY.items()

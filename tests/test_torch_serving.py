@@ -31,7 +31,7 @@ from repro_torch.serving import (ContinuousEngine, ServeConfig, build_engine,
                                  make_backend)
 
 CONFIG = dict(arch="qwen3-0.6b", num_slots=3, prefill_buckets=(4, 8),
-              max_new_tokens=5, prefill_batch=2)
+              max_new_tokens=5, prefill_batch=2, prefix_cache=False)
 # (engine step at which the request arrives, prompt, max_new_tokens)
 TRACE = [(0, [5, 9, 2, 7], 5), (0, [11, 3], 5), (0, [6, 6, 6, 1, 9], 4),
          (0, [8, 1, 4, 4, 2, 3, 1], 5), (1, [7], 2), (2, [3, 3, 3, 3], 5),
@@ -166,8 +166,6 @@ def test_sampling_streams_are_request_keyed(weights):
 
 
 def test_entry_points_refuse_what_is_not_ported(weights):
-    with pytest.raises(NotImplementedError, match="prefix"):
-        _port_engine(weights, prefix_cache=True)
     with pytest.raises(NotImplementedError, match="mesh"):
         build_engine(ServeConfig(model_parallel=2), device="cpu")
     if not torch.cuda.is_available():
@@ -205,3 +203,120 @@ def test_one_pass_prefill_equals_the_decode_loop(weights):
     assert dataclasses.asdict(one_pass.stats) == \
         dataclasses.asdict(looped.stats)
     assert one_pass.compile_counts() == looped.compile_counts()
+
+
+# a shared-prefix trace: a 6-token "system prompt" opens most requests, so
+# later admissions hit blocks that earlier ones inserted (block 2, buckets
+# chosen on suffix length)
+SHARED = [4, 8, 15, 16, 23, 42]
+PREFIX_CONFIG = dict(CONFIG, prefill_buckets=(4, 8, 16), prefix_cache=True,
+                     prefix_block=2)
+PREFIX_TRACE = [(0, SHARED + [5, 9], 5), (0, [11, 3, 7], 5),
+                (0, SHARED + [6], 4), (2, SHARED + [1, 2, 3], 5),
+                (2, SHARED[:4] + [9, 9, 9], 3), (3, SHARED + [7, 7, 1, 2], 5),
+                (5, SHARED[:2] + [3], 5), (5, SHARED + [5, 9], 2),
+                (8, SHARED + [5, 9, 4, 4, 4, 4, 4, 4], 5),
+                (8, [11, 3, 7, 1], 4)]
+
+
+class _StepClock:
+    """The engines' clock: one tick per served step, so both caches see
+    the same event times (and decayed scores)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _jax_prefix_engine(weights, clock, **overrides):
+    jcfg, _, jparams, _ = weights
+    config = JaxServeConfig(**{**PREFIX_CONFIG, **overrides})
+
+    def decode(p, cache, cur):
+        logits, cache = jax_decode_step(p, jcfg, cache, cur)
+        return logits[:, -1].astype(jnp.float32), cache
+
+    def make_cache(batch, pos_per_slot):
+        return jax_init_cache(jparams, jcfg, batch, config.max_seq,
+                              pos_per_slot=pos_per_slot)
+
+    backend = JaxBackend(decode=decode, init_cache=make_cache,
+                         params=jparams, vocab_size=jcfg.vocab_size,
+                         prefix_sharing=True)
+    return JaxEngine(backend, config, clock=clock)
+
+
+def _port_prefix_engine(weights, clock, **overrides):
+    _, tcfg, _, tparams = weights
+    config = ServeConfig(**{**PREFIX_CONFIG, **overrides})
+    return ContinuousEngine(make_backend(tcfg, tparams, config, "cpu"),
+                            config, clock=clock)
+
+
+def _serve_clocked(engine, clock, trace):
+    uids, step = [], 0
+    pending = list(trace)
+    while pending or engine.pending or engine.num_active:
+        while pending and pending[0][0] <= step:
+            _, prompt, max_new = pending.pop(0)
+            uids.append(engine.submit(prompt, max_new_tokens=max_new))
+        engine.step()
+        step += 1
+        clock.t += 0.25
+        assert step < 200
+    return [engine.result(u) for u in uids]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_prefix_engine_matches_the_jax_prefix_engine(weights, temperature):
+    """Both engines with the radix prefix cache on, over a shared-prefix
+    trace: the port prefills each suffix in one pass after its prefix, the
+    JAX engine scans the decode step over it.  Same tokens, slots, stop
+    steps and buckets, logprob sums within 1e-4, equal ``EngineStats`` and
+    ``PrefixCacheStats``, the same trie and the same stats table."""
+    over = dict(temperature=temperature, eos_id=-1, seed=3)
+    jclock, tclock = _StepClock(), _StepClock()
+    jeng = _jax_prefix_engine(weights, jclock, **over)
+    teng = _port_prefix_engine(weights, tclock, **over)
+    want = _serve_clocked(jeng, jclock, PREFIX_TRACE)
+    got = _serve_clocked(teng, tclock, PREFIX_TRACE)
+    for w, g in zip(want, got):
+        assert g.tokens == w.tokens, (g.uid, g.tokens, w.tokens)
+        assert (g.slot, g.stop_step, g.bucket) == (w.slot, w.stop_step,
+                                                    w.bucket)
+        assert abs(g.logprob_sum - w.logprob_sum) <= 1e-4
+    assert teng.prefix.stats.hits >= 5
+    assert dataclasses.asdict(teng.stats) == dataclasses.asdict(jeng.stats)
+    assert dataclasses.asdict(teng.prefix.stats) == \
+        dataclasses.asdict(jeng.prefix.stats)
+    assert sorted(teng.prefix._nodes) == sorted(jeng.prefix._nodes)
+    jt, tt = jeng.prefix.table(), teng.prefix.table()
+    for col in ("bytes", "hits"):
+        np.testing.assert_array_equal(tt[col].numpy(), np.asarray(jt[col]))
+    np.testing.assert_allclose(tt["score"][0].numpy(),
+                               np.asarray(jt["score"][0]), rtol=1e-6)
+    assert teng.prefix.accounted_bytes() == teng.prefix.total_bytes == \
+        jeng.prefix.total_bytes
+    counts = teng.compile_counts()
+    assert all(v <= 1 for v in counts.values())
+    assert sum(counts.values()) <= teng.compile_bound() == \
+        jeng.compile_bound()
+
+
+def test_warm_prefill_matches_cold_on_the_dense_backend(weights):
+    """The one-pass warm prefill against the same engine with the cache
+    off: the same tokens, logprob sums within 1e-4 (cached rows were
+    computed by another call, so the sums may differ in the last bits)."""
+    clock = _StepClock()
+    warm = _port_prefix_engine(weights, clock, eos_id=-1)
+    cold = _port_prefix_engine(weights, clock, eos_id=-1, prefix_cache=False)
+    assert cold.prefix is None
+    want = _serve_clocked(cold, clock, PREFIX_TRACE)
+    got = _serve_clocked(warm, clock, PREFIX_TRACE)
+    for w, g in zip(want, got):
+        assert g.tokens == w.tokens
+        assert abs(g.logprob_sum - w.logprob_sum) <= 1e-4
+    assert warm.prefix.stats.hit_tokens > 0
+    assert warm.stats.prefill_calls <= cold.stats.prefill_calls + 2
