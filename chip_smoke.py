@@ -59,6 +59,29 @@ Phases, each of which must pass or the script exits non-zero:
    step; each prefill must launch ``flash_attention`` once per layer, the
    fold-accounted bytes must equal the resident bytes, some prompt token
    must come from the trie, and the program shapes stay within the bound.
+   Then the sliding window of ``flash_attention`` at gemma3-1b's heads
+   (cases w1-w4: cold S 1024 and 600, warm Sq 128 over Sk 1024, a window as
+   long as the keys, which must equal the windowless call bit for bit)
+   against its plain version with phase 2's checks, timed beside SDPA with
+   the same boolean mask; w1's device time must fall below 0.9 of the
+   windowless call's (the tiles below the window are skipped).
+9. gemma3-1b (26 layers, 5:1 local:global, window 512): its float32 smoke
+   model with the cache on and a ``WindowedMetrics`` subscribed gives the
+   CPU's tokens and a cold engine's on the card (greedy and at 0.8), the
+   consumer counting every token and prefix hit; then the serve CLI's own
+   run (``launch.serve.run_cli``) at full width, random weights from
+   ``--seed``: 16 requests of 520-1000 tokens, 8 slots, buckets 256 / 512 /
+   1024, ``--users 4``, half the prompts opening with a 640-token prefix,
+   greedy; ``flash_attention`` must launch 26 times per prefill call and
+   ``segment_fold`` once per step.  Then the same trace on fresh engines
+   with and without the consumer (its host time per step), the decode
+   step eager against its CUDA-graph replay, and the tied ``unembed``'s
+   share of the replayed step.
+10. streaming windows: 2**22 timestamped events through ``tumbling_fold``
+   (``sum_``, ``max_``; 4096 windows) and ``session_fold`` (the sessions of
+   65536 users), each exact against a numpy oracle with one
+   ``segment_fold`` launch per fold, wall time and events/s printed; and
+   ``SlidingWindow(sum_, 32)`` over 10**4 events against brute force.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -451,10 +474,10 @@ def decode_breakdown(engine, iters: int = 20) -> None:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         be.decode(be.params, cache, cur)
-    graph_ms = cuda_ms(graph.replay, iters)
+    replay_ms = cuda_ms(graph.replay, iters)
     print(f"decode step ({S} slots, full width): eager_wall_ms={eager_ms} "
-          f"graph_replay_ms={graph_ms} host_bound_share="
-          f"{1 - graph_ms / eager_ms}", flush=True)
+          f"graph_replay_ms={replay_ms} host_bound_share="
+          f"{1 - replay_ms / eager_ms}", flush=True)
     # one prefill program of the serve phase's largest shape, (4, 64),
     # eager, beside the 64 eager decode steps it replaces
     k, bucket = engine.config.prefill_batch, engine.config.prefill_buckets[-1]
@@ -477,6 +500,7 @@ def decode_breakdown(engine, iters: int = 20) -> None:
         print(f"engine step ({S} slots busy, full width, temperature "
               f"{temperature}): eager_wall_ms={step} sampler_wall_ms="
               f"{sample}", flush=True)
+    return replay_ms
 
 
 def engine_step_ms(engine, temperature: float, iters: int):
@@ -720,7 +744,7 @@ def flash_work(B, H, Sq, Sk, d, causal):
     return 4 * B * H * pairs * d
 
 
-def plain_p_rounded(q, k, v, causal, q_offset=None):
+def plain_p_rounded(q, k, v, causal, q_offset=None, window=None):
     """The plain contract with p rounded once to q's 16-bit dtype before
     p v: what a kernel without the p_hi + p_lo split computes."""
     B, H, Sq, d = q.shape
@@ -733,7 +757,10 @@ def plain_p_rounded(q, k, v, causal, q_offset=None):
         if q_offset is not None:
             q_pos = (q_offset.long()[:, None] + q_pos)[:, None, None]
         k_pos = torch.arange(Sk, device=q.device)
-        s = s.masked_fill(k_pos > q_pos[..., None], -math.inf)
+        drop = k_pos > q_pos[..., None]
+        if window is not None:
+            drop |= k_pos <= q_pos[..., None] - window
+        s = s.masked_fill(drop, -math.inf)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     o = torch.matmul(p.to(q.dtype).to(torch.float32),
                      v.to(torch.float32)[:, :, None])
@@ -1088,40 +1115,180 @@ def run_flash_offset_case(case, gen, dev) -> dict:
                 controls=controls)
 
 
-def prefix_reference(args):
-    """A float32 smoke model with the prefix cache on, shared-prefix
-    prompts: the card's tokens == the CPU's; on the card the warm engine's
-    tokens == a cold engine's (greedy and at temperature 0.8), logprob sums
-    within 1e-3; each card prefill launches flash_attention once per
-    layer."""
+# sliding-window cases (phase 8, continued): (name, B, H, KV, Sq, Sk, d,
+# dtype, offsets or None, window), gemma3-1b's heads (4 / 1 x 256, bf16,
+# window 512): its cold prefill at the largest bucket of phase 9, a length
+# that is no tile multiple, its warm prefill over the 1024-row cache, and a
+# window as long as the cache
+FLASH_WINDOW_CASES = [
+    ("w1: gemma3-1b cold prefill B4 S1024 H4/KV1 d256 bf16 window 512", 4, 4,
+     1, 1024, 1024, 256, torch.bfloat16, None, 512),
+    ("w2: B4 S600 H4/KV1 d256 bf16 window 512 (ragged)", 4, 4, 1, 600, 600,
+     256, torch.bfloat16, None, 512),
+    ("w3: gemma3-1b warm prefill B4 Sq128 Sk1024 H4/KV1 d256 bf16 offsets "
+     "0/300/600/896 window 512", 4, 4, 1, 128, 1024, 256, torch.bfloat16,
+     (0, 300, 600, 896), 512),
+    ("w4: w3 with window 1024 = Sk (no key below any window)", 4, 4, 1, 128,
+     1024, 256, torch.bfloat16, (0, 300, 600, 896), 1024),
+]
+
+
+def window_work(B, Sq, Sk, offsets, window):
+    """Per row: the keys some query reads ([first live key, last live key])
+    and the (query, key) pairs the mask keeps, each query at offset + i
+    keeping qp - window < k <= qp."""
+    keys = pairs = 0
+    for b in range(B):
+        off = 0 if offsets is None else offsets[b]
+        qp = off + np.arange(Sq)
+        lo = np.maximum(qp - window + 1, 0)
+        hi = np.minimum(qp + 1, Sk)
+        pairs += int(np.maximum(hi - lo, 0).sum())
+        keys += max(0, int(hi.max()) - int(lo.min()))
+    return keys, pairs
+
+
+def run_flash_window_case(case, gen, dev) -> dict:
+    """``flash_attention(window=)`` against its plain version with phase 2's
+    tolerances and 16-bit controls; ``window >= Sk`` must give the
+    windowless call's output bit for bit, kernel and plain version alike.
+    SDPA with the same boolean mask is timed only, and the same call without
+    a window is timed beside it (device time: the tiles below the window are
+    skipped, not masked)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    name, B, H, KV, Sq, Sk, d, dtype, offsets, window = case
+    q, k, v = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+    off = None if offsets is None else torch.tensor(offsets, dtype=torch.int32,
+                                                    device=dev)
+
+    def kernel():
+        return flash_attention(q, k, v, q_offset=off, window=window)
+
+    def plain():
+        return flash_attention_plain(q, k, v, q_offset=off, window=window)
+
+    def no_window():
+        return flash_attention(q, k, v, q_offset=off)
+
+    before = flash_attention.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    launched = flash_attention.launches - before
+    ref = plain()
+    err = max_err(got, ref)
+    atol = FLASH_ATOL[dtype]
+    ok = err <= atol and launched == 1
+    controls = {"launches": launched}
+    share = differ_share(got, ref)
+    controls["differ_share"] = share
+    controls["p_rounded_share"] = differ_share(
+        plain_p_rounded(q, k, v, True, off, window), ref)
+    ok &= share <= FLASH_DIFFER_SHARE < controls["p_rounded_share"]
+    if window >= Sk:
+        controls["kernel_equals_windowless_bitwise"] = bool(
+            torch.equal(got, no_window()))
+        controls["plain_equals_windowless_bitwise"] = bool(torch.equal(
+            ref, flash_attention_plain(q, k, v, q_offset=off)))
+        ok &= controls["kernel_equals_windowless_bitwise"] and \
+            controls["plain_equals_windowless_bitwise"]
+    iters = 20
+    ms = cuda_ms(kernel, iters)
+    device_ms = graph_ms(kernel)
+    plain_ms = cuda_ms(plain, 3)
+    no_window_device_ms = graph_ms(no_window)
+    q_pos = torch.arange(Sq, device=dev).expand(B, Sq) if off is None else \
+        off.long()[:, None] + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    mask = ((k_pos <= q_pos[..., None]) &
+            (k_pos > q_pos[..., None] - window))[:, None]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    library_ms = cuda_ms(library, iters)
+    library_device_ms = graph_ms(library)
+    keys, pairs = window_work(B, Sq, Sk, offsets, window)
+    nbytes = (2 * q.numel() + 2 * keys * KV * d) * q.element_size()
+    flops = 4 * H * pairs * d
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(name=name, ok=ok, max_abs_err=err, tolerance=f"atol={atol}",
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                device_ms=device_ms, library_device_ms=library_device_ms,
+                no_window_device_ms=no_window_device_ms,
+                bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
+                flops=flops,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                controls=controls)
+
+
+def window_cases(gen, dev):
+    """Phase 8, continued: every window case, printed; w1's device time
+    against the same call without a window must show the tiles below the
+    window skipped (< 0.9: masking them would cost as much as reading
+    them)."""
+    rows = [run_flash_window_case(case, gen, dev)
+            for case in FLASH_WINDOW_CASES]
+    for row in rows:
+        print_row("flash_attention", row)
+        print(f"  flops={row['flops']} bytes={row['bound_bytes']} "
+              f"device_ms={row['device_ms']} (graph replay; SDPA "
+              f"{row['library_device_ms']}; no window "
+              f"{row['no_window_device_ms']})"
+              + "".join(f" {k}={v}" for k, v in row["controls"].items()),
+              flush=True)
+    w1 = rows[0]
+    ratio = w1["device_ms"] / w1["no_window_device_ms"]
+    keys, pairs = window_work(4, 1024, 1024, None, 512)
+    print(f"w1 device time with window 512 / without: {ratio} (the live "
+          f"pairs' share: {pairs / (4 * 1024 * 1025 / 2)})", flush=True)
+    if ratio >= 0.9:
+        raise RuntimeError(f"w1 with a window takes {ratio} of the "
+                           "windowless call's device time: the tiles below "
+                           "the window are read")
+    bad = [r["name"] for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"window cases disagree with the plain version: "
+                           f"{bad}")
+    return rows
+
+
+def cache_reference(args, arch, prompts, buckets, label):
+    """``arch``'s smoke model in float32 with the prefix cache on, over
+    shared-prefix ``prompts``: the card's tokens == the CPU's and == a cold
+    card engine's (greedy and at temperature 0.8), logprob sums within
+    1e-3; each card prefill launches flash_attention once per layer; a
+    subscribed WindowedMetrics counts every served token and the engine's
+    prefix hits."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import init_params
-    from repro_torch.serving import ContinuousEngine, ServeConfig, make_backend
+    from repro_torch.serving import (ContinuousEngine, ServeConfig,
+                                     WindowedMetrics, make_backend)
 
-    cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtype=torch.float32)
     gen = torch.Generator().manual_seed(args.seed)
     params_cpu = init_params(cfg, gen, device="cpu")
     params_gpu = pytree.tree_map(lambda t: t.to("cuda"), params_cpu)
-    rng = np.random.default_rng(args.seed + 8)
-    shared = rng.integers(1, cfg.vocab_size, 8).tolist()
-    prompts = [(shared if rng.random() < 0.75 else []) +
-               rng.integers(1, cfg.vocab_size, int(rng.integers(1, 7)))
-               .tolist() for _ in range(9)]
     for temperature in (0.0, 0.8):
         out, hits = {}, {}
         for name, dev, params, on in (("cpu", "cpu", params_cpu, True),
                                       ("cuda", "cuda", params_gpu, True),
                                       ("cuda cold", "cuda", params_gpu,
                                        False)):
-            config = ServeConfig(num_slots=3, prefill_buckets=(8, 16),
-                                 max_new_tokens=6, prefill_batch=2,
-                                 seed=args.seed, temperature=temperature,
-                                 prefix_cache=on)
+            config = ServeConfig(arch=arch, num_slots=3,
+                                 prefill_buckets=buckets, max_new_tokens=6,
+                                 prefill_batch=2, seed=args.seed,
+                                 temperature=temperature, prefix_cache=on)
             eng = ContinuousEngine(make_backend(cfg, params, config, dev),
                                    config)
-            uids = [eng.submit(p) for p in prompts]
+            metrics = WindowedMetrics(window=4, device=dev)
+            eng.subscribe(metrics.observe)
+            uids = [eng.submit(p, user=i % 3) for i, p in enumerate(prompts)]
             before = flash_attention.launches
             for _ in eng.run(max_steps=300):
                 pass
@@ -1133,6 +1300,14 @@ def prefix_reference(args):
                                    f"{launched} times, expected {want}")
             out[name] = [eng.result(u) for u in uids]
             hits[name] = eng.prefix.stats.hit_tokens if on else 0
+            served = sum(len(r.tokens) for r in out[name])
+            fp = metrics.fleet_prefix()
+            if metrics.fleet_tokens() != served or \
+                    fp["hit_tokens"] != hits[name]:
+                raise RuntimeError(
+                    f"{name}: WindowedMetrics counts {metrics.fleet_tokens()} "
+                    f"tokens and {fp['hit_tokens']} hit tokens; the engine "
+                    f"served {served} and hit {hits[name]}")
         if hits["cuda"] <= 0 or hits["cuda"] != hits["cpu"]:
             raise RuntimeError(f"prefix hits: cuda {hits['cuda']}, cpu "
                                f"{hits['cpu']}")
@@ -1149,11 +1324,26 @@ def prefix_reference(args):
             if worst[other] > 1e-3:
                 raise RuntimeError(f"temperature {temperature}: logprob sums "
                                    f"differ from {other} by {worst[other]}")
-        print(f"prefix reference: f32 smoke model, temperature "
-              f"{temperature}, {len(prompts)} requests, {hits['cuda']} "
-              f"prompt tokens from the trie; warm cuda tokens == cpu tokens "
-              f"(max |logprob_sum diff| {worst['cpu']}) == cold cuda "
-              f"tokens ({worst['cuda cold']})", flush=True)
+        print(f"{label}: f32 smoke model, temperature {temperature}, "
+              f"{len(prompts)} requests, {hits['cuda']} prompt tokens from "
+              f"the trie; warm cuda tokens == cpu tokens (max "
+              f"|logprob_sum diff| {worst['cpu']}) == cold cuda tokens "
+              f"({worst['cuda cold']}); WindowedMetrics fleet tokens == "
+              f"tokens served, fleet hit tokens == the engine's", flush=True)
+
+
+def prefix_reference(args):
+    """qwen3-0.6b's smoke model over prompts of which 75% open with one
+    8-token prefix (``cache_reference``)."""
+    from repro_torch.configs import get_config
+
+    vocab = get_config("qwen3-0.6b", smoke=True).vocab_size
+    rng = np.random.default_rng(args.seed + 8)
+    shared = rng.integers(1, vocab, 8).tolist()
+    prompts = [(shared if rng.random() < 0.75 else []) +
+               rng.integers(1, vocab, int(rng.integers(1, 7))).tolist()
+               for _ in range(9)]
+    cache_reference(args, "qwen3-0.6b", prompts, (8, 16), "prefix reference")
 
 
 def shared_prefix_trace(rng, vocab):
@@ -1349,6 +1539,266 @@ def prefix_phase(args, engine, flash_attention, gen, dev):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: gemma3-1b at full width through the serve CLI, with windows
+# ---------------------------------------------------------------------------
+
+GEMMA_CLI = ["--arch", "gemma3-1b", "--full", "--requests", "16", "--slots",
+             "8", "--buckets", "256,512,1024", "--min-prompt", "520",
+             "--max-prompt", "1000", "--gen", "32", "--rate", "0", "--users",
+             "4", "--shared-frac", "0.5", "--shared-len", "640",
+             "--temperature", "0"]
+
+
+def gemma_reference(args):
+    """The gemma3-1b smoke config (window 8) through ``cache_reference``:
+    prompts of 12-40 tokens, most opening with a 16-token shared prefix, so
+    cold and warm prefills both cross the window."""
+    from repro_torch.configs import get_config
+
+    vocab = get_config("gemma3-1b", smoke=True).vocab_size
+    rng = np.random.default_rng(args.seed + 9)
+    shared = rng.integers(1, vocab, 16).tolist()
+    prompts = []
+    for _ in range(10):
+        n = int(rng.integers(12, 41))
+        head = shared if n > 16 and rng.random() < 0.7 else []
+        prompts.append(head + rng.integers(1, vocab, n - len(head)).tolist())
+    cache_reference(args, "gemma3-1b", prompts, (16, 32, 48),
+                    "gemma3 reference (window 8, prompts of 12-40 tokens)")
+
+
+def gemma_phase(args, segment_fold, flash_attention):
+    """gemma3-1b at full width (26 layers, 5:1 local:global, window 512,
+    random weights from ``--seed``) through the serve CLI's own run; then
+    the same trace on fresh engines with and without the WindowedMetrics
+    subscription, the consumer's host time, the decode step eager against
+    its CUDA-graph replay, and the tied-embedding ``unembed``'s share of
+    it.  Returns (flash_attention launches, prefill calls)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_cli, serve_trace
+    from repro_torch.models import num_params, unembed
+    from repro_torch.serving import ContinuousEngine, WindowedMetrics
+
+    segment_fold.launches = 0
+    flash_attention.launches = 0
+    run = run_cli(GEMMA_CLI + ["--seed", str(args.seed)])
+    torch.cuda.synchronize()
+    fold_launches = segment_fold.launches
+    flash_launches = flash_attention.launches
+    engine, metrics, results = run["engine"], run["metrics"], run["results"]
+    cfg = get_config(engine.config.arch, smoke=not engine.config.full)
+    st = engine.stats
+    vocab, budget = cfg.vocab_size, engine.config.max_new_tokens
+    if len(results) != len(run["trace"]):
+        raise RuntimeError(f"{len(results)} of {len(run['trace'])} "
+                           "completed")
+    for r in results:
+        if not (1 <= len(r.tokens) <= budget) or \
+                not math.isfinite(r.logprob_sum):
+            raise RuntimeError(f"bad result {r}")
+        if any(not 0 <= t < vocab for t in r.tokens):
+            raise RuntimeError(f"token outside the vocab in {r.tokens}")
+        if len(r.tokens) < budget and not r.stopped:
+            raise RuntimeError(f"uid {r.uid} ended early without eos")
+    if st.prefill_calls <= 0 or \
+            flash_launches != cfg.num_layers * st.prefill_calls:
+        raise RuntimeError(f"flash_attention launched {flash_launches} times "
+                           f"over {st.prefill_calls} prefill calls; each "
+                           f"must launch it once per layer "
+                           f"({cfg.num_layers})")
+    if fold_launches <= 0 or fold_launches != st.steps:
+        raise RuntimeError(f"segment_fold launched {fold_launches} times "
+                           f"over {st.steps} decode steps")
+    gen = sum(len(r.tokens) for r in results)
+    ps, fp = engine.prefix.stats, metrics.fleet_prefix()
+    if metrics.fleet_tokens() != gen or fp["hit_tokens"] != ps.hit_tokens:
+        raise RuntimeError(f"WindowedMetrics: fleet tokens "
+                           f"{metrics.fleet_tokens()} (served {gen}), hit "
+                           f"tokens {fp['hit_tokens']} (engine "
+                           f"{ps.hit_tokens})")
+    if ps.hit_tokens <= 0:
+        raise RuntimeError("no prompt token came from the trie")
+    ttft = np.array([r.ttft_s for r in results])
+    print(f"gemma3-1b serve (CLI): params={num_params(engine.backend.params)}"
+          f" completed={len(results)} generated_tokens={gen} "
+          f"wall_s={run['wall_s']} tokens_per_s={gen / run['wall_s']} "
+          f"ttft_p50_ms={np.percentile(ttft, 50) * 1e3} "
+          f"ttft_p99_ms={np.percentile(ttft, 99) * 1e3} "
+          f"decode_steps={st.steps} prefill_calls={st.prefill_calls} "
+          f"flash_attention.launches={flash_launches} (== {cfg.num_layers} "
+          f"x prefill calls) segment_fold.launches={fold_launches} "
+          f"hit_tokens={ps.hit_tokens}/{ps.prompt_tokens} "
+          f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30}",
+          flush=True)
+
+    # the same trace with and without the consumer, in turns (ABBA), each
+    # on a fresh engine (an empty trie) over the CLI's weights
+    config = engine.config
+    for subscribed in (False, True, True, False):
+        eng = ContinuousEngine(engine.backend, config)
+        host_s = [0.0]
+        if subscribed:
+            m = WindowedMetrics(window=32, half_life_s=60.0,
+                                device=eng.backend.device)
+
+            def observe(ev, m=m):
+                t0 = time.perf_counter()
+                m.observe(ev)
+                host_s[0] += time.perf_counter() - t0
+            eng.subscribe(observe)
+        res, wall = serve_trace(eng, run["trace"])
+        torch.cuda.synchronize()
+        toks = sum(len(r.tokens) for r in res)
+        line = (f"gemma3-1b serve, WindowedMetrics "
+                f"{'subscribed' if subscribed else 'not subscribed'}: "
+                f"tokens_per_s={toks / wall} wall_s={wall} steps="
+                f"{eng.stats.steps}")
+        if subscribed:
+            line += (f" consumer_host_ms_per_step="
+                     f"{host_s[0] / eng.stats.steps * 1e3} "
+                     f"consumer_host_us_per_event="
+                     f"{host_s[0] / m.events * 1e6} events={m.events}")
+        print(line, flush=True)
+    # the same trace with the prefix cache off: at these prompt lengths the
+    # default trie (256 nodes of 4 tokens) holds about one prompt, so what
+    # its inserts, evictions and stats folds cost shows against this pass
+    eng = ContinuousEngine(engine.backend,
+                           dataclasses.replace(config, prefix_cache=False))
+    res, wall = serve_trace(eng, run["trace"])
+    torch.cuda.synchronize()
+    ttft = np.array([r.ttft_s for r in res])
+    print(f"gemma3-1b serve, prefix cache off: tokens_per_s="
+          f"{sum(len(r.tokens) for r in res) / wall} wall_s={wall} "
+          f"ttft_p50_ms={np.percentile(ttft, 50) * 1e3} ttft_p99_ms="
+          f"{np.percentile(ttft, 99) * 1e3} steps={eng.stats.steps} "
+          f"prefill_calls={eng.stats.prefill_calls} (cache on: stats folds "
+          f"{ps.folds}, evictions {ps.evictions})", flush=True)
+
+    step_graph_ms = decode_breakdown(engine)
+    # the tied-embedding unembed (an f32 copy of the 262144 x 1152
+    # embedding per call) on the decode step's (8, 1, 1152) hidden rows
+    h = torch.randn((config.num_slots, 1, cfg.d_model),
+                    device=engine.backend.device, dtype=cfg.dtype)
+    params = engine.backend.params
+    unembed_ms = graph_ms(lambda: unembed(params, cfg, h))
+    print(f"gemma3-1b unembed (tied embedding cast to f32 per call): "
+          f"device_ms={unembed_ms} of the decode step's graph replay "
+          f"{step_graph_ms} ms: share={unembed_ms / step_graph_ms}",
+          flush=True)
+    return flash_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: streaming windows on the card
+# ---------------------------------------------------------------------------
+
+def windows_phase(args, segment_fold, dev) -> int:
+    """2**22 timestamped events through ``tumbling_fold`` (``sum_``,
+    ``max_``) over 4096 windows and ``session_fold`` (``sum_``) over the
+    sessions of 65536 users, each exact against a numpy oracle (float64
+    sums at atol 1e-4; the values are integers in float32, so the kernel's
+    float32 sums are exact too), ``segment_fold`` launched once per fold;
+    then ``SlidingWindow(sum_, 32)`` over 10**4 events against a brute-force
+    numpy window.  Returns the folds' ``segment_fold`` launches."""
+    from repro_torch.core import monoids
+    from repro_torch.data import (SlidingWindow, session_fold, sessionize,
+                                  tumbling_fold)
+
+    rng = np.random.default_rng(args.seed + 10)
+    n, n_windows, width, n_users = 1 << 22, 4096, 0.37, 65536
+    # timestamps run 0.1% past the last window: those events are masked
+    ts = np.sort(rng.uniform(0.0, n_windows * width * 1.001, n))
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    users = rng.integers(0, n_users, n)
+    vals_t = torch.from_numpy(vals).to(dev)
+    ts_t = torch.from_numpy(ts).to(dev)
+
+    ids = np.floor((ts.astype(np.float32) - np.float32(0.0))
+                   / np.float32(width)).astype(np.int64)
+    live = (ids >= 0) & (ids < n_windows)
+    want_sum = np.bincount(ids[live], weights=vals[live].astype(np.float64),
+                           minlength=n_windows)
+    want_max = np.full(n_windows, -np.inf, np.float32)
+    np.maximum.at(want_max, ids[live], vals[live])
+    t0 = time.perf_counter()
+    sids, n_sessions = sessionize(users, ts, gap=30.0)
+    sessionize_s = time.perf_counter() - t0
+    want_sessions = np.bincount(sids, weights=vals.astype(np.float64),
+                                minlength=n_sessions)
+
+    folds = {
+        "tumbling sum_": lambda: tumbling_fold(
+            monoids.sum_, vals_t, ts_t, width=width, num_windows=n_windows,
+            with_plan=True),
+        "tumbling max_": lambda: tumbling_fold(
+            monoids.max_, vals_t, ts_t, width=width, num_windows=n_windows,
+            with_plan=True),
+        "session sum_": lambda: session_fold(
+            monoids.sum_, vals_t, sids, n_sessions, with_plan=True),
+    }
+    wants = {"tumbling sum_": want_sum, "tumbling max_": want_max,
+             "session sum_": want_sessions}
+    segment_fold.launches = 0
+    outs = {}
+    for name, fold in folds.items():
+        outs[name] = fold()
+    torch.cuda.synchronize()
+    launches = segment_fold.launches
+    if launches != len(folds):
+        raise RuntimeError(f"segment_fold launched {launches} times over "
+                           f"{len(folds)} window folds")
+    for name, (out, plan) in outs.items():
+        got = out.cpu().numpy().astype(np.float64)
+        want = wants[name]
+        err = float(np.abs(got - want).max())
+        exact = name == "tumbling max_"
+        if plan.local_tier.kind != "kernel" or \
+                (err != 0.0 if exact else err > 1e-4):
+            raise RuntimeError(f"{name}: tier {plan.local_tier.kind}, max "
+                               f"|err| {err} against the numpy oracle")
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            folds[name]()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls))
+        print(f"windows: {name} over {n} events into {len(want)} "
+              f"{'sessions' if 'session' in name else 'windows'}: plan "
+              f"{plan.describe()} max_abs_err={err} (numpy oracle"
+              f"{', exact' if exact else ', float64'}) wall_ms={wall * 1e3} "
+              f"(median of 5) events_per_s={n / wall}", flush=True)
+    print(f"windows: sessionize (host, numpy) of {n} events from {n_users} "
+          f"users, gap 30 -> {n_sessions} sessions in {sessionize_s} s",
+          flush=True)
+
+    # the two-stacks sliding window on the card against brute force
+    small = rng.integers(-100, 101, 10_000).astype(np.float32)
+    win = SlidingWindow(monoids.sum_, 32, device=dev)
+    small_t = torch.from_numpy(small).to(dev)
+    t0 = time.perf_counter()
+    for i in range(small.size):
+        win.push(small_t[i])
+        if i % 97 == 0 or i == small.size - 1:
+            got = float(win.query())
+            want = float(small[max(0, i - 31): i + 1].astype(np.float64)
+                         .sum())
+            if got != want:
+                raise RuntimeError(f"SlidingWindow at event {i}: {got} != "
+                                   f"brute force {want}")
+    wall = time.perf_counter() - t0
+    if win.flip_combines > win.pushes:
+        raise RuntimeError("SlidingWindow flipped more than once per event")
+    print(f"windows: SlidingWindow(sum_, 32) over {small.size} events on the "
+          f"card == brute-force numpy window (checked every 97 events and "
+          f"at the end); {win.flip_combines / win.pushes} flip combines per "
+          f"event; wall_s={wall} ({wall / small.size * 1e6} us per push)",
+          flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1486,6 +1936,15 @@ def main(argv=None) -> int:
     print(f"prefix phase: flash_attention launches over the measured warm "
           f"and cold passes = {prefix_launches} (28 per prefill call)",
           flush=True)
+    # phase 8, continued: the sliding window in flash_attention
+    window_cases(gen, dev)
+    torch.cuda.empty_cache()
+    # phase 9: gemma3-1b's 5:1 local:global stack through the serve CLI
+    gemma_reference(args)
+    gemma_phase(args, segment_fold, flash_attention)
+    torch.cuda.empty_cache()
+    # phase 10: streaming windows on the card
+    windows_phase(args, segment_fold, dev)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

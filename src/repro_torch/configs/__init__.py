@@ -1,16 +1,19 @@
 """Architecture registry of the port: the archs whose model family runs.
 
 The JAX package registers ten architectures; the port so far runs the dense
-family, so only qwen3-0.6b is here (the others are later slices).
+family: qwen3-0.6b, qwen2.5-14b, starcoder2-15b and gemma3-1b (its 5:1
+local:global stack).  The MoE, SSM, encoder-decoder and vision archs are
+later slices.
 """
 from __future__ import annotations
 
 from typing import List
 
 from ..models.common import ModelConfig
-from . import qwen3_0p6b
+from . import gemma3_1b, qwen2p5_14b, qwen3_0p6b, starcoder2_15b
 
-_MODULES = {m.ARCH_ID: m for m in (qwen3_0p6b,)}
+_MODULES = {m.ARCH_ID: m for m in (qwen3_0p6b, qwen2p5_14b, starcoder2_15b,
+                                     gemma3_1b)}
 
 ARCH_IDS: List[str] = list(_MODULES)
 

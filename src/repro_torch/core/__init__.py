@@ -5,7 +5,7 @@ from .aggregation import local_fold, tree_bytes
 from .calibration import (Calibration, TierCoeff, calibration_path,
                           default_calibration, get_calibration,
                           load_calibration, save_calibration,
-                          use_calibration)
+                          set_calibration, use_calibration)
 from .mapreduce import (STRATEGIES, MapReduceJob, ShuffleStats,
                         algorithm2_combiner, average_by_key_job,
                         cooccurrence_stripes_job, fold_stats,
@@ -15,7 +15,7 @@ from .monoid import (KernelLowering, Monoid, MonoidTypeError, check_laws,
                      scan_fold, tree_fold)
 from .monoids import REGISTRY, product
 from .plan import (Plan, TierPlan, collective_algorithm, execute_fold,
-                   plan_fold)
+                   plan_fold, segment_fold)
 
 __all__ = [
     "Calibration", "KernelLowering", "MapReduceJob", "Monoid",
@@ -25,6 +25,7 @@ __all__ = [
     "collective_algorithm", "cooccurrence_stripes_job", "default_calibration",
     "execute_fold", "fold_map", "fold_stats", "get_calibration",
     "load_calibration", "local_fold", "monoids", "plan_fold", "product",
-    "register_kernel_lowering", "save_calibration", "scan_fold", "tree_bytes",
-    "tree_fold", "use_calibration", "validate_combiner", "word_count_job",
+    "register_kernel_lowering", "save_calibration", "scan_fold",
+    "segment_fold", "set_calibration", "tree_bytes", "tree_fold",
+    "use_calibration", "validate_combiner", "word_count_job",
 ]

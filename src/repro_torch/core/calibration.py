@@ -214,6 +214,14 @@ _active: Optional[Calibration] = None           # explicit override
 _cache: Tuple[Optional[Tuple[str, float]], Optional[Calibration]] = (None, None)
 
 
+def set_calibration(calib: Optional[Calibration]) -> None:
+    """Install ``calib`` as the active table (None restores env/disk/default
+    resolution)."""
+    global _active
+    with _lock:
+        _active = calib
+
+
 @contextlib.contextmanager
 def use_calibration(calib: Calibration):
     """Scoped override of the active table (how tests pin a table)."""

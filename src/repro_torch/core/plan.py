@@ -712,3 +712,51 @@ def execute_fold(m: Monoid, values: Pytree, *, segment_ids=None,
                 mat = _mask_rows_to_identity(m, mat, valid_mask)
             out = scan_fold(m, mat, axis=axis)
     return (out, plan) if with_plan else out
+
+
+# ---------------------------------------------------------------------------
+# keyed-fold compatibility wrapper (the pre-planner public API)
+# ---------------------------------------------------------------------------
+
+def segment_fold(m: Monoid, values: Pytree, segment_ids: torch.Tensor,
+                 num_segments: int, *, init: Optional[Pytree] = None,
+                 impl: str = "auto") -> Pytree:
+    """Key-grouped monoid fold: MapReduce 'reduce by key', shapes static.
+
+    Thin wrapper over :func:`execute_fold` kept for callers that predate the
+    planner, with the JAX package's ``impl`` values.  'auto': the segment
+    tier (``index_add_`` / ``scatter_reduce_``) when the monoid has one,
+    else the generic scan; 'onehot' (additive monoids only): the CUDA
+    segment-fold kernel when the values lie on the card and the kernel
+    takes their dtypes, else the one-hot matmul in float32 (ids outside
+    ``[0, S)`` fold nothing), either way cast back to each input leaf's
+    dtype; 'scan': the generic path.
+    """
+    if impl == "onehot":
+        if m.name not in ("sum", "mean", "count"):
+            raise ValueError("onehot impl is only meaningful for additive "
+                             "monoids")
+        if _on_cuda(values) and _kernel_infeasible_reason(
+                m, _one_slice(values)) is None:
+            out = execute_fold(m, values, segment_ids=segment_ids,
+                               num_segments=num_segments, init=init,
+                               layout="kernel")
+            return pytree.tree_map(lambda o, v: o.to(v.dtype), out, values)
+
+        def onehot_sum(v):
+            flat = v.reshape(v.shape[0], -1).to(torch.float32)
+            oh = (segment_ids.to(torch.long)[None, :] == torch.arange(
+                num_segments, device=v.device)[:, None]).to(torch.float32)
+            out = oh @ flat                               # (S, V)
+            return out.reshape((num_segments,) + tuple(v.shape[1:])).to(
+                v.dtype)
+        folded = pytree.tree_map(onehot_sum, values)
+        return _seg_add_init(m, folded, init)
+    if impl == "scan":
+        layout = "scan"
+    elif impl == "auto":
+        layout = "segment" if m.name in _SEGMENT_OPS else "scan"
+    else:
+        raise ValueError(f"unknown impl {impl!r}")
+    return execute_fold(m, values, segment_ids=segment_ids,
+                        num_segments=num_segments, init=init, layout=layout)

@@ -1,9 +1,11 @@
 """Summingbird in miniature (paper §4), on the port: ONE monoid state serves
 the low-latency streaming path (fold batch by batch as data arrives), the
 batch path (tree-reduce over per-batch states) and the MapReduce engine —
-and all three agree exactly.  On the card the count-min sketch updates run
-the ``cms_update`` CUDA kernel.  (The JAX example's fourth path, windows,
-waits for the port's windows slice.)
+and all three agree exactly.  Path 4 runs the same monoids over a per-user
+event stream as windows: a two-stacks sliding window, tumbling windows as
+one keyed fold, a decayed per-user score and sessions as one keyed fold.
+On the card the count-min sketch updates run the ``cms_update`` CUDA kernel
+and the tumbling and session folds the ``segment_fold`` kernel.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.streaming_analytics \
           [--device cpu]
@@ -17,8 +19,10 @@ import torch
 import torch.utils._pytree as pytree
 
 from repro_torch.core import monoids, tree_fold, word_count_job
-from repro_torch.data import (DataConfig, SyntheticCorpus, init_stats,
-                              make_stream_stats, summarize, update_stats)
+from repro_torch.data import (DataConfig, SlidingWindow, SyntheticCorpus,
+                              init_stats, make_stream_stats, session_fold,
+                              sessionize, summarize, tumbling_fold,
+                              update_stats)
 
 VOCAB = 2_000
 
@@ -73,9 +77,65 @@ def main(argv=None) -> dict:
     err = abs(stream["approx_distinct"] - true_distinct) / true_distinct
     print(f"\nHLL distinct estimate error: {100*err:.1f}% "
           f"(true {true_distinct}, est {stream['approx_distinct']:.0f})")
+
+    # -- path 4: WINDOWED — the same monoids over an infinite event stream ---
+    # a synthetic per-user event stream: (user, timestamp, value), drawn as
+    # the JAX example draws it
+    rng = np.random.default_rng(11)
+    n_events, n_users = 400, 6
+    users = rng.integers(0, n_users, n_events)
+    ts = np.cumsum(rng.uniform(0.0, 0.4, n_events))
+    vals = rng.integers(1, 20, n_events).astype(np.float32)
+    vals_t = torch.from_numpy(vals).to(device)
+
+    # sliding window: last-32-events sum via the two-stacks trick, O(1)
+    # amortized combines per event, no inverse needed (works for max/CMS/HLL)
+    win = SlidingWindow(monoids.sum_, 32, device=device)
+    for v in vals_t:
+        win.push(v)
+    brute = float(vals[-32:].sum())
+    slide = float(win.extract())
+    print(f"\nsliding window (two-stacks, w=32): sum={slide:.0f} "
+          f"== brute force {brute:.0f}; "
+          f"{win.flip_combines / win.pushes:.2f} flip combines/event")
+    assert slide == brute
+
+    # tumbling windows: window id == segment id, ONE planner-lowered keyed
+    # fold
+    n_windows = int(ts[-1] // 10.0) + 1
+    table = tumbling_fold(monoids.sum_, vals_t, ts, width=10.0,
+                          num_windows=n_windows).cpu().numpy()
+    print(f"tumbling windows (width 10s, one keyed fold): "
+          f"{[f'{x:.0f}' for x in table]}")
+    assert np.isclose(table.sum(), vals.sum())
+
+    # decay monoid: exponentially time-decayed per-user activity score
+    half_life = 20.0
+    dm = monoids.decayed_sum(half_life)
+    ts_t = torch.from_numpy(ts.astype(np.float32)).to(device)
+    score = {}
+    for i, u in enumerate(users.tolist()):
+        s = dm.lift((vals_t[i], ts_t[i]))
+        score[u] = s if u not in score else dm.combine(score[u], s)
+    now = float(ts[-1])
+    rate = {u: float(monoids.decayed_value(st, now, half_life))
+            for u, st in score.items()}
+    top_user = max(rate, key=rate.get)
+    print(f"decayed activity (half-life {half_life:.0f}s): hottest user = "
+          f"{top_user} (score {rate[top_user]:.1f})")
+
+    # sessionization: session id == segment id -> per-session planner fold
+    sids, n_sessions = sessionize(users, ts, gap=1.0)
+    per_session = session_fold(monoids.sum_, vals_t, sids,
+                               n_sessions).cpu().numpy()
+    print(f"sessionized {n_events} events from {n_users} users into "
+          f"{n_sessions} sessions (gap 1s); "
+          f"largest session sum={per_session.max():.0f}")
+    assert np.isclose(per_session.sum(), vals.sum())
     return {"tokens": stream["tokens"],
             "approx_distinct": stream["approx_distinct"],
-            "top": top.tolist(), "estimates": estimates}
+            "top": top.tolist(), "estimates": estimates,
+            "tumbling": table, "sessions": per_session}
 
 
 if __name__ == "__main__":

@@ -12,6 +12,10 @@
 //     the radix prefix cache) query i of batch b sits at q_off[b] + i and
 //     keeps keys k_pos <= q_off[b] + i: the keys of its cached prefix and
 //     of its suffix so far;
+//   * a sliding window (window >= 1, causal only; the reference's
+//     _causal_mask, src/repro/models/attention.py:124-130) also drops the
+//     keys k_pos <= qp - window of the query at position qp, so each query
+//     keeps qp - window < k_pos <= qp;
 //   * the m_safe / alpha guards keep a row with no live key at o = 0;
 //   * the output is o / max(l, 1e-30), rounded once to q's dtype.
 // Unlike the Pallas kernel it takes ragged Sq and Sk (it masks the edge of
@@ -64,6 +68,12 @@
 //     cache (the (B, max_seq, KV, d) cache viewed through its strides) and
 //     skips the tiles past its last query, as the top-left path does.  The
 //     KV head is h / (H / KV), read by index: no repeated KV.
+//   * Sliding window: the lower edge mirrors the upper one.  A block starts
+//     its tile loop at the tile of its first live key, max(0, off + q0 -
+//     window + 1) / BK, so KV tiles wholly below the window are never
+//     loaded; each warp skips the 16-key slices wholly below its own first
+//     live key, and the mask tests the lower edge on the tiles that cross
+//     it.  Without a window (0) the loop starts at tile 0: the path above.
 //   * Unaligned inputs (a base or stride that is no multiple of 16 bytes)
 //     and the last partial 16-byte chunk of a row (d * size no multiple of
 //     16) take element-wise loads instead of cp.async.
@@ -93,6 +103,7 @@ struct Args {
     float scale_log2;             // scale * log2(e): p = exp2(s2 - m2)
     int causal;
     const int* q_off;             // (B,) query offsets, or null (all 0)
+    int window;                   // sliding window in keys, or 0 (none)
     int vec_q, vec_k, vec_v, vec_o;   // 16-byte aligned bases and strides
 };
 
@@ -360,6 +371,8 @@ flash_attention_kernel(const Args a) {
     const int q_last = min(q0 + BQ, a.Sq) - 1;
     const int k_end = a.causal ? min(a.Sk, off + q_last + 1) : a.Sk;
     const int n_tiles = (k_end + BK - 1) / BK;
+    // the block's first live key under the window: its tiles start there
+    const int t0 = a.window > 0 ? max(0, off + q0 - a.window + 1) / BK : 0;
 
     auto load_kv = [&](int tile, int stage) {
         const int k0 = tile * BK;
@@ -370,7 +383,7 @@ flash_attention_kernel(const Args a) {
     };
     // the pipeline's first STAGES - 1 tiles (a group is committed for
     // every tile index, empty past the last, so the waits count alike)
-    if (n_tiles > 0) {              // else no key: o stays 0
+    if (n_tiles > t0) {             // else no key: o stays 0
         if constexpr (kSplit)
             load_q_split<DB, BQ>(sQ, sQlo, LD, Q, a.q_ss, q0, a.Sq, a.d, dpad,
                                  a.vec_q, tid);
@@ -379,7 +392,7 @@ flash_attention_kernel(const Args a) {
                                     a.vec_q, tid);
 #pragma unroll
         for (int st = 0; st < STAGES - 1; ++st) {
-            if (st < n_tiles) load_kv(st, st);
+            if (t0 + st < n_tiles) load_kv(t0 + st, st);
             cp_async_commit();
         }
     }
@@ -387,6 +400,8 @@ flash_attention_kernel(const Args a) {
     // this warp's rows and the keys it can see
     const int w0 = q0 + 16 * warp;
     const int kv_end_w = a.causal ? min(a.Sk, off + w0 + 16) : a.Sk;
+    // its first live key (the window of its first row); 0 without a window
+    const int kv_start_w = a.window > 0 ? max(0, off + w0 - a.window + 1) : 0;
     const int r_lo = w0 + g, r_hi = w0 + g + 8;
     const int p_lo = off + r_lo, p_hi = off + r_hi;   // their positions
 
@@ -411,14 +426,14 @@ flash_attention_kernel(const Args a) {
     constexpr int QF = kQReg ? C::KSTEPS : 1;
     uint32_t qf[QF][4], qf_lo[kSplit ? QF : 1][4];
 
-    for (int t = 0; t < n_tiles; ++t) {
-        const int stage = t % STAGES;
+    for (int t = t0; t < n_tiles; ++t) {
+        const int stage = (t - t0) % STAGES;
         if (t + STAGES - 1 < n_tiles)
-            load_kv(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+            load_kv(t + STAGES - 1, (t - t0 + STAGES - 1) % STAGES);
         cp_async_commit();
         cp_async_wait<STAGES - 1>();        // tile t has landed
         __syncthreads();
-        if (kQReg && t == 0) {
+        if (kQReg && t == t0) {
 #pragma unroll
             for (int kk = 0; kk < QF; ++kk)
                 if (kk < dk) {
@@ -448,7 +463,8 @@ flash_attention_kernel(const Args a) {
         }
 
         const int k0 = t * BK;
-        if (k0 < kv_end_w) {        // else every key is above this warp
+        // else every key is above this warp, or below its window
+        if (k0 < kv_end_w && k0 + BK > kv_start_w) {
             // s = q k^T over this tile's keys: n-tile j holds keys
             // k0 + 8 j + 2 t4 + {0, 1} of rows g (s[j][0..1]), g + 8 ([2..3])
             float s[NT][4];
@@ -470,7 +486,8 @@ flash_attention_kernel(const Args a) {
                     }
 #pragma unroll
                     for (int jp = 0; jp < NT / 2; ++jp) {
-                        if (k0 + 16 * jp < kv_end_w) {
+                        if (k0 + 16 * jp < kv_end_w &&
+                            k0 + 16 * jp + 16 > kv_start_w) {
                             uint32_t kb[4];
                             const int off =
                                 (16 * jp + k_row) * LD + 16 * kk + k_col;
@@ -498,8 +515,11 @@ flash_attention_kernel(const Args a) {
             // m = max(s) * scale * log2(e), and p = exp2(s * scale * log2(e)
             // - m_safe) = exp(s * scale - m_safe / log2(e)); a masked score
             // is -inf and its p is 2^-inf = 0
+            // the lower edge: the tile's first key lies at or below the
+            // last row's window, off + w0 + 15 - window
             const bool need_mask =
-                k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > off + w0);
+                k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > off + w0) ||
+                (a.window > 0 && k0 < off + w0 + 16 - a.window);
             float mb[2] = {-INFINITY, -INFINITY};
 #pragma unroll
             for (int j = 0; j < NT; ++j)
@@ -508,7 +528,8 @@ flash_attention_kernel(const Args a) {
                     if (need_mask) {
                         const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
                         const int qp = e < 2 ? p_lo : p_hi;
-                        if (kp >= a.Sk || (a.causal && kp > qp))
+                        if (kp >= a.Sk || (a.causal && kp > qp) ||
+                            (a.window > 0 && kp <= qp - a.window))
                             s[j][e] = -INFINITY;
                     }
                     mb[e / 2] = fmaxf(mb[e / 2], s[j][e]);
@@ -544,7 +565,8 @@ flash_attention_kernel(const Args a) {
             // the A fragment of keys [16 kk, 16 kk + 16); p = p_hi + p_lo
 #pragma unroll
             for (int kk = 0; kk < BK / 16; ++kk) {
-                if (k0 + 16 * kk < kv_end_w) {
+                if (k0 + 16 * kk < kv_end_w &&
+                    k0 + 16 * kk + 16 > kv_start_w) {
                     uint32_t ph[4], pl[4];
                     split2<M>(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
                     split2<M>(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
@@ -647,8 +669,10 @@ int aligned16(const void* p, int size, long long s0, long long s1,
 // axis is unit-stride).  dtype: 0 = float32, 1 = bfloat16, 2 = float16, the
 // same for all four; d in 1..256.  q_offset: null, or (B,) int32 query
 // offsets on the device (causal only: query i of batch b keeps the keys at
-// positions <= q_offset[b] + i).  Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// positions <= q_offset[b] + i).  window: 0, or the sliding window in keys
+// (causal only: the query at position qp also drops the keys <= qp -
+// window).  Launches on `stream`; returns cudaGetLastError() (0 on
+// success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int H, int KV, int Sq, int Sk, int d,
@@ -656,10 +680,12 @@ extern "C" int flash_attention_launch(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    float scale, int causal, const void* q_offset, void* stream) {
+    float scale, int causal, const void* q_offset, int window,
+    void* stream) {
     if (batch < 0 || H < 1 || KV < 1 || H % KV != 0 || Sq < 0 || Sk < 0 ||
         d < 1 || d > 256 || dtype < 0 || dtype > 2 ||
-        (q_offset != nullptr && !causal)) {
+        (q_offset != nullptr && !causal) || window < 0 ||
+        (window > 0 && !causal)) {
         return cudaErrorInvalidValue;
     }
     if (batch == 0 || Sq == 0) return cudaSuccess;
@@ -668,7 +694,7 @@ extern "C" int flash_attention_launch(
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                  v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
                  H, KV, Sq, Sk, d, scale * kLog2e, causal,
-                 static_cast<const int*>(q_offset),
+                 static_cast<const int*>(q_offset), window,
                  aligned16(q, size, q_sb, q_sh, q_ss),
                  aligned16(k, size, k_sb, k_sh, k_ss),
                  aligned16(v, size, v_sb, v_sh, v_ss),

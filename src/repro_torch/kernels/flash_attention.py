@@ -32,7 +32,12 @@ integer tensor (causal only), places query ``i`` of batch ``b`` at
 position ``q_offset[b] + i``, so it keeps the keys ``k_pos <= q_offset[b] +
 i``: the warm prefill of the radix prefix cache, whose queries are each
 row's uncached suffix and whose keys are the per-layer cache (offsets all
-zero give the top-left result bit for bit).  Unlike the Pallas kernel,
+zero give the top-left result bit for bit).  ``window`` (an int >= 1,
+causal only, composes with ``q_offset``) is the sliding window of the
+reference's ``_causal_mask``: query ``i`` of row ``b`` at ``qp = q_offset[b]
++ i`` keeps the keys ``qp - window < k_pos <= qp``; the kernel starts each
+block at the tile of its first live key, so KV tiles wholly below the
+window are never read.  Unlike the Pallas kernel,
 any ``Sq`` and ``Sk`` are taken (no block-multiple assert), and the kernel
 reads any batch / head / row strides with a unit-stride last axis: the model
 hands it its ``(B, S, H, d)`` projections transposed as views, and the
@@ -53,16 +58,17 @@ _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 LIBRARY = CudaLibrary("flash_attention", {"flash_attention_launch": [
     _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
     _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-    ctypes.c_float, _I, _P, _P]})
+    ctypes.c_float, _I, _P, _I, _P]})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 256      # the largest attention head of any config (gemma3)
 PLAIN_BLOCK_K = 128     # the Pallas kernel's default KV block
+_INT32_MAX = 2 ** 31 - 1
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: Optional[torch.Tensor] = None,
-           causal: bool = True) -> None:
+           causal: bool = True, window: Optional[int] = None) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-d (B, heads, S, d); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -91,16 +97,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(q_offset.shape)} {q_offset.dtype}")
         if q_offset.device != q.device:
             raise ValueError("q_offset must lie on q's device")
+    if window is not None:
+        if not causal:
+            raise ValueError("a sliding window bounds the causal mask from "
+                             "below; it needs causal=True")
+        if isinstance(window, bool) or int(window) != window or window < 1:
+            raise ValueError(f"window must be an integer >= 1; got "
+                             f"{window!r}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
-                          q_offset: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          q_offset: Optional[torch.Tensor] = None,
+                          window: Optional[int] = None) -> torch.Tensor:
     """The kernel's contract in plain PyTorch: float32 partial states
     ``(m, l, o)`` of each KV block of ``PLAIN_BLOCK_K`` keys, with the Pallas
-    kernel's ``-inf`` guards, folded with ``core.monoids.attn_state``."""
-    _check(q, k, v, q_offset, causal)
+    kernel's ``-inf`` guards, folded with ``core.monoids.attn_state``;
+    ``window`` adds the lower edge ``k_pos > q_pos - window``."""
+    _check(q, k, v, q_offset, causal, window)
     B, H, Sq, d = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(d)
@@ -122,7 +136,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
         if causal:
             k_pos = k0 + torch.arange(kb.shape[-2], device=q.device)
-            s = s.masked_fill(k_pos > q_pos[..., None], -math.inf)
+            drop = k_pos > q_pos[..., None]
+            if window is not None:
+                drop |= k_pos <= q_pos[..., None] - window
+            s = s.masked_fill(drop, -math.inf)
         m = s.amax(dim=-1)
         m_safe = torch.where(torch.isneginf(m), 0.0, m)
         p = torch.where(torch.isneginf(s), 0.0, torch.exp(s - m_safe[..., None]))
@@ -136,24 +153,27 @@ def _unit_last(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
-                    q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    q_offset: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
     """Attention of ``q`` over ``k`` / ``v`` (layout ``(B, heads, S, d)``),
-    queries at ``q_offset[b] + i`` when given: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.  Returns ``(B, H, Sq, d)``
-    in q's dtype, laid out in memory as q is."""
+    queries at ``q_offset[b] + i`` when given, keys within ``window`` of
+    each query when given: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  Returns ``(B, H, Sq, d)`` in q's dtype, laid
+    out in memory as q is."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset)
+                                     q_offset=q_offset, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda (kernel) or cpu "
                          f"(plain version); got a {q.device} tensor")
-    _check(q, k, v, q_offset, causal)
+    _check(q, k, v, q_offset, causal, window)
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError("q, k and v must share a device")
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+            return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                   window=window)
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
     if q_offset is not None and q_offset.dtype != torch.int32:
         q_offset = q_offset.to(torch.int32)
@@ -170,6 +190,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], 1.0 / math.sqrt(d), int(causal),
         None if q_offset is None else q_offset.contiguous().data_ptr(),
+        0 if window is None else min(int(window), _INT32_MAX),
         torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

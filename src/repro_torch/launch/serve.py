@@ -3,6 +3,9 @@ MapReduce.  The port of ``repro/launch/serve.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full \\
       --requests 16 --slots 8 --buckets 16,32,64 --gen 32 --prefill-batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \\
+      --requests 16 --slots 8 --buckets 256,512,1024 --min-prompt 520 \\
+      --max-prompt 1000 --gen 32 --rate 0 --users 4
 
 This module wires the model substrate (configs + models) into the
 model-agnostic :class:`repro_torch.runtime.engine.ContinuousEngine` and hosts
@@ -13,25 +16,34 @@ ONE planner-lowered keyed fold — on the card, one launch of the CUDA
 one pass, one launch of the CUDA ``flash_attention`` kernel per layer.
 With the radix prefix cache (on by default; ``--no-prefix-cache``) an
 admission prefills only its uncached suffix, in the same one pass, each
-row's queries at its prefix length.
+row's queries at its prefix length.  A :class:`WindowedMetrics` consumer
+subscribed to the engine folds every stream event into per-user sliding
+windows and fleet tumbling counters, which the CLI prints at the end (the
+``--users`` synthetic users).  ``build_serve_step`` and
+``run_batched_decode`` are the pre-engine API, kept as the JAX package
+keeps them.
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu``); there is no silent fallback.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
-from typing import Any, Optional
+import warnings
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..configs import get_config
+from ..data.windows import WindowedMetrics
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention
 from ..models import (decode_step, init_cache, init_params,
                       positional_cache, prefill)
 from ..models.common import ModelConfig
+from ..runtime.batcher import DecodeBatch
 from ..runtime.engine import (ContinuousEngine, EngineBackend, ServeConfig,
                               decode_metrics_plan)
 
@@ -83,6 +95,109 @@ def build_engine(config: ServeConfig, *, device="cuda",
         params = init_params(cfg, gen, device=device)
     backend = make_backend(cfg, params, config, device)
     return ContinuousEngine(backend, config, clock=clock)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeStep:
+    """The fixed-shape serve step: ``fn(params, cache, tokens)`` takes
+    ``(num_slots, 1)`` int32 tokens and returns ``((num_slots, 1, V)
+    float32 logits, cache)``, the cache updated in place."""
+
+    fn: Callable[[Any, Any, torch.Tensor], Any]
+    num_slots: int
+    max_seq: int
+
+
+def build_serve_step(config: ServeConfig, *, device="cuda"):
+    """(cfg, built, params, make_cache) for the FIXED-shape serve step.
+
+    The pre-engine API, driven by the same :class:`ServeConfig`: one
+    ``(num_slots, 1)`` decode step (a :class:`ServeStep`) against a
+    ``max_seq`` cache with one position for the whole batch.
+    Request-level serving goes through :func:`build_engine`.  ``params``
+    are random weights drawn from ``config.seed`` on ``device``.
+    """
+    device = resolve_device(device)
+    if config.model_parallel != 1:
+        raise NotImplementedError(
+            "model_parallel > 1 needs the mesh tier, a later slice of the "
+            "port (ROADMAP: mesh tier)")
+    cfg = get_config(config.arch, smoke=not config.full)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(config.seed)
+    params = init_params(cfg, gen, device=device)
+    built = ServeStep(fn=lambda p, cache, tok: decode_step(p, cfg, cache,
+                                                           tok),
+                      num_slots=config.num_slots, max_seq=config.max_seq)
+
+    def make_cache():
+        return init_cache(params, cfg, config.num_slots, config.max_seq)
+
+    return cfg, built, params, make_cache
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """Outcome of decoding one flushed batch (legacy shape, kept for the
+    deprecated :func:`run_batched_decode` shim)."""
+
+    batch: DecodeBatch
+    tokens: np.ndarray            # (num_slots, max_new) generated ids (0-padded)
+    metrics: Dict[str, np.ndarray]
+    decode_steps: int
+    prefill_s: float
+    decode_s: float
+
+
+def run_batched_decode(engine: ContinuousEngine, batch: DecodeBatch, *,
+                       max_steps: Optional[int] = None) -> BatchResult:
+    """DEPRECATED: decode one fixed batch to completion through the engine.
+
+    Submits the batch's requests, drains the engine (or stops after
+    ``max_steps`` steps), and reassembles a :class:`BatchResult` (slot
+    ``i`` of the result is request ``i`` of the batch).  Use
+    :meth:`ContinuousEngine.submit` / :meth:`~ContinuousEngine.run`
+    directly: the engine overlaps requests instead of waiting for the
+    slowest one.
+    """
+    warnings.warn(
+        "run_batched_decode is deprecated: submit requests to "
+        "repro_torch.serving.ContinuousEngine directly (continuous batching "
+        "replaces batch-to-completion decode)", DeprecationWarning,
+        stacklevel=2)
+    t0 = time.perf_counter()
+    uids = [engine.submit(r.prompt, max_new_tokens=r.max_new_tokens)
+            for r in batch.requests]
+    first_tok_s = None
+    steps = 0
+    while engine.pending or engine.num_active:
+        for ev in engine.step():
+            if ev.kind == "token" and ev.index == 0 and first_tok_s is None:
+                first_tok_s = time.perf_counter() - t0
+        steps += 1
+        if max_steps is not None and steps >= max_steps:
+            break
+    total_s = time.perf_counter() - t0
+    prefill_s = first_tok_s if first_tok_s is not None else total_s
+
+    S = batch.num_slots
+    budget = max(int(batch.max_new().max(initial=0)), 1)
+    gen = np.zeros((S, budget), np.int64)
+    logprob = np.zeros((S,), np.float32)
+    tokens = np.zeros((S,), np.int64)
+    stopped = np.zeros((S,), bool)
+    for i, uid in enumerate(uids):
+        if uid not in engine.results:      # cut off by max_steps
+            continue
+        res = engine.result(uid)
+        gen[i, : len(res.tokens)] = res.tokens
+        logprob[i] = res.logprob_sum
+        tokens[i] = len(res.tokens)
+        stopped[i] = res.stopped
+    metrics = {"logprob_sum": logprob, "tokens": tokens, "stopped": stopped}
+    return BatchResult(batch=batch, tokens=gen, metrics=metrics,
+                       decode_steps=steps, prefill_s=prefill_s,
+                       decode_s=max(total_s - prefill_s, 1e-9))
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +258,12 @@ def serve_trace(engine: ContinuousEngine, trace, *,
     return [engine.result(u) for u in uids], wall
 
 
-def main(argv=None):
+def run_cli(argv=None) -> Dict[str, Any]:
+    """The CLI's whole run: parse ``argv``, build the engine, subscribe a
+    :class:`WindowedMetrics`, serve the Poisson trace and print the report.
+    Returns what a caller measuring the run reads: ``engine``, ``metrics``
+    (the subscribed consumer), ``trace``, ``results`` (submission order)
+    and ``wall_s``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--full", action="store_true")
@@ -159,6 +279,8 @@ def main(argv=None):
                     help="Poisson arrival rate (requests/s); 0 = all at once")
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--users", type=int, default=4,
+                    help="synthetic user population for per-user windows")
     ap.add_argument("--prefill-batch", type=int, default=4,
                     help="max same-bucket admissions per prefill program")
     ap.add_argument("--no-prefix-cache", action="store_true",
@@ -182,6 +304,9 @@ def main(argv=None):
                          prefix_cache=not args.no_prefix_cache,
                          prefix_block=args.prefix_block)
     engine = build_engine(config, device=args.device)
+    metrics = WindowedMetrics(window=32, half_life_s=60.0,
+                              device=engine.backend.device)
+    engine.subscribe(metrics.observe)
 
     plan = decode_metrics_plan(config.num_slots, config.num_slots,
                                device=engine.backend.device)
@@ -193,7 +318,8 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     trace = poisson_trace(rng, args.requests, args.rate, args.min_prompt,
                           args.max_prompt, engine.backend.vocab_size,
-                          args.gen, shared_frac=args.shared_frac,
+                          args.gen, users=max(1, args.users),
+                          shared_frac=args.shared_frac,
                           shared_len=args.shared_len)
     launches0 = flash_attention.launches
     results, wall = serve_trace(engine, trace, quiet=False)
@@ -218,6 +344,27 @@ def main(argv=None):
               f"hit_rate={ps.hit_rate():.0%} "
               f"bytes_saved={ps.bytes_saved} evictions={ps.evictions} "
               f"folds={ps.folds}")
+        fp = metrics.fleet_prefix()
+        print(f"fleet prefix windows: hit_rate={fp['hit_rate']:.0%} "
+              f"hit_tokens={fp['hit_tokens']:.0f}/"
+              f"{fp['prompt_tokens']:.0f} "
+              f"bytes_saved={fp['bytes_saved']:.0f}")
+    now = time.perf_counter()
+    print(f"per-user windows (last {metrics.window} requests, token-rate "
+          f"half-life {metrics.half_life_s:g}s; fleet tokens "
+          f"{metrics.fleet_tokens():.0f}):")
+    for user, row in metrics.summary(now).items():
+        print(f"  user={user} requests={row['requests']} "
+              f"latency={row['latency_s'] * 1e3:.1f}ms "
+              f"ttft={row['ttft_s'] * 1e3:.1f}ms "
+              f"tokens/req={row['tokens']:.1f} "
+              f"token_rate={row['token_rate']:.1f}")
+    return {"engine": engine, "metrics": metrics, "trace": trace,
+            "results": results, "wall_s": wall}
+
+
+def main(argv=None):
+    run_cli(argv)
     return 0
 
 

@@ -7,10 +7,12 @@ full-sequence causal :func:`attention` (prefill) runs on the
 ``flash_attention`` kernel: float32 scores and softmax weights, output in
 the activation dtype.  With a per-row query offset and a layer's cache it
 is the warm prefill of the radix prefix cache: each row's uncached suffix
-attends to its cached prefix rows and to itself in one launch.  The
-decode step accumulates scores in float32, runs softmax in float32 and
-casts it back to the activation dtype before the value product, as in the
-JAX package.
+attends to its cached prefix rows and to itself in one launch.  A
+``window`` (the ``local`` layers of a 5:1 local:global stack) keeps each
+query's keys within ``window`` positions of it, in the kernel and in the
+decode step's mask alike.  The decode step accumulates scores in float32,
+runs softmax in float32 and casts it back to the activation dtype before
+the value product, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -62,9 +64,14 @@ def _gqa_values(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return o.reshape(B, Sq, H, v.shape[3])
 
 
-def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-    """(..., Sq, Sk) boolean causal keep-mask."""
-    return k_pos[..., None, :] <= q_pos[..., :, None]
+def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """(..., Sq, Sk) boolean keep-mask: causal, optionally sliding-window
+    (keys ``q_pos - window < k_pos <= q_pos``)."""
+    keep = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        keep &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    return keep
 
 
 def query_positions(batch: int, seq: int, q_offset: Optional[torch.Tensor],
@@ -134,11 +141,9 @@ def attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     ``<= q_offset[b] + i``: the cached prefix and the suffix so far), and
     the cache is returned as the (k, v);
     ``span`` takes the write indices of :func:`span_index` when the caller
-    has them.
+    has them.  ``window`` (a ``local`` layer's) also drops the keys at or
+    below ``q_pos - window``, with or without a cache.
     """
-    if window is not None:
-        raise NotImplementedError("sliding-window attention is a later "
-                                  "slice of the port (ROADMAP: windows)")
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     derived = query_positions(B, S, q_offset, x.device)
@@ -163,7 +168,7 @@ def attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     # (B, S, H, hd) memory layout
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=True,
-                        q_offset=q_offset).transpose(1, 2)
+                        q_offset=q_offset, window=window).transpose(1, 2)
     out = o.reshape(B, S, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd, -1)
     return out, (k, v)
 
@@ -202,10 +207,12 @@ def cache_row_update(cache: torch.Tensor, new: torch.Tensor,
 
 def attention_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                      cache: Tuple[torch.Tensor, torch.Tensor],
-                     pos: torch.Tensor) -> Tuple[torch.Tensor, Tuple]:
+                     pos: torch.Tensor, *, window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Tuple]:
     """One decode step.  x: (B, 1, D); cache: (k, v) each (B, S, KV, hd),
     updated in place; pos: () or (B,) per-slot positions — each row writes
-    and masks at its own position, so rows stay independent."""
+    and masks at its own position, so rows stay independent.  ``window``
+    keeps the keys within ``window`` positions of the row's query."""
     kcache, vcache = cache
     B, S = kcache.shape[0], kcache.shape[1]
     positions = decode_positions(pos, B)
@@ -215,7 +222,7 @@ def attention_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     k_pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     scores = _gqa_scores(q, kcache, scale)                      # (B,H,1,S)
-    keep = _causal_mask(positions, k_pos)[:, None]
+    keep = _causal_mask(positions, k_pos, window)[:, None]
     scores = torch.where(keep, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     o = _gqa_values(w, vcache)                                  # (B,1,H,hd)

@@ -21,7 +21,8 @@ class ModelConfig:
     """The JAX package's model config, cut to the fields the dense family
     reads (the MoE / SSM / MLA / encoder fields come with those slices).
     Layer ``i`` has block type ``layer_pattern[i % period]`` and FFN type
-    ``ffn_pattern[i % period]``; the port runs ``attn`` + ``dense`` only."""
+    ``ffn_pattern[i % period]``; the port runs ``attn`` and ``local``
+    (attention within ``sliding_window`` keys) blocks with ``dense`` FFNs."""
 
     name: str
     family: str                      # dense | moe | hybrid | ssm | audio | vlm
@@ -35,6 +36,7 @@ class ModelConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    sliding_window: int = 4096       # for 'local' blocks
     layer_pattern: Tuple[str, ...] = ("attn",)
     ffn_pattern: Tuple[str, ...] = ("dense",)
     act_fn: str = "silu"             # silu | gelu

@@ -2,9 +2,13 @@
 
 ``params_from_jax`` takes the JAX parameter pytree as numpy arrays (e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
-parameters: the same leaves, with ``params["layers"]`` — stacked over a
-leading ``n_periods`` dim in the JAX package — unstacked into one dict per
-layer.  The two models then compute the same function.
+parameters: the same leaves, with the layers unstacked into one dict per
+layer in layer order.  The JAX package stacks a period of ``P`` layer slots
+over a leading ``n_periods`` dim (``params["layers"]["slot_j"]``) and keeps
+the ``num_layers - n_periods * P`` remainder layers unrolled
+(``params["rem_i"]``; gemma3's 26 = 4 x 6 + 2), so layer ``p * P + j`` is
+period ``p`` of slot ``j`` and layer ``n_periods * P + i`` is ``rem_i``.  The
+two models then compute the same function.
 """
 from __future__ import annotations
 
@@ -31,22 +35,33 @@ def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> Dict[str, Any]:
     """The port's parameters from the JAX package's (dense family; layers
-    scanned with period 1), cast to ``cfg.dtype`` on ``device``."""
+    stacked with period ``cfg.period`` plus remainder layers), cast to
+    ``cfg.dtype`` on ``device``."""
     _check_supported(cfg)
-    if cfg.period != 1:
-        raise NotImplementedError("only period-1 stacks carry over")
     device = torch.device(device)
 
     def conv(a):
         return _to_tensor(a, cfg.dtype, device)
 
-    stacked = tree["layers"]["slot_0"]
-    n = pytree.tree_leaves(stacked)[0].shape[0]
-    if n != cfg.num_layers:
-        raise ValueError(f"JAX stack holds {n} layers; config says "
-                         f"{cfg.num_layers}")
-    layers = [pytree.tree_map(lambda a, i=i: conv(np.asarray(a)[i]), stacked)
-              for i in range(n)]
+    P = cfg.period
+    n_periods = cfg.num_layers // P
+    stacks = tree.get("layers", {})
+    slots = [f"slot_{j}" for j in range(P)] if n_periods else []
+    if sorted(stacks) != sorted(slots):
+        raise ValueError(f"JAX stack holds slots {sorted(stacks)}; "
+                         f"{n_periods} periods of {P} layers need {slots}")
+    layers = []
+    for p in range(n_periods):
+        for j in range(P):
+            stacked = stacks[f"slot_{j}"]
+            n = pytree.tree_leaves(stacked)[0].shape[0]
+            if n != n_periods:
+                raise ValueError(f"JAX slot_{j} stacks {n} periods; config "
+                                 f"says {n_periods}")
+            layers.append(pytree.tree_map(
+                lambda a, p=p: conv(np.asarray(a)[p]), stacked))
+    for i in range(cfg.num_layers - n_periods * P):
+        layers.append(pytree.tree_map(conv, tree[f"rem_{i}"]))
     out = {k: conv(v) for k, v in tree.items()
            if k not in ("layers",) and not isinstance(v, dict)}
     out["layers"] = layers

@@ -13,8 +13,13 @@ leaves the cache as the decode step run over the sequence would, and with
 ``prefix_len`` prefills each row's uncached suffix after its cached prefix
 (the radix prefix cache's warm admission) in the same one pass.
 
-MoE, SSM, MLA, cross-attention and the encoder are later slices of the port
-(``init_params`` / ``init_cache`` raise for them).
+Layers are ``attn`` (global causal attention) or ``local`` (attention within
+``cfg.sliding_window`` keys, gemma3's 5:1 local:global stack), in layer
+order; every layer's decode cache holds all ``max_seq`` rows, as the JAX
+package's does, so the cache stays indexed by position.  MoE (qwen2-moe),
+the encoder and cross-attention (whisper), SSM / xLSTM blocks (xlstm,
+jamba), MLA (deepseek-v2) and gated cross-attention (llama-3.2-vision) are
+later slices of the port (``init_params`` / ``init_cache`` raise for them).
 """
 from __future__ import annotations
 
@@ -33,11 +38,18 @@ Pytree = Any
 
 def _check_supported(cfg: ModelConfig) -> None:
     for i in range(cfg.num_layers):
-        if cfg.block_type(i) != "attn" or cfg.ffn_type(i) != "dense":
+        if cfg.block_type(i) not in ("attn", "local") or \
+                cfg.ffn_type(i) != "dense":
             raise NotImplementedError(
                 f"{cfg.name}: layer {i} is ({cfg.block_type(i)}, "
                 f"{cfg.ffn_type(i)}); the port runs the dense family only "
-                "(MoE / SSM / local attention are later slices)")
+                "(MoE / SSM blocks are later slices)")
+
+
+def layer_window(cfg: ModelConfig, i: int) -> Optional[int]:
+    """Layer ``i``'s attention window: ``cfg.sliding_window`` for a
+    ``local`` layer, None (global) for an ``attn`` one."""
+    return cfg.sliding_window if cfg.block_type(i) == "local" else None
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
@@ -119,20 +131,21 @@ def dense_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
-                  pos: torch.Tensor) -> torch.Tensor:
+                  pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     mixed, _ = attn.attention_decode(p["mix"], cfg, h,
-                                     (cache["k"], cache["v"]), pos)
+                                     (cache["k"], cache["v"]), pos,
+                                     window=window)
     x = x + mixed
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + dense_ffn(p["ffn"], cfg, h)
 
 
 def _full_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                q_offset=None, cache=None, span=None):
+                window: Optional[int], q_offset=None, cache=None, span=None):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     mixed, kv = attn.attention(p["mix"], cfg, h, q_offset=q_offset,
-                               cache=cache, span=span)
+                               cache=cache, span=span, window=window)
     x = x + mixed
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + dense_ffn(p["ffn"], cfg, h), kv
@@ -157,11 +170,13 @@ def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     if prefix_len is not None:      # every layer writes the same rows
         span = attn.span_index(prefix_len, S, cache_layers[0]["k"].shape[1])
     for i, p in enumerate(params["layers"]):
+        window = layer_window(cfg, i)
         if prefix_len is not None:
             c = cache_layers[i]
-            x, _ = _full_layer(p, cfg, x, prefix_len, (c["k"], c["v"]), span)
+            x, _ = _full_layer(p, cfg, x, window, prefix_len,
+                               (c["k"], c["v"]), span)
             continue
-        x, (k, v) = _full_layer(p, cfg, x)
+        x, (k, v) = _full_layer(p, cfg, x, window)
         if cache_layers is not None:
             cache_layers[i]["k"][:, :S] = k
             cache_layers[i]["v"][:, :S] = v
@@ -223,8 +238,8 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     the cache, its KV rows written in place and ``pos`` advanced."""
     pos = cache["pos"]
     x = _embed(params, cfg, tokens)
-    for p, c in zip(params["layers"], cache["layers"]):
-        x = _decode_layer(p, cfg, x, c, pos)
+    for i, (p, c) in enumerate(zip(params["layers"], cache["layers"])):
+        x = _decode_layer(p, cfg, x, c, pos, layer_window(cfg, i))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params, cfg, x)
     return logits, {"pos": pos + 1, "layers": cache["layers"]}

@@ -13,8 +13,13 @@ fold through ONE planner-lowered keyed masked fold per decode step (request
 slot == segment id), on the card through the CUDA segment-fold kernel.
 The radix prefix KV cache (:class:`PrefixCache`) serves shared prompt
 prefixes from a trie, its bookkeeping one keyed fold per step.
+:class:`WindowedMetrics` subscribes to the engine's stream events for
+per-user and fleet windows; ``build_serve_step`` and ``run_batched_decode``
+are the pre-engine API.
 """
-from ..launch.serve import build_engine, make_backend, poisson_trace, serve_trace
+from ..data.windows import WindowedMetrics
+from ..launch.serve import (build_engine, build_serve_step, make_backend,
+                            poisson_trace, run_batched_decode, serve_trace)
 from ..runtime.batcher import BatcherStats, DecodeBatch, Request, RequestBatcher
 from ..runtime.engine import (ContinuousEngine, EngineBackend, EngineStats,
                               METRIC_COLS, RequestResult, ServeConfig,
@@ -28,7 +33,8 @@ __all__ = [
     "BatcherStats", "ContinuousEngine", "DecodeBatch", "EngineBackend",
     "EngineStats", "METRIC_COLS", "PrefixCache", "PrefixCacheConfig",
     "PrefixCacheStats", "PrefixHit", "Request", "RequestBatcher",
-    "RequestResult", "ServeConfig", "StreamEvent", "build_engine",
-    "decode_metrics_init", "decode_metrics_plan", "decode_metrics_step",
-    "extract_metrics", "make_backend", "poisson_trace", "serve_trace",
+    "RequestResult", "ServeConfig", "StreamEvent", "WindowedMetrics",
+    "build_engine", "build_serve_step", "decode_metrics_init",
+    "decode_metrics_plan", "decode_metrics_step", "extract_metrics",
+    "make_backend", "poisson_trace", "run_batched_decode", "serve_trace",
 ]

@@ -602,3 +602,70 @@ def test_cuda_warm_prefill_launches_flash_once_per_layer(cuda_device):
     assert flash_attention.launches - flash0 == 28 * eng.stats.prefill_calls
     assert eng.prefix.accounted_bytes() == eng.prefix.total_bytes
     assert sum(eng.compile_counts().values()) <= eng.compile_bound()
+
+
+# flash_attention with a sliding window (gemma3's local layers): (B, H, KV,
+# Sq, Sk, d, offsets or None, window)
+FLASH_WINDOW_CASES = {
+    "gemma_cold": (2, 4, 1, 1024, 1024, 256, None, 512),
+    "ragged": (3, 4, 2, 600, 600, 64, None, 100),
+    "gemma_warm": (4, 4, 1, 128, 1024, 256, (0, 300, 600, 896), 512),
+    "tiny": (2, 8, 2, 70, 70, 8, None, 1),
+    "below_tile": (2, 4, 2, 37, 150, 24, (0, 113), 17),
+    "cache_long": (2, 4, 1, 128, 1024, 256, (0, 896), 1024)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [
+    (torch.float32, 1e-4), (torch.bfloat16, 3e-2), (torch.float16, 4e-3)])
+@pytest.mark.parametrize("case", sorted(FLASH_WINDOW_CASES))
+def test_cuda_flash_attention_sliding_window(cuda_device, case, dtype, atol):
+    """Keys qp - window < k <= qp against the plain version, with and
+    without per-row query offsets, one launch per call; a window as long as
+    the keys gives the windowless call's output bit for bit."""
+    B, H, KV, Sq, Sk, d, offsets, window = FLASH_WINDOW_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = _qkv(gen, cuda_device, B, H, KV, Sq, Sk, d, dtype)
+    off = None if offsets is None else torch.tensor(
+        offsets, dtype=torch.int32, device=cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, q_offset=off, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, q_offset=off, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    if window >= Sk:
+        assert torch.equal(got, flash_attention(q, k, v, q_offset=off))
+
+
+@pytest.mark.cuda
+def test_cuda_window_folds_launch_the_kernel_once(cuda_device):
+    """tumbling_fold (sum_, max_) and session_fold on the card take the
+    kernel tier: one segment_fold launch each, exact against the CPU."""
+    import numpy as np
+
+    from repro_torch.core import monoids
+    from repro_torch.data import session_fold, sessionize, tumbling_fold
+
+    rng = np.random.default_rng(10)
+    n = 1 << 16
+    ts = np.sort(rng.uniform(0.0, 64 * 0.37 * 1.01, n))
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    sids, n_sess = sessionize(rng.integers(0, 256, n), ts, gap=1.0)
+    v_gpu = torch.from_numpy(vals).to(cuda_device)
+    v_cpu = torch.from_numpy(vals)
+    for m in (monoids.sum_, monoids.max_):
+        before = segment_fold.launches
+        got, plan = tumbling_fold(m, v_gpu, ts, width=0.37, num_windows=64,
+                                  with_plan=True)
+        torch.cuda.synchronize()
+        assert segment_fold.launches == before + 1
+        assert plan.local_tier.kind == "kernel"
+        want = tumbling_fold(m, v_cpu, ts, width=0.37, num_windows=64)
+        assert torch.equal(got.cpu(), want)
+    before = segment_fold.launches
+    got = session_fold(monoids.sum_, v_gpu, sids, n_sess)
+    torch.cuda.synchronize()
+    assert segment_fold.launches == before + 1
+    assert torch.equal(got.cpu(), session_fold(monoids.sum_, v_cpu, sids,
+                                               n_sess))

@@ -15,6 +15,7 @@ import ctypes
 import math
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -249,3 +250,62 @@ def test_query_offset_contract_errors():
         flash_attention(q, k, v, q_offset=torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError, match="integer tensor"):
         flash_attention(q, k, v, q_offset=torch.zeros(2))
+
+
+def _masked_reference(q, k, v, offsets, window):
+    """The reference's sliding-window attention: scores masked by
+    ``repro.models.attention._causal_mask(q_pos, k_pos, window)``, softmax
+    in float32, GQA by repeating KV heads (float32, in JAX)."""
+    from repro.models.attention import NEG_INF, _causal_mask
+
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    q_pos = jnp.asarray(offsets, jnp.int32)[:, None] + jnp.arange(Sq)
+    k_pos = jnp.broadcast_to(jnp.arange(Sk, dtype=jnp.int32), (B, Sk))
+    keep = _causal_mask(q_pos, k_pos, window)[:, None]      # (B, 1, Sq, Sk)
+    kr = jnp.repeat(jnp.asarray(k), H // KV, axis=1)
+    vr = jnp.repeat(jnp.asarray(v), H // KV, axis=1)
+    s = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), kr) / math.sqrt(d)
+    w = jax.nn.softmax(jnp.where(keep, s, NEG_INF), axis=-1)
+    return np.asarray(jnp.einsum("bhqk,bhkd->bhqd", w, vr))
+
+
+@pytest.mark.parametrize("offsets,Sq,Sk,window", [
+    (None, 40, 40, 8),              # gemma3 smoke's window, cold
+    (None, 300, 300, 129),          # windows across the plain KV blocks
+    ((0, 20, 44, 60), 16, 96, 24),  # warm: the window at each row's offset
+    ((120, 0), 40, 200, 1),         # the diagonal alone
+    ((7, 3), 12, 30, 64)])          # a window wider than every row's keys
+def test_sliding_window_matches_the_masked_reference(offsets, Sq, Sk, window):
+    """Query i of row b at qp = q_offset[b] + i keeps qp - window < k <= qp:
+    the plain version against the reference's ``_causal_mask`` attention,
+    float32 at 1e-5, with and without query offsets."""
+
+
+    B = 2 if offsets is None else len(offsets)
+    q, k, v = _qkv(14, B, 4, 2, Sq, Sk, 16)
+    off = None if offsets is None else torch.tensor(offsets,
+                                                    dtype=torch.int32)
+    got = flash_attention(*_torch(q, k, v), q_offset=off,
+                          window=window).numpy()
+    want = _masked_reference(q, k, v, (0,) * B if offsets is None
+                             else offsets, window)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_as_long_as_the_keys_equals_no_window_bitwise(dtype):
+    q, k, v = _torch(*_qkv(15, 2, 4, 2, 24, 40, 16), dtype=dtype)
+    off = torch.tensor([0, 16], dtype=torch.int32)
+    for kw in ({}, {"q_offset": off}):
+        assert torch.equal(flash_attention(q, k, v, window=40, **kw),
+                           flash_attention(q, k, v, **kw))
+
+
+def test_window_contract_errors():
+    q, k, v = _torch(*_qkv(16, 1, 2, 2, 8, 8, 16))
+    with pytest.raises(ValueError, match="causal=True"):
+        flash_attention(q, k, v, causal=False, window=4)
+    for bad in (0, -3, 2.5, True):
+        with pytest.raises(ValueError, match="window must be an integer"):
+            flash_attention(q, k, v, window=bad)

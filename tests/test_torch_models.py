@@ -211,13 +211,47 @@ def test_forward_matches_jax_bfloat16(float32_forward):
     assert np.abs(got - want[None]).max() <= 5e-2
 
 
+def _jax_layer_paths(jcfg):
+    """Where layer ``L`` sits in the JAX package's pytrees: ``("layers",
+    "slot_j", period)`` in the stacked periods, ``("rem_i", None, None)``
+    in the remainder (its ``_layer_plan``; no prelude in these configs)."""
+    P = jcfg.period
+    n = jcfg.num_layers // P
+    return ([("layers", f"slot_{j}", p) for p in range(n) for j in range(P)]
+            + [(f"rem_{i}", None, None)
+               for i in range(jcfg.num_layers - n * P)])
+
+
+def _jax_layer_kv(jcache, jcfg, name):
+    """(L, ...) numpy stack of the JAX cache's ``name`` leaf, layer order."""
+    return np.stack([
+        np.asarray(jcache[key][slot][name][p] if slot else
+                   jcache[key][name])
+        for key, slot, p in _jax_layer_paths(jcfg)])
+
+
+def _jax_set_layer_kv(jcache, jcfg, name, stack):
+    """Write a (L, ...) stack back as the JAX cache's ``name`` leaves."""
+    P = jcfg.period
+    n = jcfg.num_layers // P
+    for j in range(P if n else 0):
+        jcache["layers"][f"slot_{j}"][name] = jnp.asarray(stack[j:n * P:P])
+    for i in range(jcfg.num_layers - n * P):
+        jcache[f"rem_{i}"][name] = jnp.asarray(stack[n * P + i])
+
+
 def test_prefill_matches_the_jax_engines_scan():
     """k=2 prompts of ragged lengths padded to a bucket of 8: the JAX
     engine's prefill (the decode step scanned over the bucket, the logits
     kept at each row's last prompt token) against the port's one pass."""
-    jcfg, tcfg, jparams, tparams = _pair(jnp.float32, torch.float32)
-    k, bucket, max_seq = 2, 8, 14
-    lengths = np.array([5, 8], np.int32)
+    _check_cold_prefill(_pair(jnp.float32, torch.float32), bucket=8,
+                        max_seq=14, lengths=(5, 8))
+
+
+def _check_cold_prefill(pair, *, bucket, max_seq, lengths):
+    jcfg, tcfg, jparams, tparams = pair
+    k = len(lengths)
+    lengths = np.array(lengths, np.int32)
     rng = np.random.default_rng(4)
     toks = np.zeros((k, bucket), np.int32)             # pad id 0
     for r, n in enumerate(lengths):
@@ -239,7 +273,7 @@ def test_prefill_matches_the_jax_engines_scan():
     np.testing.assert_array_equal(tcache["pos"].numpy(), [bucket] * k)
     np.testing.assert_array_equal(np.asarray(jcache["pos"]), [bucket] * k)
     for name in ("k", "v"):
-        want = np.asarray(jcache["layers"]["slot_0"][name])   # (L, k, S, ...)
+        want = _jax_layer_kv(jcache, jcfg, name)          # (L, k, S, ...)
         for layer in range(jcfg.num_layers):
             np.testing.assert_allclose(
                 tcache["layers"][layer][name].numpy(), want[layer],
@@ -293,7 +327,12 @@ def test_prefill_after_a_prefix_matches_the_jax_engines_scan(
     step scanned over the suffix bucket) against the port's one pass with
     ``prefix_len``: logits at 1e-4, every real cache row [0, prompt) of
     every layer at 1e-5, and ``pos``."""
-    jcfg, tcfg, jparams, tparams = _pair(jnp.float32, torch.float32)
+    _check_warm_prefill(_pair(jnp.float32, torch.float32), max_seq=max_seq,
+                        bucket=bucket, prompts=prompts, prefix=prefix)
+
+
+def _check_warm_prefill(pair, *, max_seq, bucket, prompts, prefix):
+    jcfg, tcfg, jparams, tparams = pair
     k = len(prompts)
     rng = np.random.default_rng(6)
     full = [rng.integers(1, jcfg.vocab_size, n) for n in prompts]
@@ -306,7 +345,7 @@ def test_prefill_after_a_prefix_matches_the_jax_engines_scan(
         toks[r, :len(p)] = p
     for i in range(toks.shape[1]):
         _, jcache = step(jparams, jcache, jnp.asarray(toks[:, i:i + 1]))
-    cold = {n: np.asarray(jcache["layers"]["slot_0"][n]) for n in ("k", "v")}
+    cold = {n: _jax_layer_kv(jcache, jcfg, n) for n in ("k", "v")}
 
     # load_prefix: rows [0, prefix) of a fresh cache, zeros past them
     rows = np.arange(max_seq)[None, :, None, None] < \
@@ -314,7 +353,8 @@ def test_prefill_after_a_prefix_matches_the_jax_engines_scan(
     slabs = {n: np.where(rows[None], cold[n], 0).astype(np.float32)
              for n in cold}
     jwarm = jax_init_cache(jparams, jcfg, k, max_seq, pos_per_slot=True)
-    jwarm["layers"]["slot_0"] = {n: jnp.asarray(slabs[n]) for n in slabs}
+    for n in slabs:
+        _jax_set_layer_kv(jwarm, jcfg, n, slabs[n])
     jwarm["pos"] = jnp.asarray(prefix, jnp.int32)
     suffix = np.zeros((k, bucket), np.int32)
     lengths = np.array([n - p for n, p in zip(prompts, prefix)], np.int32)
@@ -337,7 +377,7 @@ def test_prefill_after_a_prefix_matches_the_jax_engines_scan(
     np.testing.assert_array_equal(tcache["pos"].numpy(),
                                   np.asarray(prefix) + bucket)
     for n in ("k", "v"):
-        want = np.asarray(jwarm["layers"]["slot_0"][n])
+        want = _jax_layer_kv(jwarm, jcfg, n)
         for layer in range(jcfg.num_layers):
             for r, plen in enumerate(prompts):
                 np.testing.assert_allclose(
@@ -375,3 +415,135 @@ def test_attention_derives_positions_and_refuses_others():
     with pytest.raises(ValueError, match="derives its query positions"):
         attention(p, tcfg, x, torch.arange(5).expand(2, 5), q_offset=off,
                   cache=cache)
+
+
+# ---------------------------------------------------------------------------
+# gemma3-1b: the 5:1 local:global stack (period 6 plus remainder layers)
+# ---------------------------------------------------------------------------
+
+def _gemma_pair(seed=0):
+    """The gemma3-1b smoke config (8 layers = 1 period of 5 local + 1 global
+    layers, then 2 local remainder layers; window 8; head_dim 16, one KV
+    head; scaled, tied embeddings) in float32, JAX-initialised and carried
+    over with ``params_from_jax``."""
+    jcfg = dataclasses.replace(jax_get_config("gemma3-1b", smoke=True),
+                               dtype=jnp.float32)
+    tcfg = dataclasses.replace(get_config("gemma3-1b", smoke=True),
+                               dtype=torch.float32)
+    assert tcfg == _port_config(jcfg, torch.float32)
+    jparams, _ = jax_init_params(jcfg, jax.random.PRNGKey(seed))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              tcfg, device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def test_gemma3_params_carry_over_in_layer_order():
+    """Layer ``p * 6 + j`` is period ``p`` of slot ``j``, then ``rem_i``;
+    every leaf carried, nothing else."""
+    from repro_torch.models.transformer import layer_window
+
+    jcfg, tcfg, jparams, tparams = _gemma_pair()
+    assert sorted(k for k in jparams if k.startswith("rem_")) == \
+        ["rem_0", "rem_1"]
+    assert len(tparams["layers"]) == 8
+    for layer, (key, slot, p) in enumerate(_jax_layer_paths(jcfg)):
+        want = jparams[key][slot]["mix"]["wq"][p] if slot else \
+            jparams[key]["mix"]["wq"]
+        np.testing.assert_array_equal(
+            tparams["layers"][layer]["mix"]["wq"].numpy(), np.asarray(want))
+    n_jax = sum(x.size for x in jax.tree_util.tree_leaves(jparams))
+    assert num_params(tparams) == n_jax
+    assert [layer_window(tcfg, i) for i in range(8)] == \
+        [8, 8, 8, 8, 8, None, 8, 8]
+    bad = jax.tree_util.tree_map(np.asarray, jparams)
+    del bad["rem_1"]
+    with pytest.raises(KeyError):
+        params_from_jax(bad, tcfg, device="cpu")
+
+
+def test_gemma3_forward_matches_jax():
+    """A 20-token sequence (window 8: the local layers drop keys) through
+    the full-sequence forward, float32 at atol=1e-4."""
+    jcfg, tcfg, jparams, tparams = _gemma_pair()
+    toks = np.random.default_rng(9).integers(
+        0, jcfg.vocab_size, (2, 20)).astype(np.int32)
+    want, _ = jax_forward(jparams, jcfg, jnp.asarray(toks))
+    got = forward(tparams, tcfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)
+
+
+def test_gemma3_decode_step_matches_jax():
+    """24 decode steps at per-slot positions (0, 3, 7), past the window of
+    8: logits at atol=1e-4, every layer's cache at 1e-4."""
+    jcfg, tcfg, jparams, tparams = _gemma_pair()
+    steps, max_seq = 24, 32
+    jcache = jax_init_cache(jparams, jcfg, B, max_seq, pos_per_slot=True)
+    jcache["pos"] = jnp.asarray(START_POS, jnp.int32)
+    tcache = init_cache(tparams, tcfg, B, max_seq, pos_per_slot=True)
+    tcache["pos"] = torch.tensor(START_POS, dtype=torch.int32)
+    step = jax.jit(lambda p, c, t: jax_decode_step(p, jcfg, c, t))
+    toks = np.random.default_rng(1).integers(
+        0, jcfg.vocab_size, (steps, B, 1)).astype(np.int32)
+    for i in range(steps):
+        j, jcache = step(jparams, jcache, jnp.asarray(toks[i]))
+        t, tcache = decode_step(tparams, tcfg, tcache,
+                                torch.from_numpy(toks[i]))
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
+                                   atol=1e-4, err_msg=f"step {i}")
+    for name in ("k", "v"):
+        want = _jax_layer_kv(jcache, jcfg, name)
+        for layer in range(jcfg.num_layers):
+            np.testing.assert_allclose(
+                tcache["layers"][layer][name].numpy(), want[layer], rtol=0,
+                atol=1e-4, err_msg=f"layer {layer} {name}")
+
+
+def test_gemma3_prefill_matches_the_jax_engines_scan():
+    """The one-pass prefill of a 24-token bucket (prompts of 17 and 24
+    tokens, window 8) against the JAX engine's decode scan."""
+    _check_cold_prefill(_gemma_pair(), bucket=24, max_seq=30,
+                        lengths=(17, 24))
+
+
+@pytest.mark.parametrize("max_seq,bucket,prompts,prefix", [
+    # suffixes that cross the window after prefixes of 12 and 9 rows
+    (40, 16, (26, 20), (12, 9)),
+    # a suffix bucket running past max_seq (its pad rows dropped)
+    (30, 16, (28, 13), (20, 0))])
+def test_gemma3_warm_prefill_matches_the_jax_engines_scan(
+        max_seq, bucket, prompts, prefix):
+    """The warm prefill (``prefix_len``): each local layer's window is
+    applied at each row's query offset, as the JAX engine's decode scan
+    from ``pos = prefix`` applies it."""
+    _check_warm_prefill(_gemma_pair(), max_seq=max_seq, bucket=bucket,
+                        prompts=prompts, prefix=prefix)
+
+
+def test_window_mask_matches_jax():
+    """``_causal_mask`` with a window: keys ``q - window < k <= q``, the
+    reference's, at per-row positions."""
+    from repro.models.attention import _causal_mask as jax_mask
+    from repro_torch.models.attention import _causal_mask
+
+    q = np.array([[0, 5, 9], [3, 4, 20]], np.int32)
+    k = np.broadcast_to(np.arange(24, dtype=np.int32), (2, 24))
+    for window in (None, 1, 4, 30):
+        want = np.asarray(jax_mask(jnp.asarray(q), jnp.asarray(k), window))
+        got = _causal_mask(torch.from_numpy(q), torch.from_numpy(k.copy()),
+                           window)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-14b",
+                                  "starcoder2-15b", "gemma3-1b"])
+def test_registry_configs_are_the_references_field_for_field(arch, smoke):
+    """Every arch the port registers: its config (full and smoke) is the
+    JAX package's, field for field."""
+    from repro_torch.configs import ARCH_IDS
+
+    assert arch in ARCH_IDS
+    jcfg = jax_get_config(arch, smoke=smoke)
+    assert get_config(arch, smoke=smoke) == _port_config(jcfg,
+                                                         torch.bfloat16)

@@ -375,6 +375,27 @@ def test_mixed_buckets_group_separately():
     assert eng.stats.batched_admissions == 4
 
 
+def test_cache_events_feed_windowed_metrics():
+    """The reference's twin: the prefix cache's "cache" events fold into a
+    subscribed WindowedMetrics' fleet prefix counters."""
+    from repro_torch.serving import WindowedMetrics
+
+    metrics = WindowedMetrics(window=8, tumble_s=0.5, device="cpu")
+    eng = toy_engine(num_slots=2, prefix_block=2)
+    eng.subscribe(metrics.observe)
+    p = [1, 2, 3, 4, 5]
+    eng.submit(p)
+    drain(eng)
+    eng.submit(p)
+    drain(eng)
+    fp = metrics.fleet_prefix()
+    assert fp["prompt_tokens"] == 2 * len(p)
+    assert fp["hit_tokens"] == 4                     # second admission
+    assert fp["bytes_saved"] > 0
+    assert fp["hit_rate"] == pytest.approx(4 / 10)
+    assert fp["hit_tokens"] == eng.prefix.stats.hit_tokens
+
+
 def test_compile_bound_over_churny_warm_trace():
     eng = toy_engine(num_slots=3, prefill_buckets=(2, 4, 8),
                      prefill_batch=2, prefix_block=2)

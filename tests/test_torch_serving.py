@@ -320,3 +320,89 @@ def test_warm_prefill_matches_cold_on_the_dense_backend(weights):
         assert abs(g.logprob_sum - w.logprob_sum) <= 1e-4
     assert warm.prefix.stats.hit_tokens > 0
     assert warm.stats.prefill_calls <= cold.stats.prefill_calls + 2
+
+
+# ---------------------------------------------------------------------------
+# the pre-engine API (the decode shim) and the CLI's windows report
+# ---------------------------------------------------------------------------
+
+def test_run_batched_decode_shim_matches_the_jax_engines_shim(weights):
+    """The deprecated shim over the port's engine against the reference's
+    shim over the reference engine, at the same slot and batch composition:
+    the same tokens, stop flags, token counts and decode steps, logprob
+    sums within 1e-4."""
+    from repro.launch.serve import run_batched_decode as jax_shim
+    from repro.runtime.batcher import DecodeBatch as JaxBatch
+    from repro.runtime.batcher import Request as JaxRequest
+    from repro_torch.runtime.batcher import DecodeBatch, Request
+    from repro_torch.serving import run_batched_decode
+
+    prompts = [[5, 9, 2, 7], [11, 3, 8], [6, 6, 6, 1, 9]]
+    budgets = [4, 2, 5]
+
+    def batch(B, R):
+        return B(requests=tuple(R(uid=i, prompt=tuple(p), max_new_tokens=n)
+                                for i, (p, n) in enumerate(zip(prompts,
+                                                               budgets))),
+                 num_slots=3)
+
+    with pytest.warns(DeprecationWarning):
+        want = jax_shim(_jax_engine(weights, eos_id=-1),
+                        batch(JaxBatch, JaxRequest))
+    with pytest.warns(DeprecationWarning):
+        got = run_batched_decode(_port_engine(weights, eos_id=-1),
+                                 batch(DecodeBatch, Request))
+    assert got.tokens.shape == want.tokens.shape == (3, 5)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    for key in ("tokens", "stopped"):
+        np.testing.assert_array_equal(got.metrics[key], want.metrics[key])
+    np.testing.assert_allclose(got.metrics["logprob_sum"],
+                               want.metrics["logprob_sum"], atol=1e-4)
+    assert got.decode_steps == want.decode_steps
+    assert got.prefill_s > 0 and got.decode_s > 0
+
+
+def test_build_serve_step_is_the_fixed_shape_decode_step():
+    """(cfg, built, params, make_cache): ``built.fn`` is one (num_slots, 1)
+    decode step against a max_seq cache with one position."""
+    from repro_torch.models import decode_step
+    from repro_torch.serving import build_serve_step
+
+    config = ServeConfig(num_slots=2, prefill_buckets=(8,), max_new_tokens=3)
+    cfg, built, params, make_cache = build_serve_step(config, device="cpu")
+    assert (built.num_slots, built.max_seq) == (2, config.max_seq)
+    cache = make_cache()
+    assert cache["pos"].shape == () and \
+        cache["layers"][0]["k"].shape[:2] == (2, config.max_seq)
+    tok = torch.ones((2, 1), dtype=torch.int32)
+    logits, cache = built.fn(params, cache, tok)
+    assert logits.shape == (2, 1, cfg.vocab_size) and int(cache["pos"]) == 1
+    want, _ = decode_step(params, cfg, make_cache(), tok)
+    assert torch.equal(logits, want)
+
+
+def test_cli_prints_the_windows_report_on_the_cpu(capsys):
+    """gemma3-1b's smoke model through the CLI: the per-step plan, the
+    prefix-cache line, the fleet prefix windows line and one per-user line
+    per user, the windows' counts equal to the engine's."""
+    from repro_torch.launch.serve import run_cli
+
+    run = run_cli(["--arch", "gemma3-1b", "--device", "cpu", "--requests",
+                   "6", "--slots", "2", "--buckets", "16,32", "--min-prompt",
+                   "12", "--max-prompt", "30", "--gen", "4", "--users", "3",
+                   "--shared-frac", "0.5", "--shared-len", "16", "--rate",
+                   "0"])
+    out = capsys.readouterr().out
+    for line in ("per-step aggregation plan: segment_ops[torch.index_add_",
+                 "prefix cache: nodes=", "fleet prefix windows: hit_rate=",
+                 "per-user windows (last 32 requests, token-rate half-life "
+                 "60s; fleet tokens 24):"):
+        assert line in out, out
+    users = {r.user for r in run["results"]}
+    assert len(users) > 1
+    assert len([ln for ln in out.splitlines()
+                if ln.startswith("  user=")]) == len(users)
+    metrics, engine = run["metrics"], run["engine"]
+    assert metrics.fleet_tokens() == 24
+    assert metrics.fleet_prefix()["hit_tokens"] == \
+        engine.prefix.stats.hit_tokens
