@@ -10,8 +10,9 @@ Phases, each of which must pass or the script exits non-zero:
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once,
    sm_90a), launch each at real sizes and at each path's shapes (for
    ``segment_fold``: serve, ``packed_stats``, max-by-key; for
-   ``flash_attention``: the prefill's 4 x 64 bucket in bf16 and f16, S
-   4096, ragged, Sq != Sk, head_dim 8), and hold it against its plain
+   ``flash_attention``: the prefill's 4 x 64 bucket in bf16 and f16 and at
+   qwen2-moe-a2.7b's 16 / 16 heads, S 4096, ragged, Sq != Sk, head_dim 8),
+   and hold it against its plain
    PyTorch version (16-bit attention also against two lower-precision
    controls it must be told apart from); time kernel, plain version and
    the one-call PyTorch yardstick with CUDA events.  ``segment_fold``,
@@ -82,6 +83,19 @@ Phases, each of which must pass or the script exits non-zero:
    65536 users), each exact against a numpy oracle with one
    ``segment_fold`` launch per fold, wall time and events/s printed; and
    ``SlidingWindow(sum_, 32)`` over 10**4 events against brute force.
+11. MoE, qwen2-moe-a2.7b (24 layers, 60 + 4 pad experts of 2048 x 1408,
+   top-4, 4 shared, bf16): (a) the expert products through ``grouped_mm``
+   against the per-expert loop on one full-width layer at the decode (8 x
+   top-4) and (4, 64) prefill shapes, group sizes == ``bincount`` with the
+   pads empty, timed beside their byte bound; (b) its float32 smoke model
+   served on the card and the CPU, with the cache on and off, greedy and at
+   0.8: the same tokens; (c) the serve CLI's own run at full width (16
+   requests of 8-64 tokens, 8 slots, buckets 16 / 32 / 64, 32 new tokens,
+   greedy): ``flash_attention`` 24 launches per prefill call,
+   ``segment_fold`` one per step, three grouped products per layer per
+   step and prefill call; tokens/s, TTFT, the decode step eager against
+   its CUDA-graph replay and its byte bound, and the MoE layer's device
+   time split (route + sort, grouped products, combine, shared experts).
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -160,20 +174,29 @@ def graph_ms(fn, iters: int = 20, repeat: int = 3) -> float:
     return best
 
 
+# how many times cuda_launches profiles a call whose trace came back empty
+PROFILE_TRIES = 5
+
+
 def cuda_launches(fn):
     """The kernels and memsets one call of ``fn`` puts on the card, counted
-    from ``torch.profiler``'s device events; None when the profiler records
-    no device event."""
+    from ``torch.profiler``'s device events.  The profiler at times records
+    no device event at all (its activity buffers come back empty), so an
+    empty trace is profiled again, up to ``PROFILE_TRIES`` times; None when
+    every try came back empty."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    count = sum(1 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return count or None
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        count = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if count:
+            return count
+    return None
 
 
 def max_err(a, b) -> float:
@@ -706,7 +729,8 @@ def run_stripes_case(name, toks, vocab, window, *, path=False) -> dict:
 
 
 # flash_attention cases: (name, B, H, KV, Sq, Sk, d, dtype, causal); case a
-# is the prefill path's shape (4 prompts x a 64-token bucket, qwen3-0.6b)
+# is the prefill path's shape (4 prompts x a 64-token bucket, qwen3-0.6b),
+# case i the same bucket at qwen2-moe-a2.7b's heads (16 / 16 x 128, MHA)
 FLASH_CASES = [
     ("a: prefill path B4 S64 H16/KV8 d128 bf16 causal", 4, 16, 8, 64, 64, 128,
      torch.bfloat16, True),
@@ -724,6 +748,8 @@ FLASH_CASES = [
      100, 8, torch.bfloat16, True),
     ("h: case a in f16 B4 S64 H16/KV8 d128 causal", 4, 16, 8, 64, 64, 128,
      torch.float16, True),
+    ("i: qwen2-moe-a2.7b prefill path B4 S64 H16/KV16 d128 bf16 causal", 4,
+     16, 16, 64, 64, 128, torch.bfloat16, True),
 ]
 # f32: the same f32 sums in another order; bf16: one bf16 ulp of |o| ~ 2-4;
 # f16: two f16 ulps of |o| ~ 2-4, below the error of the same inputs run at
@@ -1258,11 +1284,11 @@ def window_cases(gen, dev):
 
 def cache_reference(args, arch, prompts, buckets, label):
     """``arch``'s smoke model in float32 with the prefix cache on, over
-    shared-prefix ``prompts``: the card's tokens == the CPU's and == a cold
-    card engine's (greedy and at temperature 0.8), logprob sums within
-    1e-3; each card prefill launches flash_attention once per layer; a
-    subscribed WindowedMetrics counts every served token and the engine's
-    prefix hits."""
+    shared-prefix ``prompts``: the card's tokens == the CPU's and == cold
+    (cache off) CPU and card engines' (greedy and at temperature 0.8),
+    logprob sums within 1e-3; each card prefill launches flash_attention
+    once per layer; a subscribed WindowedMetrics counts every served token
+    and the engine's prefix hits."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import init_params
@@ -1277,6 +1303,7 @@ def cache_reference(args, arch, prompts, buckets, label):
     for temperature in (0.0, 0.8):
         out, hits = {}, {}
         for name, dev, params, on in (("cpu", "cpu", params_cpu, True),
+                                      ("cpu cold", "cpu", params_cpu, False),
                                       ("cuda", "cuda", params_gpu, True),
                                       ("cuda cold", "cuda", params_gpu,
                                        False)):
@@ -1312,7 +1339,7 @@ def cache_reference(args, arch, prompts, buckets, label):
             raise RuntimeError(f"prefix hits: cuda {hits['cuda']}, cpu "
                                f"{hits['cpu']}")
         worst = {}
-        for other in ("cpu", "cuda cold"):
+        for other in ("cpu", "cpu cold", "cuda cold"):
             worst[other] = 0.0
             for a, b in zip(out[other], out["cuda"]):
                 if a.tokens != b.tokens or a.stopped != b.stopped:
@@ -1327,7 +1354,8 @@ def cache_reference(args, arch, prompts, buckets, label):
         print(f"{label}: f32 smoke model, temperature {temperature}, "
               f"{len(prompts)} requests, {hits['cuda']} prompt tokens from "
               f"the trie; warm cuda tokens == cpu tokens (max "
-              f"|logprob_sum diff| {worst['cpu']}) == cold cuda tokens "
+              f"|logprob_sum diff| {worst['cpu']}) == cold cpu tokens "
+              f"({worst['cpu cold']}) == cold cuda tokens "
               f"({worst['cuda cold']}); WindowedMetrics fleet tokens == "
               f"tokens served, fleet hit tokens == the engine's", flush=True)
 
@@ -1799,6 +1827,240 @@ def windows_phase(args, segment_fold, dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the MoE family, qwen2-moe-a2.7b at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_CLI = ["--arch", MOE_ARCH, "--full", "--requests", "16", "--slots", "8",
+           "--buckets", "16,32,64", "--min-prompt", "8", "--max-prompt",
+           "64", "--gen", "32", "--rate", "0", "--temperature", "0"]
+
+
+def grouped_tolerance(plain: torch.Tensor) -> float:
+    """bf16 grouped products against the per-expert loop: 4 bf16 ulps of
+    the largest output (both accumulate in float32, in other orders, and
+    round the SwiGLU's hidden rows to bf16 before the down product)."""
+    return 2.0 ** -5 * float(plain.abs().max())
+
+
+def moe_layer_bytes(cfg, experts_hit: int) -> int:
+    """Weight bytes one MoE layer must read: the router, the experts with
+    rows (three D x F matrices each) and the shared experts."""
+    size = cfg.dtype.itemsize
+    D, Fe = cfg.d_model, cfg.d_ff_expert
+    shared = 3 * D * Fe * cfg.num_shared_experts
+    return size * (D * cfg.num_experts + experts_hit * 3 * D * Fe + shared)
+
+
+def moe_grouped_cases(args, dev):
+    """Phase 11(a): ``expert_compute`` (three ``grouped_mm`` products)
+    against ``expert_compute_plain`` (one matmul per expert) on one
+    full-width layer's experts (64 of 2048 x 1408, bf16, random weights),
+    tokens routed by its router at the decode shape (8 slots x top-4) and
+    the prefill's (4, 64) bucket x top-4.  The group sizes must equal
+    ``bincount``'s and leave the 4 pad experts empty; the products must
+    agree within ``grouped_tolerance``.  Times the grouped products, the
+    loop and (graph replay) the grouped products' device time beside the
+    bound: each expert with rows read once, the buffer read and the output
+    written once, or the products' operations at the bf16 peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    p = moe.init_moe(cfg, gen, device=dev)
+    D, Fe, k = cfg.d_model, cfg.d_ff_expert, cfg.moe_top_k
+    rows = []
+    for name, tokens in (("decode: 8 slots x top-4", 8),
+                         ("prefill: (4, 64) bucket x top-4", 256)):
+        x = torch.randn((tokens, D), generator=gen, device=dev).to(cfg.dtype)
+        xbuf, gs, order, top_w = moe.dispatch(p, cfg, x)
+        top_e, _ = moe.route(p, cfg, x)
+        plain_gs = torch.bincount(top_e.reshape(-1).long(),
+                                  minlength=cfg.num_experts).to(torch.int32)
+        pads = int(gs[cfg.num_experts - cfg.num_padded_experts:].sum())
+        if not torch.equal(gs, plain_gs) or pads:
+            raise RuntimeError(f"expert_load {gs.tolist()} != bincount "
+                               f"{plain_gs.tolist()} or pads routed ({pads})")
+        got = moe.expert_compute(p, xbuf, gs)
+        want = moe.expert_compute_plain(p, xbuf, gs)
+        err, tol = max_err(got, want), grouped_tolerance(want)
+        hit = int((gs > 0).sum())
+        n = xbuf.shape[0]
+        nbytes = cfg.dtype.itemsize * (hit * 3 * D * Fe + 2 * n * D)
+        flops = 2 * 3 * n * D * Fe
+        bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S, \
+            flops / PEAK_FLOPS[cfg.dtype]
+        row = {"name": name, "rows": n, "experts_hit": hit,
+               "max_abs_err": err, "tolerance": tol, "ok": err <= tol,
+               "differ_share": differ_share(got, want),
+               "ms": cuda_ms(lambda: moe.expert_compute(p, xbuf, gs), 20),
+               "plain_ms": cuda_ms(
+                   lambda: moe.expert_compute_plain(p, xbuf, gs), 5),
+               "device_ms": graph_ms(
+                   lambda: moe.expert_compute(p, xbuf, gs)),
+               "bound_ms": 1e3 * max(bound_bytes, bound_ops),
+               "bound_by": "bytes" if bound_bytes >= bound_ops else
+               "operations"}
+        print(f"grouped_mm [{name}]: {'OK' if row['ok'] else 'MISMATCH'} "
+              f"rows={n} experts_hit={hit} expert_load == bincount, pads 0; "
+              f"max_abs_err={err} (tolerance {tol}) differ_share="
+              f"{row['differ_share']} ms={row['ms']} device_ms="
+              f"{row['device_ms']} plain_ms={row['plain_ms']} (per-expert "
+              f"loop) bound_ms={row['bound_ms']} bound_by={row['bound_by']}"
+              f" bytes={nbytes} flops={flops}", flush=True)
+        rows.append(row)
+    bad = [r["name"] for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"grouped_mm disagrees with the per-expert loop: "
+                           f"{bad}")
+    return rows
+
+
+def moe_reference(args):
+    """Phase 11(b): the qwen2-moe smoke model (8 experts, 1 pad, top-2, 2
+    shared) through ``cache_reference``: card == CPU == cold tokens, greedy
+    and at 0.8, over prompts of which 75% open with one 8-token prefix."""
+    from repro_torch.configs import get_config
+
+    vocab = get_config(MOE_ARCH, smoke=True).vocab_size
+    rng = np.random.default_rng(args.seed + 11)
+    shared = rng.integers(1, vocab, 8).tolist()
+    prompts = [(shared if rng.random() < 0.75 else []) +
+               rng.integers(1, vocab, int(rng.integers(1, 7))).tolist()
+               for _ in range(9)]
+    cache_reference(args, MOE_ARCH, prompts, (8, 16),
+                    "moe reference (8 experts, 1 pad, top-2, 2 shared)")
+
+
+def moe_layer_split(engine, cfg, tokens: int):
+    """Device time (graph replay) of layer 0's MoE FFN on ``tokens`` rows of
+    random hidden states, and of its parts: route + sort + gather
+    (``dispatch``), the three grouped products, the ordered combine and the
+    shared experts.  -> (whole layer ms, experts with rows)."""
+    from repro_torch.models import moe
+
+    p = engine.backend.params["layers"][0]["ffn"]
+    dev = engine.backend.device
+    gen = torch.Generator(device=dev).manual_seed(tokens)
+    xf = torch.randn((tokens, cfg.d_model), generator=gen,
+                     device=dev).to(cfg.dtype)
+    xbuf, gs, order, top_w = moe.dispatch(p, cfg, xf)
+    out_buf = moe.expert_compute(p, xbuf, gs)
+    parts = {
+        "route+sort": lambda: moe.dispatch(p, cfg, xf),
+        "grouped products": lambda: moe.expert_compute(p, xbuf, gs),
+        "combine": lambda: moe.combine(out_buf, order, top_w),
+        "shared experts": lambda: moe.dense_ffn(p["shared"], cfg, xf),
+        "whole layer": lambda: moe.moe_ffn_local(p, cfg, xf[None])}
+    ms = {name: graph_ms(fn) for name, fn in parts.items()}
+    hit = int((gs > 0).sum())
+    print(f"{MOE_ARCH} MoE layer at {tokens} tokens (device ms, graph "
+          f"replay; experts with rows {hit}): "
+          + " ".join(f"{name.replace(' ', '_')}={v}" for name, v in
+                     ms.items()), flush=True)
+    return ms["whole layer"], hit
+
+
+def moe_phase(args, segment_fold, flash_attention) -> None:
+    """Phase 11(c): qwen2-moe-a2.7b at full width (24 layers, 60 + 4 pad
+    experts of 2048 x 1408, top-4, 4 shared, bf16, random weights from
+    ``--seed``) through the serve CLI's own run: 16 requests of 8-64
+    tokens, 8 slots, buckets 16 / 32 / 64, 32 new tokens, greedy.
+    ``flash_attention`` must launch 24 times per prefill call,
+    ``segment_fold`` once per decode step and ``expert_compute`` (three
+    grouped products) once per layer per decode step and prefill call.
+    Then the decode step eager against its CUDA-graph replay beside its
+    byte bound, and the MoE layer's device time split at the decode and
+    prefill shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_cli
+    from repro_torch.models import moe, num_params
+
+    torch.cuda.reset_peak_memory_stats()
+    segment_fold.launches = 0
+    flash_attention.launches = 0
+    moe.expert_compute.calls = 0
+    t0 = time.perf_counter()
+    run = run_cli(MOE_CLI + ["--seed", str(args.seed)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    fold_launches = segment_fold.launches
+    flash_launches = flash_attention.launches
+    grouped_calls = moe.expert_compute.calls
+    engine, results = run["engine"], run["results"]
+    cfg = get_config(engine.config.arch, smoke=not engine.config.full)
+    st = engine.stats
+    vocab, budget = cfg.vocab_size, engine.config.max_new_tokens
+    if len(results) != len(run["trace"]):
+        raise RuntimeError(f"{len(results)} of {len(run['trace'])} "
+                           "completed")
+    for r in results:
+        if not (1 <= len(r.tokens) <= budget) or \
+                not math.isfinite(r.logprob_sum):
+            raise RuntimeError(f"bad result {r}")
+        if any(not 0 <= t < vocab for t in r.tokens):
+            raise RuntimeError(f"token outside the vocab in {r.tokens}")
+        if len(r.tokens) < budget and not r.stopped:
+            raise RuntimeError(f"uid {r.uid} ended early without eos")
+    if st.prefill_calls <= 0 or \
+            flash_launches != cfg.num_layers * st.prefill_calls:
+        raise RuntimeError(f"flash_attention launched {flash_launches} times "
+                           f"over {st.prefill_calls} prefill calls; each "
+                           f"must launch it once per layer "
+                           f"({cfg.num_layers})")
+    if fold_launches <= 0 or fold_launches != st.steps:
+        raise RuntimeError(f"segment_fold launched {fold_launches} times "
+                           f"over {st.steps} decode steps")
+    if grouped_calls != cfg.num_layers * (st.steps + st.prefill_calls):
+        raise RuntimeError(f"expert_compute ran {grouped_calls} times over "
+                           f"{st.steps} steps and {st.prefill_calls} prefill "
+                           f"calls of {cfg.num_layers} MoE layers")
+    counts = engine.compile_counts()
+    if sum(counts.values()) > engine.compile_bound():
+        raise RuntimeError(f"program shapes {counts} exceed the bound "
+                           f"{engine.compile_bound()}")
+    gen = sum(len(r.tokens) for r in results)
+    ttft = np.array([r.ttft_s for r in results])
+    print(f"{MOE_ARCH} serve (CLI): params={num_params(engine.backend.params)}"
+          f" active_params={cfg.num_active_params()} completed="
+          f"{len(results)} generated_tokens={gen} wall_s={run['wall_s']} "
+          f"tokens_per_s={gen / run['wall_s']} "
+          f"ttft_p50_ms={np.percentile(ttft, 50) * 1e3} "
+          f"ttft_p99_ms={np.percentile(ttft, 99) * 1e3} "
+          f"decode_steps={st.steps} prefill_calls={st.prefill_calls} "
+          f"flash_attention.launches={flash_launches} (== {cfg.num_layers} "
+          f"x prefill calls) segment_fold.launches={fold_launches} (== "
+          f"steps) grouped_mm products={3 * grouped_calls} (3 x "
+          f"{cfg.num_layers} layers x (steps + prefill calls)) "
+          f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30} "
+          f"cli_s={run_s}", flush=True)
+
+    step_graph_ms = decode_breakdown(engine)
+    layer_ms, hit = moe_layer_split(engine, cfg, engine.config.num_slots)
+    k, bucket = engine.config.prefill_batch, engine.config.prefill_buckets[-1]
+    _, prefill_hit = moe_layer_split(engine, cfg, k * bucket)
+    # byte bounds: every layer's attention and MoE weights (as many experts
+    # as layer 0 routed random rows of that shape to), and lm_head read
+    # once at the model's dtype
+    D, V, size = cfg.d_model, cfg.vocab_size, cfg.dtype.itemsize
+    attn_bytes = size * (4 * D * cfg.num_heads * cfg.head_dim)
+    unembed_bytes = D * V * size
+    step_bytes = cfg.num_layers * (attn_bytes + moe_layer_bytes(cfg, hit)) \
+        + unembed_bytes
+    prefill_bytes = cfg.num_layers * (
+        attn_bytes + moe_layer_bytes(cfg, prefill_hit)) + unembed_bytes
+    print(f"{MOE_ARCH} decode step: graph_replay_ms={step_graph_ms} "
+          f"bound_ms={1e3 * step_bytes / HBM_BYTES_PER_S} (bytes="
+          f"{step_bytes}, {hit} experts per layer) moe_layers_ms="
+          f"{cfg.num_layers * layer_ms} (estimate: {cfg.num_layers} x layer "
+          f"0 replayed alone on random rows) moe_share_estimate="
+          f"{cfg.num_layers * layer_ms / step_graph_ms}; ({k}, {bucket}) "
+          f"prefill bound_ms={1e3 * prefill_bytes / HBM_BYTES_PER_S} (bytes="
+          f"{prefill_bytes}, {prefill_hit} experts per layer)", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1945,6 +2207,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # phase 10: streaming windows on the card
     windows_phase(args, segment_fold, dev)
+    # phase 11: the MoE family (the earlier phases' models freed first)
+    del engine
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_grouped_cases(args, dev)
+    torch.cuda.empty_cache()
+    moe_reference(args)
+    moe_phase(args, segment_fold, flash_attention)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f}s", flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

@@ -6,6 +6,8 @@ MapReduce.  The port of ``repro/launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \\
       --requests 16 --slots 8 --buckets 256,512,1024 --min-prompt 520 \\
       --max-prompt 1000 --gen 32 --rate 0 --users 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+      --full --requests 16 --slots 8 --buckets 16,32,64 --gen 32
 
 This module wires the model substrate (configs + models) into the
 model-agnostic :class:`repro_torch.runtime.engine.ContinuousEngine` and hosts
@@ -13,7 +15,8 @@ the CLI.  Requests arrive on a Poisson trace, queue FIFO, and are admitted
 into rolling slots; each decode step folds the per-request metrics through
 ONE planner-lowered keyed fold — on the card, one launch of the CUDA
 ``segment_fold`` kernel — and each admission's prefill runs the bucket in
-one pass, one launch of the CUDA ``flash_attention`` kernel per layer.
+one pass, one launch of the CUDA ``flash_attention`` kernel per layer (an
+MoE model's expert products run as grouped products, ``models/moe.py``).
 With the radix prefix cache (on by default; ``--no-prefix-cache``) an
 admission prefills only its uncached suffix, in the same one pass, each
 row's queries at its prefix length.  A :class:`WindowedMetrics` consumer

@@ -1,11 +1,11 @@
 """Model substrate: config, norms, rotary embeddings, projections.
 
-The port of ``repro/models/common.py`` for the dense family.  Parameters are
-plain nested dicts of tensors with the JAX package's shapes, so weights carry
-over leaf for leaf (:mod:`repro_torch.models.convert`).  Where bf16 rounds
-follows the JAX package's default ``_F32_CHAINS = False`` policy: f32 only
-for variance reductions, attention scores and softmax; norms, rotary and
-projections multiply and emit in the activation dtype.
+The port of ``repro/models/common.py`` for the dense and MoE families.
+Parameters are plain nested dicts of tensors with the JAX package's shapes,
+so weights carry over leaf for leaf (:mod:`repro_torch.models.convert`).
+Where bf16 rounds follows the JAX package's default ``_F32_CHAINS = False``
+policy: f32 only for variance reductions, attention scores and softmax;
+norms, rotary and projections multiply and emit in the activation dtype.
 """
 from __future__ import annotations
 
@@ -18,11 +18,12 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The JAX package's model config, cut to the fields the dense family
-    reads (the MoE / SSM / MLA / encoder fields come with those slices).
+    """The JAX package's model config, cut to the fields the dense and MoE
+    families read (the SSM / MLA / encoder fields come with those slices).
     Layer ``i`` has block type ``layer_pattern[i % period]`` and FFN type
     ``ffn_pattern[i % period]``; the port runs ``attn`` and ``local``
-    (attention within ``sliding_window`` keys) blocks with ``dense`` FFNs."""
+    (attention within ``sliding_window`` keys) blocks with ``dense`` or
+    ``moe`` FFNs."""
 
     name: str
     family: str                      # dense | moe | hybrid | ssm | audio | vlm
@@ -39,6 +40,15 @@ class ModelConfig:
     sliding_window: int = 4096       # for 'local' blocks
     layer_pattern: Tuple[str, ...] = ("attn",)
     ffn_pattern: Tuple[str, ...] = ("dense",)
+    # -- MoE
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    moe_top_k: int = 0
+    d_ff_expert: int = 0
+    norm_topk_prob: bool = True
+    moe_capacity_factor: float = 1.25
+    num_padded_experts: int = 0      # trailing experts masked out of routing
+                                     # (qwen2-moe: 60 real + 4 pads for EP=16)
     act_fn: str = "silu"             # silu | gelu
     gated_ffn: bool = True           # SwiGLU vs plain MLP
     scale_embed: bool = False        # multiply embeddings by sqrt(d_model)
@@ -62,6 +72,24 @@ class ModelConfig:
 
     def ffn_type(self, layer_idx: int) -> str:
         return self.ffn_pattern[layer_idx % self.period]
+
+    def num_params(self) -> int:
+        """Parameter count from the shapes ``init_params`` makes (on the
+        meta device: nothing is allocated)."""
+        from .transformer import init_params, num_params
+        return num_params(init_params(self, torch.Generator(), device="meta"))
+
+    def num_active_params(self) -> int:
+        """Active params per token (MoE: shared + top_k routed experts;
+        the padded experts count as inactive, as the JAX package counts
+        them)."""
+        total = self.num_params()
+        if self.num_experts == 0:
+            return total
+        per_expert = 3 * self.d_model * self.d_ff_expert
+        n_moe = sum(1 for i in range(self.num_layers)
+                    if self.ffn_type(i) == "moe")
+        return total - (self.num_experts - self.moe_top_k) * per_expert * n_moe
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,

@@ -8,7 +8,9 @@ over a leading ``n_periods`` dim (``params["layers"]["slot_j"]``) and keeps
 the ``num_layers - n_periods * P`` remainder layers unrolled
 (``params["rem_i"]``; gemma3's 26 = 4 x 6 + 2), so layer ``p * P + j`` is
 period ``p`` of slot ``j`` and layer ``n_periods * P + i`` is ``rem_i``.  The
-two models then compute the same function.
+two models then compute the same function.  Nested leaves carry over as they
+are: an MoE layer's ``ffn`` holds ``router``, ``we_gate``, ``we_up``,
+``we_down`` and the ``shared`` dense FFN dict.
 """
 from __future__ import annotations
 
@@ -34,9 +36,9 @@ def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> Dict[str, Any]:
-    """The port's parameters from the JAX package's (dense family; layers
-    stacked with period ``cfg.period`` plus remainder layers), cast to
-    ``cfg.dtype`` on ``device``."""
+    """The port's parameters from the JAX package's (dense and MoE
+    families; layers stacked with period ``cfg.period`` plus remainder
+    layers), cast to ``cfg.dtype`` on ``device``."""
     _check_supported(cfg)
     device = torch.device(device)
 

@@ -16,10 +16,14 @@ leaves the cache as the decode step run over the sequence would, and with
 Layers are ``attn`` (global causal attention) or ``local`` (attention within
 ``cfg.sliding_window`` keys, gemma3's 5:1 local:global stack), in layer
 order; every layer's decode cache holds all ``max_seq`` rows, as the JAX
-package's does, so the cache stays indexed by position.  MoE (qwen2-moe),
-the encoder and cross-attention (whisper), SSM / xLSTM blocks (xlstm,
-jamba), MLA (deepseek-v2) and gated cross-attention (llama-3.2-vision) are
-later slices of the port (``init_params`` / ``init_cache`` raise for them).
+package's does, so the cache stays indexed by position.  Each layer's FFN
+is ``dense`` or ``moe`` (qwen2-moe: :mod:`repro_torch.models.moe` on one
+device); :func:`forward_with_stats` also returns the MoE stats summed over
+layers (a Sum monoid), which :func:`forward`, :func:`prefill` and
+:func:`decode_step` drop.  The encoder and cross-attention (whisper), SSM /
+xLSTM blocks (xlstm, jamba), MLA (deepseek-v2) and gated cross-attention
+(llama-3.2-vision) are later slices of the port (``init_params`` /
+``init_cache`` raise for them).
 """
 from __future__ import annotations
 
@@ -27,11 +31,12 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 import torch.utils._pytree as pytree
 
 from . import attention as attn
-from .common import ModelConfig, dense, embed_lookup, init_normal, rms_norm
+from . import moe as moe_mod
+from .common import ModelConfig, embed_lookup, init_normal, rms_norm
+from .moe import _act, dense_ffn  # noqa: F401  (their home is moe.py)
 
 Pytree = Any
 
@@ -39,11 +44,12 @@ Pytree = Any
 def _check_supported(cfg: ModelConfig) -> None:
     for i in range(cfg.num_layers):
         if cfg.block_type(i) not in ("attn", "local") or \
-                cfg.ffn_type(i) != "dense":
+                cfg.ffn_type(i) not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: layer {i} is ({cfg.block_type(i)}, "
-                f"{cfg.ffn_type(i)}); the port runs the dense family only "
-                "(MoE / SSM blocks are later slices)")
+                f"{cfg.ffn_type(i)}); the port runs attention layers with "
+                "dense or MoE FFNs (SSM / MLA / cross-attention layers are "
+                "later slices)")
 
 
 def layer_window(cfg: ModelConfig, i: int) -> Optional[int]:
@@ -58,8 +64,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     (``std = 1/sqrt(fan_in)``, norms at one), drawn from ``gen``."""
     _check_supported(cfg)
     device = torch.device(device)
-    D, H, KV, hd, Fd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                        cfg.head_dim, cfg.d_ff)
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = cfg.dtype
 
     def normal(shape, fan_in):
@@ -70,7 +75,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 
     params: Dict[str, Any] = {"embed": normal((cfg.vocab_size, D), D)}
     layers: List[Dict] = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
         mix = {"wq": normal((D, H, hd), D), "wk": normal((D, KV, hd), D),
                "wv": normal((D, KV, hd), D), "wo": normal((H, hd, D), H * hd)}
         if cfg.qkv_bias:
@@ -79,9 +84,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                        bv=torch.zeros((KV, hd), dtype=dt, device=device))
         if cfg.qk_norm:
             mix.update(q_norm=ones(hd), k_norm=ones(hd))
-        ffn = {"w_up": normal((D, Fd), D), "w_down": normal((Fd, D), Fd)}
-        if cfg.gated_ffn:
-            ffn["w_gate"] = normal((D, Fd), D)
+        ffn = moe_mod.init_moe(cfg, gen, device=device) \
+            if cfg.ffn_type(i) == "moe" else \
+            moe_mod.init_dense_ffn(cfg, gen, device=device)
         layers.append({"norm1": ones(D), "mix": mix, "norm2": ones(D),
                        "ffn": ffn})
     params["layers"] = layers
@@ -115,40 +120,46 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
                        for _ in range(cfg.num_layers)]}
 
 
-def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.act_fn == "silu":
-        return F.silu(x)
-    return F.gelu(x, approximate="tanh")    # jax.nn.gelu's default
+def _apply_ffn(p: Dict, cfg: ModelConfig, ftype: str, x: torch.Tensor,
+               stats: Optional[Dict]):
+    """The residual FFN block -> (x, stats): an MoE layer adds its stats
+    into ``stats`` (the reference's ``_apply_ffn``)."""
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if ftype == "dense":
+        return x + dense_ffn(p["ffn"], cfg, h), stats
+    out, s = moe_mod.moe_ffn(p["ffn"], cfg, h)
+    if stats is not None:
+        stats = {k: stats[k] + s[k] for k in stats}
+    return x + out, stats
 
 
-def dense_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    up = dense(x, p["w_up"])
-    if cfg.gated_ffn:
-        up = _act(cfg, dense(x, p["w_gate"])) * up
-    else:
-        up = _act(cfg, up)
-    return dense(up, p["w_down"])
-
-
-def _decode_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
-                  pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+def _decode_layer(p: Dict, cfg: ModelConfig, ftype: str, x: torch.Tensor,
+                  cache: Dict, pos: torch.Tensor,
+                  window: Optional[int]) -> torch.Tensor:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     mixed, _ = attn.attention_decode(p["mix"], cfg, h,
                                      (cache["k"], cache["v"]), pos,
                                      window=window)
-    x = x + mixed
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + dense_ffn(p["ffn"], cfg, h)
+    x, _ = _apply_ffn(p, cfg, ftype, x + mixed, None)
+    return x
 
 
-def _full_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                window: Optional[int], q_offset=None, cache=None, span=None):
+def _full_layer(p: Dict, cfg: ModelConfig, ftype: str, x: torch.Tensor,
+                window: Optional[int], stats: Optional[Dict],
+                q_offset=None, cache=None, span=None):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     mixed, kv = attn.attention(p["mix"], cfg, h, q_offset=q_offset,
                                cache=cache, span=span, window=window)
-    x = x + mixed
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + dense_ffn(p["ffn"], cfg, h), kv
+    x, stats = _apply_ffn(p, cfg, ftype, x + mixed, stats)
+    return x, kv, stats
+
+
+def _zero_stats(cfg: ModelConfig, device) -> Optional[Dict]:
+    if cfg.num_experts == 0:
+        return None
+    return {"expert_load": torch.zeros(cfg.num_experts, dtype=torch.int32,
+                                       device=device),
+            "dropped": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def _embed(params: Pytree, cfg: ModelConfig,
@@ -160,36 +171,47 @@ def _embed(params: Pytree, cfg: ModelConfig,
 
 
 def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
-             cache_layers=None, prefix_len=None) -> torch.Tensor:
-    """Final hidden states of (B, S) tokens; with ``cache_layers``, each
-    layer's (k, v) is written in place into rows [0, S) of its cache, or,
-    with ``prefix_len``, into rows [prefix_len, prefix_len + S) after the
-    cached prefix rows it attends to."""
+             cache_layers=None, prefix_len=None):
+    """(final hidden states of (B, S) tokens, MoE stats or None); with
+    ``cache_layers``, each layer's (k, v) is written in place into rows
+    [0, S) of its cache, or, with ``prefix_len``, into rows [prefix_len,
+    prefix_len + S) after the cached prefix rows it attends to."""
     S = tokens.shape[1]
     x = _embed(params, cfg, tokens)
+    stats = _zero_stats(cfg, x.device)
     if prefix_len is not None:      # every layer writes the same rows
         span = attn.span_index(prefix_len, S, cache_layers[0]["k"].shape[1])
     for i, p in enumerate(params["layers"]):
-        window = layer_window(cfg, i)
+        window, ftype = layer_window(cfg, i), cfg.ffn_type(i)
         if prefix_len is not None:
             c = cache_layers[i]
-            x, _ = _full_layer(p, cfg, x, window, prefix_len,
-                               (c["k"], c["v"]), span)
+            x, _, stats = _full_layer(p, cfg, ftype, x, window, stats,
+                                      prefix_len, (c["k"], c["v"]), span)
             continue
-        x, (k, v) = _full_layer(p, cfg, x, window)
+        x, (k, v), stats = _full_layer(p, cfg, ftype, x, window, stats)
         if cache_layers is not None:
             cache_layers[i]["k"][:, :S] = k
             cache_layers[i]["v"][:, :S] = v
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), stats
 
 
 @torch.no_grad()
+def forward_with_stats(params: Pytree, cfg: ModelConfig,
+                       tokens: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Token ids (B, S) -> (final hidden states (B, S, D), stats): the JAX
+    package's ``forward`` (no context, no remat; forward only, as the
+    attention kernel is).  ``stats`` is ``{"expert_load": (E,) int32,
+    "dropped": int32}`` summed over the MoE layers, or None without
+    experts."""
+    return _forward(params, cfg, tokens)
+
+
 def forward(params: Pytree, cfg: ModelConfig,
             tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids (B, S) -> final hidden states (B, S, D): the JAX package's
-    ``forward`` for the dense family (no context, no MoE stats, no remat;
-    forward only, as the attention kernel is)."""
-    return _forward(params, cfg, tokens)
+    """Token ids (B, S) -> final hidden states (B, S, D)
+    (:func:`forward_with_stats` without the stats)."""
+    return forward_with_stats(params, cfg, tokens)[0]
 
 
 @torch.no_grad()
@@ -216,7 +238,7 @@ def prefill(params: Pytree, cfg: ModelConfig, cache: Pytree,
     the suffix from ``pos = prefix_len`` leaves.
     """
     B, S = tokens.shape
-    h = _forward(params, cfg, tokens, cache["layers"], prefix_len)
+    h, _ = _forward(params, cfg, tokens, cache["layers"], prefix_len)
     rows = torch.arange(B, device=h.device)
     logits = unembed(params, cfg, h[rows, lengths.long() - 1])
     pos = torch.full_like(cache["pos"], S) if prefix_len is None else \
@@ -239,7 +261,8 @@ def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
     pos = cache["pos"]
     x = _embed(params, cfg, tokens)
     for i, (p, c) in enumerate(zip(params["layers"], cache["layers"])):
-        x = _decode_layer(p, cfg, x, c, pos, layer_window(cfg, i))
+        x = _decode_layer(p, cfg, cfg.ffn_type(i), x, c, pos,
+                          layer_window(cfg, i))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params, cfg, x)
     return logits, {"pos": pos + 1, "layers": cache["layers"]}

@@ -52,9 +52,8 @@ def test_cuda_kernel_matches_plain(cuda_device, semiring, dtype):
         assert torch.equal(got, want)
 
 
-def _device_launches(fn):
-    """Kernels and memsets one call of ``fn`` puts on the card:
-    ``chip_smoke.cuda_launches`` (the profiler's device events)."""
+def _chip_smoke():
+    """The repo's ``chip_smoke.py``, loaded as a module."""
     import importlib.util
     import pathlib
 
@@ -62,7 +61,13 @@ def _device_launches(fn):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    return chip_smoke.cuda_launches(fn)
+    return chip_smoke
+
+
+def _device_launches(fn):
+    """Kernels and memsets one call of ``fn`` puts on the card:
+    ``chip_smoke.cuda_launches`` (the profiler's device events)."""
+    return _chip_smoke().cuda_launches(fn)
 
 
 def _fold_both(v, ids, s, semiring, mask=None, with_count=False):
@@ -461,10 +466,12 @@ def test_cuda_mapreduce_jobs(cuda_device, strategy):
 
 
 # chip_smoke.py's flash cases a (the prefill path's shape), e (ragged
-# edges), f (Sq != Sk: the top-left mask) and g (qwen2.5-14b's smoke heads,
-# head_dim 8): (B, H, KV, Sq, Sk, d)
+# edges), f (Sq != Sk: the top-left mask), g (qwen2.5-14b's smoke heads,
+# head_dim 8) and i (qwen2-moe-a2.7b's prefill, 16 / 16 heads):
+# (B, H, KV, Sq, Sk, d)
 FLASH_CASES = {"a": (4, 16, 8, 64, 64, 128), "e": (2, 4, 2, 100, 100, 64),
-               "f": (1, 4, 2, 64, 192, 128), "g": (2, 8, 2, 100, 100, 8)}
+               "f": (1, 4, 2, 64, 192, 128), "g": (2, 8, 2, 100, 100, 8),
+               "i": (4, 16, 16, 64, 64, 128)}
 
 
 def _qkv(gen, dev, B, H, KV, Sq, Sk, d, dtype):
@@ -669,3 +676,112 @@ def test_cuda_window_folds_launch_the_kernel_once(cuda_device):
     assert segment_fold.launches == before + 1
     assert torch.equal(got.cpu(), session_fold(monoids.sum_, v_cpu, sids,
                                                n_sess))
+
+
+# ---------------------------------------------------------------------------
+# MoE (qwen2-moe-a2.7b): the grouped expert products and the served tokens
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [8, 256])
+def test_cuda_grouped_product_matches_the_loop(cuda_device, tokens):
+    """qwen2-moe-a2.7b's experts at full width (64 of 2048 x 1408, bf16):
+    tokens routed by the layer's router at the decode (8 x top-4) and
+    prefill (4 x 64 x top-4) shapes; ``grouped_mm`` against one matmul per
+    expert within ``chip_smoke.grouped_tolerance``, the group sizes exact
+    and the 4 pad experts empty."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = moe.init_moe(cfg, gen, device=cuda_device)
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device=cuda_device
+                    ).to(cfg.dtype)
+    xbuf, gs, order, top_w = moe.dispatch(p, cfg, x)
+    top_e, _ = moe.route(p, cfg, x)
+    want_gs = torch.bincount(top_e.reshape(-1).long(),
+                             minlength=cfg.num_experts).to(torch.int32)
+    assert torch.equal(gs, want_gs) and int(gs[-4:].sum()) == 0
+    got = moe.expert_compute(p, xbuf, gs)
+    want = moe.expert_compute_plain(p, xbuf, gs)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _chip_smoke().grouped_tolerance(want), err
+
+
+@pytest.mark.cuda
+def test_cuda_moe_decode_step_replays_from_a_graph(cuda_device):
+    """The MoE decode step (bf16 smoke model, 8 slots) reads nothing back to
+    the host: it captures in a CUDA graph, and the replay's logits and KV
+    rows equal the eager step's bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    cfg = get_config("qwen2-moe-a2.7b", smoke=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    params = init_params(cfg, gen, device=cuda_device)
+    tok = torch.randint(1, cfg.vocab_size, (8, 1), dtype=torch.int32,
+                        device=cuda_device)
+
+    def fresh():
+        cache = init_cache(params, cfg, 8, 32, pos_per_slot=True)
+        cache["pos"].copy_(torch.arange(8, dtype=torch.int32) * 3)
+        return cache
+
+    eager_cache = fresh()
+    want, _ = decode_step(params, cfg, eager_cache, tok)
+    cache = fresh()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_step(params, cfg, fresh(), tok)      # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = decode_step(params, cfg, cache, tok)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for a, b in zip(cache["layers"], eager_cache["layers"]):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("prefix_cache", [False, True])
+def test_cuda_moe_smoke_model_serves_the_cpus_tokens(cuda_device, temperature,
+                                                     prefix_cache):
+    """The float32 qwen2-moe smoke model (8 experts, 1 pad, top-2, 2
+    shared) served on the card and on the CPU with the same weights: the
+    same tokens, greedy and at 0.8, with the prefix cache off and on."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousEngine, ServeConfig, make_backend
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b", smoke=True),
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    shared = [7, 7, 1, 9, 4, 4, 2, 8]
+    prompts = [shared + [5, 9], [11, 3, 7], shared + [6], [3] * 13,
+               shared[:4] + [1, 2, 3], shared + [2, 2, 2, 2, 2]]
+    config = ServeConfig(arch="qwen2-moe-a2.7b", num_slots=3,
+                         prefill_buckets=(8, 16), max_new_tokens=5,
+                         prefill_batch=2, temperature=temperature, seed=4,
+                         prefix_cache=prefix_cache, prefix_block=2)
+    results = {}
+    for dev in ("cpu", cuda_device):
+        p = pytree.tree_map(lambda t: t.to(dev), params)
+        eng = ContinuousEngine(make_backend(cfg, p, config, dev), config)
+        uids = [eng.submit(x) for x in prompts]
+        before = flash_attention.launches
+        for _ in eng.run(max_steps=100):
+            pass
+        launched = flash_attention.launches - before
+        assert launched == (cfg.num_layers * eng.stats.prefill_calls
+                            if torch.device(dev).type == "cuda" else 0)
+        results[dev] = [eng.result(u) for u in uids]
+    assert prefix_cache == (eng.prefix is not None)
+    for a, b in zip(results["cpu"], results[cuda_device]):
+        assert a.tokens == b.tokens
+        assert abs(a.logprob_sum - b.logprob_sum) < 1e-3

@@ -165,7 +165,7 @@ def test_other_families_are_later_slices():
         get_config("deepseek-v2-236b")
     cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
                               layer_pattern=("mamba",))
-    with pytest.raises(NotImplementedError, match="dense family"):
+    with pytest.raises(NotImplementedError, match="dense or MoE FFNs"):
         init_params(cfg, torch.Generator(), device="cpu")
 
 
@@ -537,7 +537,8 @@ def test_window_mask_matches_jax():
 
 @pytest.mark.parametrize("smoke", [True, False])
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-14b",
-                                  "starcoder2-15b", "gemma3-1b"])
+                                  "starcoder2-15b", "gemma3-1b",
+                                  "qwen2-moe-a2.7b"])
 def test_registry_configs_are_the_references_field_for_field(arch, smoke):
     """Every arch the port registers: its config (full and smoke) is the
     JAX package's, field for field."""
