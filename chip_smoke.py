@@ -96,6 +96,23 @@ Phases, each of which must pass or the script exits non-zero:
    step and prefill call; tokens/s, TTFT, the decode step eager against
    its CUDA-graph replay and its byte bound, and the MoE layer's device
    time split (route + sort, grouped products, combine, shared experts).
+12. the context-conditioned family: (a) ``flash_attention`` non-causal at
+   whisper-small's encoder (x1: B 8, S 1500, 12 / 12 x 64) and
+   cross-attention (x2: 64 queries over 1500 frames) and
+   llama-3.2-vision-90b's cross-attention (x3: 64 queries over 1600
+   patches, 64 / 8 x 128), bf16, with phase 2's checks, timed beside SDPA,
+   one launch each; (b) both smoke configs in float32 (gates 0.5) on the
+   card and the CPU: ``forward(context=)`` logits within 1e-4 and 16
+   greedy serve steps' tokens equal; (c) whisper-small at full width
+   through ``build_serve_step`` (8 slots): ``make_cache`` encodes 8 x 1500
+   frames in 12 launches, 16 prompt + 64 greedy steps with no launch, the
+   step eager against its CUDA-graph replay (equal bit for bit) and its
+   byte bound, a (8, 64) ``forward(context=)`` in 36 launches, and in
+   float32 the last ``forward`` logits within 2e-2 of the decode loop's;
+   (d) llama-3.2-vision-90b at full width cut to one period (5 layers, the
+   cut printed as ``reduced``), 8 slots: ``init_cache(context=)``, 32
+   greedy steps, the step eager against its replay and its byte bound, a
+   (4, 64) ``forward(context=)`` in 5 launches.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -836,7 +853,9 @@ def run_flash_case(case, gen, dev) -> dict:
     device_ms = graph_ms(kernel)
     plain_ms = cuda_ms(plain, iters)
     library_ms = library_device_ms = None
-    if Sq == Sk:     # the yardstick's is_causal mask is ours only at Sq == Sk
+    # the yardstick's is_causal mask is ours only at Sq == Sk; without a
+    # mask any lengths
+    if Sq == Sk or not causal:
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True)
@@ -2061,6 +2080,451 @@ def moe_phase(args, segment_fold, flash_attention) -> None:
           f"{prefill_bytes}, {prefill_hit} experts per layer)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the context-conditioned family (whisper-small, llama-3.2-vision)
+# ---------------------------------------------------------------------------
+
+# flash_attention at the context family's shapes (run_flash_case's tuple):
+# whisper-small's encoder (8 x 1500 frames, 12 / 12 x 64), its decoder's
+# cross-attention in forward (64 queries over the 1500 encoded frames) and
+# llama-3.2-vision-90b's (64 queries over 1600 patches, 64 / 8 x 128)
+FLASH_CONTEXT_CASES = [
+    ("x1: whisper-small encoder B8 S1500 H12/KV12 d64 bf16 non-causal", 8,
+     12, 12, 1500, 1500, 64, torch.bfloat16, False),
+    ("x2: whisper-small cross-attention B8 Sq64 Sk1500 H12/KV12 d64 bf16 "
+     "non-causal", 8, 12, 12, 64, 1500, 64, torch.bfloat16, False),
+    ("x3: llama-3.2-vision cross-attention B4 Sq64 Sk1600 H64/KV8 d128 bf16 "
+     "non-causal", 4, 64, 8, 64, 1600, 128, torch.bfloat16, False),
+]
+WHISPER = "whisper-small"
+VISION = "llama-3.2-vision-90b"
+CONTEXT_GATE = 0.5      # the reference's gates start at 0: tanh(0) hides xattn
+
+
+def context_flash_cases(gen, dev):
+    """Phase 12(a): cases x1-x3 through ``run_flash_case`` (phase 2's
+    checks, SDPA without a mask as the yardstick); each call must be one
+    ``flash_attention`` launch, and one kernel on the card wherever the
+    profiler records the call (``cuda_launches`` None: not measured)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rows = []
+    for case in FLASH_CONTEXT_CASES:
+        row = run_flash_case(case, gen, dev)
+        name, B, H, KV, Sq, Sk, d, dtype, causal = case
+        q, k, v = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((B, H, Sq, d), (B, KV, Sk, d),
+                                 (B, KV, Sk, d))]
+        before = flash_attention.launches
+        flash_attention(q, k, v, causal=causal)
+        row["launches"] = flash_attention.launches - before
+        row["cuda_launches"] = cuda_launches(
+            lambda: flash_attention(q, k, v, causal=causal))
+        row["ok"] &= row["launches"] == 1 and \
+            row["cuda_launches"] in (1, None)
+        print_row("flash_attention", row)
+        print(f"  launches={row['launches']} (wrapper count, one call; "
+              f"cuda_launches None = the profiler recorded no event) "
+              f"flops={row['flops']} bytes={row['bound_bytes']} "
+              f"device_ms={row['device_ms']} (graph replay; SDPA "
+              f"{row['library_device_ms']})"
+              + "".join(f" {k}={v}" for k, v in row["controls"].items()),
+              flush=True)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    bad = [r["name"] for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"flash_attention at the context shapes: {bad}")
+    return rows
+
+
+def context_model(arch, seed, *, dtype=None, num_layers=None, device="cpu",
+                  batch=2):
+    """(cfg, params, context) of ``arch``: its smoke config, or with
+    ``num_layers`` its full config at that depth, in ``dtype`` when given;
+    random weights from ``seed`` on ``device`` with every cross-attention
+    gate at ``CONTEXT_GATE``; a standard normal context of ``context_spec``
+    for ``batch`` rows."""
+    from repro_torch.configs import context_spec, get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch, smoke=num_layers is None)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, device=device)
+    for layer in params["layers"]:
+        for key in ("mix", "xattn"):
+            if "gate" in layer.get(key, {}):
+                layer[key]["gate"].fill_(CONTEXT_GATE)
+    spec = context_spec(cfg, batch)
+    context = torch.randn(spec.shape, generator=gen, device=device
+                          ).to(spec.dtype)
+    return cfg, params, context
+
+
+def feed_prompt(cfg, params, cache, prompt):
+    """``prompt`` (B, P) through the serve step (``decode_step`` over a
+    context cache with one position) -> the greedy next token (B, 1)."""
+    from repro_torch.models import decode_step
+
+    for i in range(prompt.shape[1]):
+        logits, cache = decode_step(params, cfg, cache, prompt[:, i:i + 1])
+    return logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
+
+def greedy_decode(cfg, params, cache, tok, steps):
+    """``steps`` greedy tokens through the serve step from ``tok`` (B, 1)
+    -> (B, steps) int64 tokens."""
+    from repro_torch.models import decode_step
+
+    out = []
+    for _ in range(steps):
+        logits, cache = decode_step(params, cfg, cache, tok)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        out.append(tok)
+    return torch.cat(out, 1).long()
+
+
+def context_reference_run(arch, seed, steps=16):
+    """Phase 12(b): ``arch``'s float32 smoke model on the card and on the
+    CPU with the same weights (gates at ``CONTEXT_GATE``) and context:
+    ``forward(context=)``'s logits agree at atol 1e-4, and the greedy
+    tokens of ``steps`` serve steps from ``init_cache(context=)`` are
+    equal.  -> (max logit difference, cpu tokens, card tokens, card
+    flash_attention launches in forward)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import forward, init_cache, unembed
+
+    cfg, params, context = context_model(arch, seed, dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 12))
+                            .astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = pytree.tree_map(lambda t: t.to(dev), params)
+        ctx, tk = context.to(dev), toks.to(dev)
+        before = flash_attention.launches
+        logits = unembed(p, cfg, forward(p, cfg, tk, context=ctx))
+        launched = flash_attention.launches - before
+        cache = init_cache(p, cfg, 2, 12 + steps, context=ctx)
+        tokens = greedy_decode(cfg, p, cache, feed_prompt(cfg, p, cache, tk),
+                               steps)
+        out[dev] = (logits.cpu(), tokens.cpu(), launched)
+    err = float((out["cpu"][0] - out["cuda"][0]).abs().max())
+    return err, out["cpu"][1], out["cuda"][1], out["cuda"][2]
+
+
+def context_reference(args):
+    """Phase 12(b) for both smoke configs; fails on a logit difference
+    over 1e-4, unequal tokens, or a card forward that did not launch
+    ``flash_attention`` once per attention (encoder, self, cross)."""
+    from repro_torch.configs import get_config
+
+    for arch in (WHISPER, VISION):
+        cfg = get_config(arch, smoke=True)
+        err, cpu_toks, gpu_toks, launched = context_reference_run(
+            arch, args.seed)
+        want = 2 * cfg.num_layers + cfg.encoder_layers \
+            if cfg.decoder_cross_attn else cfg.num_layers
+        ok = err <= 1e-4 and torch.equal(cpu_toks, gpu_toks) and \
+            launched == want
+        print(f"context reference ({cfg.name}, float32, gates "
+              f"{CONTEXT_GATE}): {'OK' if ok else 'MISMATCH'} forward "
+              f"logits max |card - cpu| = {err} (atol 1e-4); 16 greedy serve"
+              f" steps card tokens == cpu tokens: "
+              f"{torch.equal(cpu_toks, gpu_toks)}; flash_attention launches"
+              f" in forward {launched} (want {want})", flush=True)
+        if not ok:
+            raise RuntimeError(f"{arch}: the card's float32 smoke model "
+                               f"differs from the CPU's")
+
+
+def decoder_step_bytes(cfg, params, cache) -> int:
+    """Bytes one decode step must move: every decoder weight the step
+    reads (a cross-attention's wk / wv are read only by ``init_cache``),
+    ``lm_head`` once at the model's dtype, and every cache tensor (the
+    self-attention rows the step scores and the context K/V)."""
+    size = cfg.dtype.itemsize
+    total = 0
+    for i, layer in enumerate(params["layers"]):
+        for key, sub in layer.items():
+            if isinstance(sub, dict):
+                skip = ("wk", "wv", "bk", "bv", "k_norm") if (
+                    key == "xattn" or cfg.block_type(i) == "xattn") and \
+                    key in ("mix", "xattn") else ()
+                total += sum(t.numel() * t.element_size() for n, t in
+                             sub.items() if n not in skip and
+                             isinstance(t, torch.Tensor))
+            else:
+                total += sub.numel() * sub.element_size()
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    total += head.numel() * size + params["final_norm"].numel() * size
+    total += sum(t.numel() * t.element_size()
+                 for c in cache["layers"] for t in c.values())
+    return total
+
+
+def step_eager_vs_graph(cfg, params, cache, tok, iters=10):
+    """The serve step's eager wall time and its CUDA-graph replay, and
+    whether one replay from a copy of ``cache`` gives the eager step's
+    logits and cache bit for bit.  -> (eager ms, replay ms, equal)."""
+    from repro_torch.models import decode_step
+
+    def copy(c):
+        return pytree.tree_map(lambda t: t.clone(), c)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            decode_step(params, cfg, copy(cache), tok)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    work = copy(cache)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        decode_step(params, cfg, work, tok)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / iters * 1e3
+    del work
+    eager_cache = copy(cache)
+    want, _ = decode_step(params, cfg, eager_cache, tok)
+    graph_cache = copy(cache)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = decode_step(params, cfg, graph_cache, tok)
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want) and all(
+        torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(graph_cache), pytree.tree_leaves(eager_cache)))
+    replay_ms = cuda_ms(graph.replay, iters)
+    del graph, graph_cache, eager_cache
+    return eager_ms, replay_ms, equal
+
+
+def whisper_phase(args, flash_attention):
+    """Phase 12(c): whisper-small at full width, nothing cut (12 + 12
+    layers, d_model 768, 12 / 12 x 64 heads, vocab 51865, bf16, random
+    weights from ``--seed``) through ``build_serve_step`` with 8 slots:
+    ``make_cache`` encodes 8 x 1500 frames (12 launches), a 16-token prompt
+    per slot then 64 greedy tokens through the step (no launch), the step
+    eager against its CUDA-graph replay (equal bit for bit) and its byte
+    bound, one ``forward(context=)`` of (8, 64) tokens (36 launches); then
+    in float32 the last position's ``forward`` logits within 2e-2 of the
+    decode loop's (the reference's bound)."""
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    num_params, unembed)
+    from repro_torch.serving import ServeConfig, build_serve_step
+
+    torch.cuda.reset_peak_memory_stats()
+    config = ServeConfig(arch=WHISPER, full=True, num_slots=8,
+                         prefill_buckets=(16,), max_new_tokens=64,
+                         seed=args.seed)
+    t0 = time.perf_counter()
+    cfg, built, params, make_cache = build_serve_step(config, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: decoder {cfg.num_layers} layers, encoder "
+          f"{cfg.encoder_layers} layers over {cfg.encoder_seq} frames, "
+          f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"head_dim={cfg.head_dim} d_ff={cfg.d_ff} (GELU, not gated) vocab="
+          f"{cfg.vocab_size} {cfg.dtype} params={num_params(params)} slots="
+          f"{built.num_slots} max_seq={built.max_seq} init_s="
+          f"{time.perf_counter() - t0} (nothing cut)", flush=True)
+    S, B, D = cfg.encoder_seq, built.num_slots, cfg.d_model
+    make_cache()                        # warm-up (cuBLAS handles, allocator)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    cache = make_cache()
+    torch.cuda.synchronize()
+    encode_wall = (time.perf_counter() - t0) * 1e3
+    encode_launches = flash_attention.launches
+    encode_device = graph_ms(make_cache, iters=2, repeat=2)
+    enc_products = 2 * B * S * cfg.encoder_layers * (
+        4 * D * D + 2 * D * cfg.d_ff)
+    enc_attn = cfg.encoder_layers * flash_work(B, cfg.num_heads, S, S,
+                                               cfg.head_dim, False)
+    kv_products = 2 * B * S * cfg.num_layers * 2 * D * cfg.num_kv_heads \
+        * cfg.head_dim
+    peak = PEAK_FLOPS[cfg.dtype]
+    print(f"{cfg.name} make_cache (encode {B} x {S} frames, project the "
+          f"cross K/V of {cfg.num_layers} layers): wall_ms={encode_wall} "
+          f"device_ms={encode_device} (graph replay) bound_ms="
+          f"{1e3 * (enc_products + enc_attn + kv_products) / peak} "
+          f"(encoder products {1e3 * enc_products / peak} + attention "
+          f"{1e3 * enc_attn / peak} + cross_kv {1e3 * kv_products / peak}) "
+          f"flash_attention.launches={encode_launches} (want "
+          f"{cfg.encoder_layers})", flush=True)
+    if encode_launches != cfg.encoder_layers:
+        raise RuntimeError(f"make_cache launched flash_attention "
+                           f"{encode_launches} times; the encoder has "
+                           f"{cfg.encoder_layers} layers")
+
+    rng = np.random.default_rng(args.seed + 12)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, 16))
+                              .astype(np.int32)).cuda()
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = feed_prompt(cfg, params, cache, prompt)
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens = greedy_decode(cfg, params, cache, tok, 64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if flash_attention.launches:
+        raise RuntimeError(f"the decode loop launched flash_attention "
+                           f"{flash_attention.launches} times (want 0)")
+    if tokens.shape != (B, 64) or bool(((tokens < 0) |
+                                        (tokens >= cfg.vocab_size)).any()):
+        raise RuntimeError(f"bad tokens {tokens.shape}")
+    print(f"{cfg.name} serve step: {B} slots, 16 prompt steps prompt_s="
+          f"{prompt_s}, then 64 greedy steps wall_s={wall} tokens_per_s="
+          f"{B * 64 / wall} flash_attention.launches=0 "
+          f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30}",
+          flush=True)
+    tok = tokens[:, -1:].to(torch.int32)
+    eager_ms, replay_ms, equal = step_eager_vs_graph(cfg, params, cache, tok)
+    nbytes = decoder_step_bytes(cfg, params, cache)
+    xkv = sum(c["xk"].numel() * 2 * c["xk"].element_size()
+              for c in cache["layers"])
+    print(f"{cfg.name} decode step ({B} slots, full width): eager_wall_ms="
+          f"{eager_ms} graph_replay_ms={replay_ms} replay == eager bit for "
+          f"bit: {equal} bound_ms={1e3 * nbytes / HBM_BYTES_PER_S} (bytes="
+          f"{nbytes}, of which cross K/V {xkv}) host_bound_share="
+          f"{1 - replay_ms / eager_ms}", flush=True)
+    if not equal:
+        raise RuntimeError("the whisper decode step's graph replay differs "
+                           "from the eager step")
+    del cache
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 12)
+    context = torch.randn((B, S, D), generator=gen, device="cuda").to(
+        cfg.dtype)
+    toks = torch.randint(1, cfg.vocab_size, (B, 64), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    forward(params, cfg, toks, context=context)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    forward(params, cfg, toks, context=context)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_launches = flash_attention.launches
+    want = cfg.encoder_layers + 2 * cfg.num_layers
+    print(f"{cfg.name} forward(context=) of ({B}, 64) tokens: wall_ms="
+          f"{fwd_ms} flash_attention.launches={fwd_launches} (want {want}: "
+          f"{cfg.encoder_layers} encoder, {cfg.num_layers} self, "
+          f"{cfg.num_layers} cross)", flush=True)
+    if fwd_launches != want:
+        raise RuntimeError(f"forward launched flash_attention {fwd_launches}"
+                           f" times (want {want})")
+    del params, context, built, make_cache
+    torch.cuda.empty_cache()
+
+    # float32 at full width: forward's last position against the decode
+    # loop over the same tokens, the reference's bound 2e-2
+    cfg32, p32, ctx32 = context_model(WHISPER, args.seed, dtype=torch.float32,
+                                      num_layers=cfg.num_layers,
+                                      device="cuda", batch=B)
+    flash_attention.launches = 0
+    full = unembed(p32, cfg32, forward(p32, cfg32, toks, context=ctx32))
+    launched = flash_attention.launches
+    cache = init_cache(p32, cfg32, B, 64, context=ctx32)
+    for i in range(64):
+        logits, cache = decode_step(p32, cfg32, cache, toks[:, i:i + 1])
+    diff = float((full[:, -1] - logits[:, -1]).abs().max())
+    print(f"{cfg.name} float32 full width: forward(context=) last-position "
+          f"logits vs the 64-step decode loop's max |diff| = {diff} (bound "
+          f"2e-2, the reference's tests/test_models.py); forward launches "
+          f"{launched}", flush=True)
+    if not diff < 2e-2 or launched != want:
+        raise RuntimeError(f"whisper float32: forward vs decode {diff} "
+                           f"(launches {launched})")
+    del p32, ctx32, cache, full
+    torch.cuda.empty_cache()
+
+
+def vision_phase(args, flash_attention):
+    """Phase 12(d): llama-3.2-vision-90b at full width cut to one period
+    (5 layers: 4 ``attn`` + 1 gated ``xattn``; d_model 8192, 64 / 8 x 128
+    heads, d_ff 28672, vocab 128256, 1600 image tokens, bf16, gate
+    ``CONTEXT_GATE``), 8 slots: ``init_cache(context=)``, 32 greedy serve
+    steps (no launch), the step eager against its replay (equal) and its
+    byte bound, one ``forward(context=)`` of (4, 64) tokens (5
+    launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_cache, num_params
+
+    full_layers = get_config(VISION).num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, context = context_model(VISION, args.seed, num_layers=5,
+                                         device="cuda", batch=8)
+    torch.cuda.synchronize()
+    print(f"{cfg.name} (one period): {cfg.num_layers} layers "
+          f"{list(cfg.layer_pattern)} d_model={cfg.d_model} heads="
+          f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab_size} image_tokens="
+          f"{cfg.num_image_tokens} {cfg.dtype} params={num_params(params)} "
+          f"gate={CONTEXT_GATE} init_s={time.perf_counter() - t0} "
+          f"reduced: num_layers {full_layers} -> {cfg.num_layers}",
+          flush=True)
+    B = context.shape[0]
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    cache = init_cache(params, cfg, B, 64, context=context)
+    torch.cuda.synchronize()
+    cache_ms = (time.perf_counter() - t0) * 1e3
+    first = torch.ones((B, 1), dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    tokens = greedy_decode(cfg, params, cache, first, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if flash_attention.launches:
+        raise RuntimeError(f"init_cache / decode launched flash_attention "
+                           f"{flash_attention.launches} times (want 0)")
+    tok = tokens[:, -1:].to(torch.int32)
+    eager_ms, replay_ms, equal = step_eager_vs_graph(cfg, params, cache, tok)
+    nbytes = decoder_step_bytes(cfg, params, cache)
+    print(f"{cfg.name} (one period): init_cache wall_ms={cache_ms}; "
+          f"{B} slots x 32 greedy steps wall_s={wall} tokens_per_s="
+          f"{B * 32 / wall}; decode step eager_wall_ms={eager_ms} "
+          f"graph_replay_ms={replay_ms} replay == eager bit for bit: {equal}"
+          f" bound_ms={1e3 * nbytes / HBM_BYTES_PER_S} (bytes={nbytes}) "
+          f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30}",
+          flush=True)
+    if not equal:
+        raise RuntimeError("the vision decode step's graph replay differs "
+                           "from the eager step")
+    del cache
+    toks = torch.randint(1, cfg.vocab_size, (4, 64), dtype=torch.int32,
+                         device="cuda")
+    forward(params, cfg, toks, context=context[:4])
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    h = forward(params, cfg, toks, context=context[:4])
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    launched = flash_attention.launches
+    print(f"{cfg.name} (one period) forward(context=) of (4, 64) tokens: "
+          f"wall_ms={fwd_ms} flash_attention.launches={launched} (want "
+          f"{cfg.num_layers}: 4 self, 1 cross) finite="
+          f"{bool(torch.isfinite(h).all())} peak_mem_GiB="
+          f"{torch.cuda.max_memory_allocated() / 2**30}", flush=True)
+    if launched != cfg.num_layers or not bool(torch.isfinite(h).all()):
+        raise RuntimeError(f"vision forward: {launched} launches")
+    del params, context, h
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2216,6 +2680,14 @@ def main(argv=None) -> int:
     moe_reference(args)
     moe_phase(args, segment_fold, flash_attention)
     print(f"phase 11 took {time.perf_counter() - t0:.1f}s", flush=True)
+    # phase 12: the context-conditioned family
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    context_flash_cases(gen, dev)
+    context_reference(args)
+    whisper_phase(args, flash_attention)
+    vision_phase(args, flash_attention)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f}s", flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

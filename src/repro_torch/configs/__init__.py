@@ -1,21 +1,32 @@
-"""Architecture registry of the port: the archs whose model family runs.
+"""Architecture registry of the port, and the assigned input-shape cells.
 
-The JAX package registers ten architectures; the port so far runs the dense
-family (qwen3-0.6b, qwen2.5-14b, starcoder2-15b and gemma3-1b, its 5:1
-local:global stack) and the MoE family on one device (qwen2-moe-a2.7b: 60
-routed experts plus 4 pads, top-4, 4 shared).  The SSM, MLA,
-encoder-decoder and vision archs are later slices.
+The JAX package registers ten architectures; the port runs the dense family
+(qwen3-0.6b, qwen2.5-14b, starcoder2-15b and gemma3-1b, its 5:1
+local:global stack), the MoE family on one device (qwen2-moe-a2.7b: 60
+routed experts plus 4 pads, top-4, 4 shared) and the context-conditioned
+family (whisper-small's encoder-decoder, llama-3.2-vision-90b's gated
+cross-attention layers).  The SSM and MLA archs are not ported yet
+(``get_config`` raises for them).
+
+``SHAPES`` / ``valid_cells`` / ``context_spec`` / ``input_specs`` are the
+JAX package's cells and input stand-ins; the stand-ins are tensors on the
+``meta`` device (shape and dtype, no storage) where the JAX package returns
+``jax.ShapeDtypeStruct``.
 """
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
 
 from ..models.common import ModelConfig
-from . import (gemma3_1b, qwen2_moe_a2p7b, qwen2p5_14b, qwen3_0p6b,
-               starcoder2_15b)
+from . import (gemma3_1b, llama3p2_vision_90b, qwen2_moe_a2p7b, qwen2p5_14b,
+               qwen3_0p6b, starcoder2_15b, whisper_small)
 
 _MODULES = {m.ARCH_ID: m for m in (qwen3_0p6b, qwen2p5_14b, starcoder2_15b,
-                                     gemma3_1b, qwen2_moe_a2p7b)}
+                                     gemma3_1b, qwen2_moe_a2p7b,
+                                     whisper_small, llama3p2_vision_90b)}
 
 ARCH_IDS: List[str] = list(_MODULES)
 
@@ -26,3 +37,63 @@ def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
             f"arch {arch_id!r} is not ported yet; the port runs {ARCH_IDS}")
     mod = _MODULES[arch_id]
     return mod.smoke_config() if smoke else mod.config()
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524_288, 1),
+}
+
+
+def valid_cells(cfg: ModelConfig) -> List[str]:
+    """Per-spec skips: long_500k needs sub-quadratic attention."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        cells.append("long_500k")
+    return cells
+
+
+def context_spec(cfg: ModelConfig, batch: int) -> Optional[torch.Tensor]:
+    """The stubbed modality frontend's output (audio frames / vision
+    patches) as a meta tensor, or None for an arch without a context."""
+    if cfg.family == "audio":
+        return torch.empty((batch, cfg.encoder_seq, cfg.d_model),
+                           dtype=cfg.dtype, device="meta")
+    if cfg.family == "vlm":
+        return torch.empty((batch, cfg.num_image_tokens, cfg.d_model),
+                           dtype=cfg.dtype, device="meta")
+    return None
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCell) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for the data inputs of one cell.
+
+    train  -> {tokens, labels[, context]}
+    prefill-> {tokens[, context]}
+    decode -> {tokens (B,1)[, context]}
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def ids(shape_):
+        return torch.empty(shape_, dtype=torch.int32, device="meta")
+
+    if shape.kind == "train":
+        specs = {"tokens": ids((B, S)), "labels": ids((B, S))}
+    elif shape.kind == "prefill":
+        specs = {"tokens": ids((B, S))}
+    else:
+        specs = {"tokens": ids((B, 1))}
+    ctx = context_spec(cfg, B)
+    if ctx is not None:
+        specs["context"] = ctx
+    return specs

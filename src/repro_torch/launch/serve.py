@@ -24,7 +24,10 @@ subscribed to the engine folds every stream event into per-user sliding
 windows and fleet tumbling counters, which the CLI prints at the end (the
 ``--users`` synthetic users).  ``build_serve_step`` and
 ``run_batched_decode`` are the pre-engine API, kept as the JAX package
-keeps them.
+keeps them; ``build_serve_step`` is the one path that serves the
+context-conditioned archs (whisper-small, llama-3.2-vision-90b), its cache
+holding the projected K/V of a random context, while the engine and the
+CLI refuse them as the JAX package's do.
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu``); there is no silent fallback.
 """
@@ -39,16 +42,23 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..configs import get_config
+from ..configs import context_spec, get_config
 from ..data.windows import WindowedMetrics
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention
-from ..models import (decode_step, init_cache, init_params,
-                      positional_cache, prefill)
+from ..models import (context_conditioned, decode_step, init_cache,
+                      init_params, positional_cache, prefill)
 from ..models.common import ModelConfig
 from ..runtime.batcher import DecodeBatch
 from ..runtime.engine import (ContinuousEngine, EngineBackend, ServeConfig,
                               decode_metrics_plan)
+
+
+def _refuse_context(cfg: ModelConfig) -> None:
+    if context_conditioned(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: context-conditioned archs (audio/vision) are not "
+            f"supported by the continuous engine yet")
 
 
 def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
@@ -57,7 +67,9 @@ def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
     decode, a one-pass prefill of a padded bucket (after each row's cached
     prefix, given ``prefix_len``) and a cache constructor with per-slot
     positions; prefix sharing is on when every cache leaf is indexed by
-    position (``positional_cache``)."""
+    position (``positional_cache``).  Context-conditioned archs raise the
+    JAX package's NotImplementedError."""
+    _refuse_context(cfg)
     if config.model_parallel != 1:
         raise NotImplementedError(
             "model_parallel > 1 needs the mesh tier, a later slice of the "
@@ -92,6 +104,7 @@ def build_engine(config: ServeConfig, *, device="cuda",
     """
     device = resolve_device(device)
     cfg = get_config(config.arch, smoke=not config.full)
+    _refuse_context(cfg)
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(config.seed)
@@ -118,7 +131,11 @@ def build_serve_step(config: ServeConfig, *, device="cuda"):
     ``(num_slots, 1)`` decode step (a :class:`ServeStep`) against a
     ``max_seq`` cache with one position for the whole batch.
     Request-level serving goes through :func:`build_engine`.  ``params``
-    are random weights drawn from ``config.seed`` on ``device``.
+    are random weights drawn from ``config.seed`` on ``device``.  A
+    context-conditioned arch's ``make_cache`` encodes (whisper) and
+    projects a context of ``context_spec(cfg, num_slots)``, standard
+    normal in ``cfg.dtype`` from a ``torch.Generator`` seeded with
+    ``config.seed`` (drawn once, the same for every cache).
     """
     device = resolve_device(device)
     if config.model_parallel != 1:
@@ -132,9 +149,17 @@ def build_serve_step(config: ServeConfig, *, device="cuda"):
     built = ServeStep(fn=lambda p, cache, tok: decode_step(p, cfg, cache,
                                                            tok),
                       num_slots=config.num_slots, max_seq=config.max_seq)
+    spec = context_spec(cfg, config.num_slots)
+    context = None
+    if spec is not None:
+        cgen = torch.Generator(device=device)
+        cgen.manual_seed(config.seed)
+        context = torch.randn(spec.shape, generator=cgen, device=device
+                              ).to(spec.dtype)
 
     def make_cache():
-        return init_cache(params, cfg, config.num_slots, config.max_seq)
+        return init_cache(params, cfg, config.num_slots, config.max_seq,
+                          context=context)
 
     return cfg, built, params, make_cache
 

@@ -1,14 +1,16 @@
-"""The port's model layer: the dense and MoE transformer families,
-full-sequence forward, one-pass prefill and decode."""
+"""The port's model layer: the dense, MoE and context-conditioned
+(encoder-decoder, gated cross-attention) transformer families,
+full-sequence forward, the encoder, one-pass prefill and decode."""
 from . import moe
 from .common import ModelConfig, dense, embed_lookup, rms_norm, rotary_embed
 from .convert import params_from_jax
-from .transformer import (decode_step, forward, forward_with_stats,
-                          init_cache, init_params, num_params,
-                          positional_cache, prefill, unembed)
+from .transformer import (context_conditioned, decode_step, encode, forward,
+                          forward_with_stats, init_cache, init_params,
+                          num_params, positional_cache, prefill, unembed)
 
 __all__ = [
-    "ModelConfig", "decode_step", "dense", "embed_lookup", "forward",
+    "ModelConfig", "context_conditioned", "decode_step", "dense",
+    "embed_lookup", "encode", "forward",
     "forward_with_stats", "init_cache", "init_params", "moe", "num_params",
     "params_from_jax", "positional_cache", "prefill", "rms_norm",
     "rotary_embed", "unembed",

@@ -1,5 +1,6 @@
-"""GQA attention with qk-norm and RoPE: the dense family's full-sequence
-and decode attention.
+"""GQA attention with qk-norm and RoPE: full-sequence and decode
+self-attention, the encoder's bidirectional attention and cross-attention
+to a context (whisper's decoder, llama-3.2-vision's gated image layers).
 
 The port of the parts of ``repro/models/attention.py`` that serving runs.
 Shapes: x (B, S, D); q (B, S, H, hd); k, v (B, S, KV, hd).  The
@@ -13,6 +14,14 @@ query's keys within ``window`` positions of it, in the kernel and in the
 decode step's mask alike.  The decode step accumulates scores in float32,
 runs softmax in float32 and casts it back to the activation dtype before
 the value product, as in the JAX package.
+
+:func:`attention_bidir` (the encoder's self-attention: no mask, no RoPE)
+and the full-sequence :func:`cross_attention` (queries from ``x``, keys and
+values projected once from the context by :func:`cross_kv`) are one
+non-causal ``flash_attention`` launch each, the latter at ``Sq != Sk``.
+Cross-attention in the decode step (one query against the cached context)
+runs in plain PyTorch as the decode step's self-attention does, so the step
+reads nothing back to the host and can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -28,7 +37,8 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 
 def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: Optional[torch.Tensor]):
+    """q, k, v of ``x``; RoPE at ``positions``, none when they are None."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p["wq"].to(x.dtype).reshape(D, H * hd)).reshape(B, S, H, hd)
@@ -41,8 +51,9 @@ def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rotary_embed(q, positions, cfg.rope_theta)
-    k = rotary_embed(k, positions, cfg.rope_theta)
+    if positions is not None:
+        q = rotary_embed(q, positions, cfg.rope_theta)
+        k = rotary_embed(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -171,6 +182,75 @@ def attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                         q_offset=q_offset, window=window).transpose(1, 2)
     out = o.reshape(B, S, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd, -1)
     return out, (k, v)
+
+
+def _flash_out(p: Dict, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+    """(B, S, D): non-causal ``flash_attention`` of q (B, Sq, H, hd) over
+    k, v (B, Sk, KV, hd), read as (B, heads, S, hd) views, then ``wo``."""
+    B, S, H, hd = q.shape
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=False).transpose(1, 2)
+    return o.reshape(B, S, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd, -1)
+
+
+def attention_bidir(p: Dict, cfg: ModelConfig,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Bidirectional (encoder) self-attention: no mask, no RoPE (whisper's
+    encoder adds sinusoidal absolute positions to its features).  One
+    non-causal ``flash_attention`` launch; the JAX package's takes
+    ``positions`` and ignores them."""
+    q, k, v = _project_qkv(p, cfg, x, None)
+    return _flash_out(p, q, k, v)
+
+
+def cross_kv(p: Dict, cfg: ModelConfig, context: torch.Tensor):
+    """Project a context (B, Sk, D) to (k, v), each (B, Sk, KV, hd), once:
+    the decode cache keeps them for every step.  ``k_norm`` when the config
+    has qk-norm; no RoPE."""
+    B, Sk, D = context.shape
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    k = (context @ p["wk"].to(context.dtype).reshape(D, KV * hd)
+         ).reshape(B, Sk, KV, hd)
+    v = (context @ p["wv"].to(context.dtype).reshape(D, KV * hd)
+         ).reshape(B, Sk, KV, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    context_kv: Tuple[torch.Tensor, torch.Tensor], *,
+                    gated: bool = False, decode: bool = False
+                    ) -> torch.Tensor:
+    """Attend from ``x`` (B, S, D) to a projected context ``(k, v)`` (from
+    :func:`cross_kv`): no mask, no RoPE, ``q_norm`` on the queries when the
+    config has qk-norm; ``gated`` scales the output by ``tanh(gate)``
+    (llama-3.2-vision's image layers).
+
+    The full sequence is one non-causal ``flash_attention`` launch at
+    ``Sq != Sk``.  ``decode=True`` (the decode step's one query per row)
+    runs the JAX package's XLA form in plain PyTorch instead: float32
+    scores and softmax, the weights cast to the activation dtype before the
+    value product.
+    """
+    B, S, D = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype).reshape(D, H * hd)).reshape(B, S, H, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    k, v = context_kv
+    if decode:
+        w = torch.softmax(_gqa_scores(q, k, 1.0 / math.sqrt(hd)),
+                          dim=-1).to(x.dtype)
+        o = _gqa_values(w, v)
+        out = o.reshape(B, S, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd,
+                                                                     -1)
+    else:
+        out = _flash_out(p, q, k, v)
+    if gated:
+        out = torch.tanh(p["gate"].to(out.dtype)) * out
+    return out
 
 
 def decode_positions(pos: torch.Tensor, batch: int) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Model substrate: config, norms, rotary embeddings, projections.
 
-The port of ``repro/models/common.py`` for the dense and MoE families.
+The port of ``repro/models/common.py`` for the dense, MoE and
+context-conditioned (encoder-decoder, gated cross-attention) families.
 Parameters are plain nested dicts of tensors with the JAX package's shapes,
 so weights carry over leaf for leaf (:mod:`repro_torch.models.convert`).
 Where bf16 rounds follows the JAX package's default ``_F32_CHAINS = False``
@@ -18,12 +19,15 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The JAX package's model config, cut to the fields the dense and MoE
-    families read (the SSM / MLA / encoder fields come with those slices).
-    Layer ``i`` has block type ``layer_pattern[i % period]`` and FFN type
-    ``ffn_pattern[i % period]``; the port runs ``attn`` and ``local``
-    (attention within ``sliding_window`` keys) blocks with ``dense`` or
-    ``moe`` FFNs."""
+    """The JAX package's model config, cut to the fields the dense, MoE and
+    context-conditioned families read (the SSM / MLA fields come with those
+    slices).  Layer ``i`` has block type ``layer_pattern[i % period]`` and
+    FFN type ``ffn_pattern[i % period]``; the port runs ``attn``, ``local``
+    (attention within ``sliding_window`` keys) and ``xattn`` (gated
+    cross-attention to the context) blocks with ``dense`` or ``moe`` FFNs,
+    an encoder of ``encoder_layers`` bidirectional layers over the context
+    (whisper), and with ``decoder_cross_attn`` a cross-attention after every
+    ``attn`` / ``local`` layer's self-attention."""
 
     name: str
     family: str                      # dense | moe | hybrid | ssm | audio | vlm
@@ -49,12 +53,20 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     num_padded_experts: int = 0      # trailing experts masked out of routing
                                      # (qwen2-moe: 60 real + 4 pads for EP=16)
+    # -- encoder-decoder (whisper): the decoder uses the main fields
+    encoder_layers: int = 0
+    encoder_seq: int = 1500          # whisper 30s @ 50Hz after the conv stub
+    # -- vision cross-attention (llama-3.2-vision)
+    num_image_tokens: int = 0        # stubbed patch-embedding count
     act_fn: str = "silu"             # silu | gelu
     gated_ffn: bool = True           # SwiGLU vs plain MLP
     scale_embed: bool = False        # multiply embeddings by sqrt(d_model)
+    decoder_cross_attn: bool = False # every attn layer also cross-attends
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16   # activation/weight dtype
+    # long-context capability: True for SSM/hybrid archs (O(1)/chunked state)
+    subquadratic: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0:

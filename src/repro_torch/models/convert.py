@@ -10,7 +10,10 @@ the ``num_layers - n_periods * P`` remainder layers unrolled
 period ``p`` of slot ``j`` and layer ``n_periods * P + i`` is ``rem_i``.  The
 two models then compute the same function.  Nested leaves carry over as they
 are: an MoE layer's ``ffn`` holds ``router``, ``we_gate``, ``we_up``,
-``we_down`` and the ``shared`` dense FFN dict.
+``we_down`` and the ``shared`` dense FFN dict; a cross-attending layer's
+``xattn`` dict (with its 0-d ``gate``) and ``norm_x``; an ``xattn`` layer's
+``mix`` with its ``gate``.  The encoder's unrolled ``encoder["layer_i"]``
+become the list ``encoder["layers"]``, beside its ``final_norm``.
 """
 from __future__ import annotations
 
@@ -36,9 +39,10 @@ def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> Dict[str, Any]:
-    """The port's parameters from the JAX package's (dense and MoE
-    families; layers stacked with period ``cfg.period`` plus remainder
-    layers), cast to ``cfg.dtype`` on ``device``."""
+    """The port's parameters from the JAX package's (dense, MoE and
+    context-conditioned families; layers stacked with period ``cfg.period``
+    plus remainder layers; the encoder's layers unrolled), cast to
+    ``cfg.dtype`` on ``device``."""
     _check_supported(cfg)
     device = torch.device(device)
 
@@ -67,4 +71,10 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     out = {k: conv(v) for k, v in tree.items()
            if k not in ("layers",) and not isinstance(v, dict)}
     out["layers"] = layers
+    if cfg.encoder_layers > 0:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [pytree.tree_map(conv, enc[f"layer_{i}"])
+                       for i in range(cfg.encoder_layers)],
+            "final_norm": conv(enc["final_norm"])}
     return out

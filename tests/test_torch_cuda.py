@@ -785,3 +785,72 @@ def test_cuda_moe_smoke_model_serves_the_cpus_tokens(cuda_device, temperature,
     for a, b in zip(results["cpu"], results[cuda_device]):
         assert a.tokens == b.tokens
         assert abs(a.logprob_sum - b.logprob_sum) < 1e-3
+
+
+# chip_smoke.py's context cases x1 (whisper-small's encoder), x2 (its
+# cross-attention in forward: Sq 64 over Sk 1500) and x3 (llama-3.2-vision's
+# cross-attention, Sq 64 over 1600 patches): (B, H, KV, Sq, Sk, d),
+# non-causal
+CONTEXT_FLASH_CASES = {"x1": (8, 12, 12, 1500, 1500, 64),
+                       "x2": (8, 12, 12, 64, 1500, 64),
+                       "x3": (4, 64, 8, 64, 1600, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [
+    (torch.float32, 1e-4), (torch.bfloat16, 3e-2), (torch.float16, 4e-3)])
+@pytest.mark.parametrize("case", sorted(CONTEXT_FLASH_CASES))
+def test_cuda_flash_attention_context_shapes(cuda_device, case, dtype, atol):
+    """Non-causal attention at Sq == Sk 1500 (no tile multiple) and Sq !=
+    Sk: one launch, equal to the plain version within phase 2's
+    tolerances, in the model's (B, S, heads, d) layout too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v = _qkv(gen, cuda_device, *CONTEXT_FLASH_CASES[case], dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert torch.equal(flash_attention(*views, causal=False), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
+def test_cuda_context_smoke_model_equals_the_cpu(cuda_device, arch):
+    """The float32 smoke model (gates 0.5) on the card and the CPU with the
+    same weights and context: ``forward(context=)`` logits within 1e-4
+    (one ``flash_attention`` launch per encoder, self- and cross-attention
+    on the card), and 16 greedy serve steps give the same tokens."""
+    from repro_torch.configs import get_config
+
+    err, cpu_tokens, card_tokens, launched = \
+        _chip_smoke().context_reference_run(arch, 0)
+    cfg = get_config(arch, smoke=True)
+    assert err <= 1e-4
+    assert torch.equal(cpu_tokens, card_tokens)
+    assert launched == (cfg.encoder_layers + 2 * cfg.num_layers
+                        if cfg.decoder_cross_attn else cfg.num_layers)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_decode_step_replays_from_a_graph(cuda_device):
+    """whisper-small's bf16 smoke decode step over a context cache (8
+    slots) reads nothing back to the host: it captures in a CUDA graph, and
+    one replay's logits and cache equal the eager step's bit for bit; no
+    ``flash_attention`` launch in the step."""
+    chip_smoke = _chip_smoke()
+    cfg, params, context = chip_smoke.context_model(
+        "whisper-small", 1, dtype=torch.bfloat16, device=cuda_device,
+        batch=8)
+    from repro_torch.models import init_cache
+
+    cache = init_cache(params, cfg, 8, 32, context=context)
+    tok = torch.randint(1, cfg.vocab_size, (8, 1), dtype=torch.int32,
+                        device=cuda_device)
+    before = flash_attention.launches
+    _, _, equal = chip_smoke.step_eager_vs_graph(cfg, params, cache, tok,
+                                                 iters=2)
+    assert equal
+    assert flash_attention.launches == before

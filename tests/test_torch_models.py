@@ -161,12 +161,16 @@ def test_cache_update_clamps_like_dynamic_update_slice():
 
 
 def test_other_families_are_later_slices():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("deepseek-v2-236b")
-    cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
-                              layer_pattern=("mamba",))
-    with pytest.raises(NotImplementedError, match="dense or MoE FFNs"):
-        init_params(cfg, torch.Generator(), device="cpu")
+    """The MLA and SSM archs are not ported: the registry refuses them,
+    and a layer the port cannot run is refused at init."""
+    for arch in ("deepseek-v2-236b", "xlstm-1.3b", "jamba-v0.1-52b"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(arch)
+    for block in ("mamba", "mlstm", "slstm"):
+        cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
+                                  layer_pattern=(block,))
+        with pytest.raises(NotImplementedError, match="dense or MoE FFNs"):
+            init_params(cfg, torch.Generator(), device="cpu")
 
 
 FWD_B, FWD_S = 2, 12
@@ -538,7 +542,8 @@ def test_window_mask_matches_jax():
 @pytest.mark.parametrize("smoke", [True, False])
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-14b",
                                   "starcoder2-15b", "gemma3-1b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "whisper-small",
+                                  "llama-3.2-vision-90b"])
 def test_registry_configs_are_the_references_field_for_field(arch, smoke):
     """Every arch the port registers: its config (full and smoke) is the
     JAX package's, field for field."""
