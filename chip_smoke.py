@@ -113,6 +113,26 @@ Phases, each of which must pass or the script exits non-zero:
    cut printed as ``reduced``), 8 slots: ``init_cache(context=)``, 32
    greedy steps, the step eager against its replay and its byte bound, a
    (4, 64) ``forward(context=)`` in 5 launches.
+13. the recurrent family: (a) ``flash_attention`` at jamba's attention
+   (case j: B 4, S 64, 32 / 8 x 128, bf16, causal) with phase 2's checks,
+   timed beside SDPA, one launch; (b) both smoke configs (xlstm, jamba) in
+   float32 on the card and the CPU with the same weights: ``forward``
+   logits within 1e-4 and ``build_engine``'s greedy tokens for 4 prompts
+   shorter than their buckets (the decode loop over the bucket as the
+   prefill) equal, ``segment_fold`` once per engine step; (c) xlstm-1.3b
+   at full width, nothing cut (48 layers, 3.57 B parameters), through the
+   serve CLI's own run (16 requests of 8-32 tokens, 8 slots, buckets 16 /
+   32, 32 new tokens, greedy): no ``flash_attention`` launch,
+   ``segment_fold`` once per step, tokens/s and TTFT; the decode step eager
+   against its CUDA-graph replay (equal bit for bit) and its byte bound
+   (weights without ``embed`` and the mLSTM states read and written); in
+   float32 a (2, 256) ``forward``'s last logits within 2e-2 of the decode
+   loop's; (d) jamba-v0.1-52b at full width cut to one period (8 layers,
+   13.3 B parameters, the cut printed as ``reduced``), 8 slots: a 16-token
+   prompt and 32 greedy steps through ``decode_step``, the step eager
+   against its replay and its byte bound (experts hit counted on random
+   rows), a (4, 64) ``forward`` in 1 launch with ``expert_load`` summing to
+   4 x 64 x 2 x 4.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2101,15 +2121,16 @@ VISION = "llama-3.2-vision-90b"
 CONTEXT_GATE = 0.5      # the reference's gates start at 0: tanh(0) hides xattn
 
 
-def context_flash_cases(gen, dev):
-    """Phase 12(a): cases x1-x3 through ``run_flash_case`` (phase 2's
-    checks, SDPA without a mask as the yardstick); each call must be one
-    ``flash_attention`` launch, and one kernel on the card wherever the
-    profiler records the call (``cuda_launches`` None: not measured)."""
+def path_flash_cases(cases, what, gen, dev):
+    """Phase 12(a) (cases x1-x3) and 13(a) (case j): each case through
+    ``run_flash_case`` (phase 2's checks, SDPA as the yardstick); each call
+    must be one ``flash_attention`` launch, and one kernel on the card
+    wherever the profiler records the call (``cuda_launches`` None: not
+    measured)."""
     from repro_torch.kernels.flash_attention import flash_attention
 
     rows = []
-    for case in FLASH_CONTEXT_CASES:
+    for case in cases:
         row = run_flash_case(case, gen, dev)
         name, B, H, KV, Sq, Sk, d, dtype, causal = case
         q, k, v = [torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -2134,7 +2155,7 @@ def context_flash_cases(gen, dev):
         torch.cuda.empty_cache()
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
-        raise RuntimeError(f"flash_attention at the context shapes: {bad}")
+        raise RuntimeError(f"flash_attention at {what}: {bad}")
     return rows
 
 
@@ -2167,17 +2188,19 @@ def context_model(arch, seed, *, dtype=None, num_layers=None, device="cpu",
 
 def feed_prompt(cfg, params, cache, prompt):
     """``prompt`` (B, P) through the serve step (``decode_step`` over a
-    context cache with one position) -> the greedy next token (B, 1)."""
+    cache with one position, which advances past the prompt in place) ->
+    the greedy next token (B, 1)."""
     from repro_torch.models import decode_step
 
     for i in range(prompt.shape[1]):
-        logits, cache = decode_step(params, cfg, cache, prompt[:, i:i + 1])
+        logits, new = decode_step(params, cfg, cache, prompt[:, i:i + 1])
+        cache["pos"] = new["pos"]
     return logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
 
 
 def greedy_decode(cfg, params, cache, tok, steps):
     """``steps`` greedy tokens through the serve step from ``tok`` (B, 1)
-    -> (B, steps) int64 tokens."""
+    -> (B, steps) int64 tokens; the caller's cache keeps its ``pos``."""
     from repro_torch.models import decode_step
 
     out = []
@@ -2525,6 +2548,365 @@ def vision_phase(args, flash_attention):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the recurrent family (xlstm-1.3b, jamba-v0.1-52b)
+# ---------------------------------------------------------------------------
+
+XLSTM = "xlstm-1.3b"
+JAMBA = "jamba-v0.1-52b"
+# flash_attention at jamba's attention layer (run_flash_case's tuple): a
+# (4, 64) forward at 32 / 8 x 128 heads
+FLASH_JAMBA_CASES = [
+    ("j: jamba-v0.1-52b attention B4 S64 H32/KV8 d128 bf16 causal", 4, 32,
+     8, 64, 64, 128, torch.bfloat16, True),
+]
+# buckets below phase 3's: a recurrent arch prefills by the decode step run
+# over the bucket, up to 32 eager steps per prefill call
+XLSTM_CLI = ["--arch", XLSTM, "--full", "--requests", "16", "--slots", "8",
+             "--buckets", "16,32", "--min-prompt", "8", "--max-prompt", "32",
+             "--gen", "32", "--rate", "0", "--temperature", "0"]
+
+
+def recurrent_reference_run(arch, seed):
+    """Phase 13(b): ``arch``'s float32 smoke model on the CPU and on the
+    card with the same weights.  ``forward`` logits of (2, 12) tokens, and
+    ``build_engine``'s greedy tokens for 4 requests whose prompts are
+    shorter than their buckets (the decode-loop prefill folds their pads).
+    -> (max logit difference, cpu tokens, card tokens, card
+    flash_attention launches in forward, card segment_fold launches over
+    the engine's run, the card engine's steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.segment_fold import segment_fold
+    from repro_torch.models import forward, init_params, unembed
+    from repro_torch.serving import ServeConfig, build_engine
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device="cpu")
+    rng = np.random.default_rng(seed + 13)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 12))
+                            .astype(np.int32))
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (3, 5, 9, 13)]
+    config = ServeConfig(arch=arch, num_slots=2, prefill_buckets=(8, 16),
+                         max_new_tokens=8, prefill_batch=2, temperature=0.0,
+                         eos_id=-1, seed=seed)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = pytree.tree_map(lambda t: t.to(dev), params)
+        before = flash_attention.launches
+        logits = unembed(p, cfg, forward(p, cfg, toks.to(dev)))
+        launched = flash_attention.launches - before
+        engine = build_engine(config, device=dev, params=p)
+        uids = [engine.submit(x) for x in prompts]
+        folds = segment_fold.launches
+        for _ in engine.run(max_steps=200):
+            pass
+        folds = segment_fold.launches - folds
+        tokens = [engine.result(u).tokens for u in uids]
+        out[dev] = (logits.cpu(), tokens, launched, folds,
+                    engine.stats.steps)
+    err = float((out["cpu"][0] - out["cuda"][0]).abs().max())
+    return (err, out["cpu"][1], out["cuda"][1]) + out["cuda"][2:]
+
+
+def recurrent_reference(args):
+    """Phase 13(b) for both smoke configs; fails on a logit difference over
+    1e-4, unequal tokens, a card forward that did not launch
+    ``flash_attention`` once per attention layer, or a ``segment_fold``
+    count other than one per engine step."""
+    from repro_torch.configs import get_config
+
+    for arch in (XLSTM, JAMBA):
+        cfg = get_config(arch, smoke=True)
+        err, cpu_toks, gpu_toks, launched, folds, steps = \
+            recurrent_reference_run(arch, args.seed)
+        want = sum(cfg.block_type(i) == "attn" for i in range(cfg.num_layers))
+        ok = err <= 1e-4 and cpu_toks == gpu_toks and launched == want and \
+            folds == steps > 0
+        print(f"recurrent reference ({cfg.name}, float32): "
+              f"{'OK' if ok else 'MISMATCH'} forward logits max |card - cpu|"
+              f" = {err} (atol 1e-4); build_engine greedy tokens (4 prompts "
+              f"shorter than their buckets, decode-loop prefill) card == cpu:"
+              f" {cpu_toks == gpu_toks}; flash_attention launches in forward "
+              f"{launched} (want {want}); segment_fold launches {folds} over "
+              f"{steps} engine steps", flush=True)
+        if not ok:
+            raise RuntimeError(f"{arch}: the card's float32 smoke model "
+                               f"differs from the CPU's")
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree))
+
+
+def recurrent_step_bytes(cfg, params, cache, experts_hit=0) -> int:
+    """Bytes one decode step must move: every weight it reads once (all but
+    ``embed``, of which it gathers B rows; of an MoE layer the router and
+    ``experts_hit`` experts), each recurrent state read and written, and
+    an attention layer's K/V rows [0, pos] read."""
+    nbytes = tree_bytes
+    total = nbytes({k: v for k, v in params.items()
+                    if k not in ("embed", "layers")})
+    rows = int(cache["pos"].max()) + 1
+    for i, (layer, c) in enumerate(zip(params["layers"], cache["layers"])):
+        total += nbytes({k: v for k, v in layer.items() if k != "ffn"})
+        if cfg.ffn_type(i) == "moe":
+            total += moe_layer_bytes(cfg, experts_hit)
+        else:
+            total += nbytes(layer.get("ffn", {}))
+        if cfg.block_type(i) in ("attn", "local"):
+            total += nbytes([t[:, :rows] for t in c.values()])
+        else:
+            total += 2 * nbytes(c)
+    return total
+
+
+def recurrent_mix_split(cfg, params, B, step_ms) -> None:
+    """Where a replayed decode step's time goes among its recurrent blocks:
+    for each block type, one decode of its first layer's mixer on ``B``
+    random rows replayed from a CUDA graph, beside its byte bound (its
+    weights once, its state read and written) and, times the layers of
+    that type, its share of the replayed step (an estimate)."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    for ltype in ssm.RECURRENT_BLOCKS:
+        layers = [i for i in range(cfg.num_layers)
+                  if cfg.block_type(i) == ltype]
+        if not layers:
+            continue
+        p = params["layers"][layers[0]]["mix"]
+        cache = ssm.INIT_CACHE[ltype](cfg, B, "cuda")
+        x = torch.randn((B, 1, cfg.d_model), generator=gen,
+                        device="cuda").to(cfg.dtype)
+        ms = graph_ms(lambda: ssm.DECODE[ltype](p, cfg, x, cache))
+        weights, state = tree_bytes(p), tree_bytes(cache)
+        bound = 1e3 * (weights + 2 * state) / HBM_BYTES_PER_S
+        print(f"{cfg.name} {ltype} decode (layer {layers[0]}, {B} rows, "
+              f"device ms, graph replay): {ms} bound_ms={bound} (weights "
+              f"{weights}, state {state} read and written) x "
+              f"{len(layers)} layers = {len(layers) * ms} ms, "
+              f"{len(layers) * ms / step_ms} of the replayed step "
+              f"(estimate)", flush=True)
+        del cache
+
+
+def xlstm_phase(args, segment_fold, flash_attention):
+    """Phase 13(c): xlstm-1.3b at full width, nothing cut (48 layers, 6 x
+    (7 mLSTM + 1 sLSTM), d_model 2048, 4 heads, vocab 50304 untied, bf16,
+    3.57 B parameters, random weights from ``--seed``) through the serve
+    CLI's own run: 16 requests of 8-32 tokens at t=0, 8 slots, buckets 16 /
+    32, 32 new tokens, greedy.  ``flash_attention`` must not launch and
+    ``segment_fold`` must launch once per engine step.  Then the decode
+    step eager against its CUDA-graph replay (equal bit for bit) and its
+    byte bound, the mLSTM and sLSTM layers' shares of the replay, and in
+    float32 the last position of a (2, 256) ``forward`` (two mLSTM chunks)
+    within 2e-2 of the decode loop's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_cli
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, num_params, unembed)
+
+    torch.cuda.reset_peak_memory_stats()
+    segment_fold.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    run = run_cli(XLSTM_CLI + ["--seed", str(args.seed)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    fold_launches, flash_launches = segment_fold.launches, \
+        flash_attention.launches
+    engine, results = run["engine"], run["results"]
+    cfg = get_config(engine.config.arch, smoke=not engine.config.full)
+    st = engine.stats
+    budget = engine.config.max_new_tokens
+    if len(results) != len(run["trace"]):
+        raise RuntimeError(f"{len(results)} of {len(run['trace'])} "
+                           "completed")
+    for r in results:
+        if not (1 <= len(r.tokens) <= budget) or \
+                not math.isfinite(r.logprob_sum) or \
+                any(not 0 <= t < cfg.vocab_size for t in r.tokens):
+            raise RuntimeError(f"bad result {r}")
+        if len(r.tokens) < budget and not r.stopped:
+            raise RuntimeError(f"uid {r.uid} ended early without eos")
+    if flash_launches:
+        raise RuntimeError(f"xlstm launched flash_attention "
+                           f"{flash_launches} times (it has no attention)")
+    if st.prefill_calls <= 0 or fold_launches != st.steps:
+        raise RuntimeError(f"segment_fold launched {fold_launches} times "
+                           f"over {st.steps} engine steps")
+    if sum(engine.compile_counts().values()) > engine.compile_bound():
+        raise RuntimeError(f"program shapes {engine.compile_counts()} exceed"
+                           f" the bound {engine.compile_bound()}")
+    gen = sum(len(r.tokens) for r in results)
+    ttft = np.array([r.ttft_s for r in results])
+    params = engine.backend.params
+    print(f"{XLSTM} serve (CLI, full width, nothing cut): params="
+          f"{num_params(params)} layers={cfg.num_layers} "
+          f"{list(cfg.layer_pattern)} completed={len(results)} "
+          f"generated_tokens={gen} wall_s={run['wall_s']} tokens_per_s="
+          f"{gen / run['wall_s']} ttft_p50_ms={np.percentile(ttft, 50) * 1e3}"
+          f" ttft_p99_ms={np.percentile(ttft, 99) * 1e3} decode_steps="
+          f"{st.steps} prefill_calls={st.prefill_calls} (decode loop over "
+          f"the bucket) flash_attention.launches=0 segment_fold.launches="
+          f"{fold_launches} (== steps) peak_mem_GiB="
+          f"{torch.cuda.max_memory_allocated() / 2**30} cli_s={run_s}",
+          flush=True)
+    B = engine.config.num_slots
+    del run, engine, results
+    torch.cuda.empty_cache()
+
+    cache = init_cache(params, cfg, B, 64, pos_per_slot=True)
+    toks = torch.randint(1, cfg.vocab_size, (B, 9), dtype=torch.int32,
+                         device="cuda")
+    feed_prompt(cfg, params, cache, toks[:, :8])   # states not all zeros
+    eager_ms, replay_ms, equal = step_eager_vs_graph(cfg, params, cache,
+                                                     toks[:, 8:])
+    nbytes = recurrent_step_bytes(cfg, params, cache)
+    size = cfg.dtype.itemsize
+    state = sum(t.numel() * t.element_size() for c in cache["layers"]
+                for t in c.values())
+    print(f"{XLSTM} decode step ({B} slots, full width): eager_wall_ms="
+          f"{eager_ms} graph_replay_ms={replay_ms} replay == eager bit for "
+          f"bit: {equal} bound_ms={1e3 * nbytes / HBM_BYTES_PER_S} (bytes="
+          f"{nbytes}: weights without embed "
+          f"{(num_params(params) - params['embed'].numel()) * size}, states "
+          f"{state} read and written) replay/bound="
+          f"{replay_ms / (1e3 * nbytes / HBM_BYTES_PER_S)} host_bound_share="
+          f"{1 - replay_ms / eager_ms}", flush=True)
+    if not equal:
+        raise RuntimeError("the xlstm decode step's graph replay differs "
+                           "from the eager step")
+    del cache
+    recurrent_mix_split(cfg, params, B, replay_ms)
+    del params
+    torch.cuda.empty_cache()
+
+    # float32 at full width: forward's last position against the decode
+    # loop over the same 256 tokens, the reference's bound 2e-2
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen32 = torch.Generator(device="cuda").manual_seed(args.seed + 13)
+    p32 = init_params(cfg32, gen32, device="cuda")
+    toks = torch.randint(1, cfg.vocab_size, (2, 256), generator=gen32,
+                         device="cuda", dtype=torch.int32)
+    t0 = time.perf_counter()
+    full = unembed(p32, cfg32, forward(p32, cfg32, toks)[:, -1:])
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    cache = init_cache(p32, cfg32, 2, 256)
+    for i in range(256):
+        logits, cache = decode_step(p32, cfg32, cache, toks[:, i:i + 1])
+    diff = float((full[:, -1] - logits[:, -1]).abs().max())
+    print(f"{XLSTM} float32 full width ({num_params(p32) * 4} bytes of "
+          f"weights): forward (2, 256) wall_ms={fwd_ms}; its last-position "
+          f"logits vs the 256-step decode loop's max |diff| = {diff} (bound "
+          f"2e-2, the reference's tests/test_models.py) finite="
+          f"{bool(torch.isfinite(full).all())}", flush=True)
+    if not diff < 2e-2:
+        raise RuntimeError(f"xlstm float32: forward vs decode {diff}")
+    del p32, cache, full
+    torch.cuda.empty_cache()
+
+
+def jamba_phase(args, flash_attention):
+    """Phase 13(d): jamba-v0.1-52b at full width cut to one period (8
+    layers: 7 ``mamba`` with d_inner 8192, d_state 16, and 1 ``attn`` at
+    32 / 8 x 128; 4 dense FFNs of 14336 and 4 MoE FFNs of 16 experts of
+    14336, top-2; bf16, 13.3 B parameters; the cut printed as
+    ``reduced``), 8 slots: a 16-token prompt through ``decode_step``, 32
+    greedy steps (no launch), the step eager against its replay (equal)
+    and its byte bound, the Mamba layers' share of the replay, one (4, 64) ``forward`` (1 launch, ``expert_load``
+    summing to 4 x 64 x top-2 x 4 MoE layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (forward_with_stats, init_cache,
+                                    init_params, moe, num_params)
+
+    full_layers = get_config(JAMBA).num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(JAMBA), num_layers=8)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{cfg.name} (one period): {cfg.num_layers} layers "
+          f"{list(cfg.layer_pattern)} ffn {list(cfg.ffn_pattern)} d_model="
+          f"{cfg.d_model} d_inner={cfg.d_inner} d_state={cfg.d_state} heads="
+          f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff="
+          f"{cfg.d_ff} experts={cfg.num_experts} top-{cfg.moe_top_k} vocab="
+          f"{cfg.vocab_size} {cfg.dtype} params={num_params(params)} "
+          f"init_s={time.perf_counter() - t0} reduced: num_layers "
+          f"{full_layers} -> {cfg.num_layers}", flush=True)
+    B = 8
+    cache = init_cache(params, cfg, B, 64)
+    prompt = torch.randint(1, cfg.vocab_size, (B, 16), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    tok = feed_prompt(cfg, params, cache, prompt)
+    tokens = greedy_decode(cfg, params, cache, tok, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if flash_attention.launches:
+        raise RuntimeError(f"jamba's decode launched flash_attention "
+                           f"{flash_attention.launches} times (want 0)")
+    if bool(((tokens < 0) | (tokens >= cfg.vocab_size)).any()):
+        raise RuntimeError("jamba: token outside the vocab")
+    eager_ms, replay_ms, equal = step_eager_vs_graph(
+        cfg, params, cache, tokens[:, -1:].to(torch.int32))
+    # experts hit per MoE layer at the decode shape: each MoE layer routes
+    # B random rows (an estimate: the step's own rows are not read back)
+    hits = []
+    for i, layer in enumerate(params["layers"]):
+        if cfg.ffn_type(i) == "moe":
+            xf = torch.randn((B, cfg.d_model), generator=gen,
+                             device="cuda").to(cfg.dtype)
+            hits.append(int((moe.dispatch(layer["ffn"], cfg, xf)[1] > 0)
+                            .sum()))
+    nbytes = recurrent_step_bytes(cfg, params, cache,
+                                  round(sum(hits) / len(hits)))
+    print(f"{cfg.name} (one period): {B} slots, 16 prompt + 32 greedy steps"
+          f" wall_s={wall} tokens_per_s={B * 48 / wall}; decode step "
+          f"eager_wall_ms={eager_ms} graph_replay_ms={replay_ms} replay == "
+          f"eager bit for bit: {equal} bound_ms="
+          f"{1e3 * nbytes / HBM_BYTES_PER_S} (bytes={nbytes}, experts hit "
+          f"per MoE layer {hits} on random rows) replay/bound="
+          f"{replay_ms / (1e3 * nbytes / HBM_BYTES_PER_S)} peak_mem_GiB="
+          f"{torch.cuda.max_memory_allocated() / 2**30}", flush=True)
+    if not equal:
+        raise RuntimeError("the jamba decode step's graph replay differs "
+                           "from the eager step")
+    del cache
+    recurrent_mix_split(cfg, params, B, replay_ms)
+    toks = torch.randint(1, cfg.vocab_size, (4, 64), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    forward_with_stats(params, cfg, toks)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    h, stats = forward_with_stats(params, cfg, toks)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    launched = flash_attention.launches
+    n_moe = sum(cfg.ffn_type(i) == "moe" for i in range(cfg.num_layers))
+    load, want_load = int(stats["expert_load"].sum()), \
+        4 * 64 * cfg.moe_top_k * n_moe
+    print(f"{cfg.name} (one period) forward of (4, 64) tokens: wall_ms="
+          f"{fwd_ms} flash_attention.launches={launched} (want 1) "
+          f"expert_load sum={load} (want {want_load}) finite="
+          f"{bool(torch.isfinite(h).all())} peak_mem_GiB="
+          f"{torch.cuda.max_memory_allocated() / 2**30}", flush=True)
+    if launched != 1 or load != want_load or \
+            not bool(torch.isfinite(h).all()):
+        raise RuntimeError(f"jamba forward: {launched} launches, "
+                           f"expert_load {load}")
+    del params, h
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2683,11 +3065,19 @@ def main(argv=None) -> int:
     # phase 12: the context-conditioned family
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    context_flash_cases(gen, dev)
+    path_flash_cases(FLASH_CONTEXT_CASES, "the context shapes", gen, dev)
     context_reference(args)
     whisper_phase(args, flash_attention)
     vision_phase(args, flash_attention)
     print(f"phase 12 took {time.perf_counter() - t0:.1f}s", flush=True)
+    # phase 13: the recurrent family
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    path_flash_cases(FLASH_JAMBA_CASES, "jamba's shape", gen, dev)
+    recurrent_reference(args)
+    xlstm_phase(args, segment_fold, flash_attention)
+    jamba_phase(args, flash_attention)
+    print(f"phase 13 took {time.perf_counter() - t0:.1f}s", flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

@@ -8,6 +8,9 @@ MapReduce.  The port of ``repro/launch/serve.py``.
       --max-prompt 1000 --gen 32 --rate 0 --users 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
       --full --requests 16 --slots 8 --buckets 16,32,64 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --full --requests 16 --slots 8 --buckets 16,32 --min-prompt 8 \
+      --max-prompt 32 --gen 32 --rate 0 --temperature 0
 
 This module wires the model substrate (configs + models) into the
 model-agnostic :class:`repro_torch.runtime.engine.ContinuousEngine` and hosts
@@ -19,7 +22,12 @@ one pass, one launch of the CUDA ``flash_attention`` kernel per layer (an
 MoE model's expert products run as grouped products, ``models/moe.py``).
 With the radix prefix cache (on by default; ``--no-prefix-cache``) an
 admission prefills only its uncached suffix, in the same one pass, each
-row's queries at its prefix length.  A :class:`WindowedMetrics` consumer
+row's queries at its prefix length.  An arch with a recurrent layer
+(xlstm, jamba) has no one-pass prefill: the engine runs the decode step over
+the bucket, as the JAX package's engine does for every arch, so a prompt
+shorter than its bucket folds its pad tokens into the state, as there; and
+its cache is not positional, so the prefix cache stays off.  A
+:class:`WindowedMetrics` consumer
 subscribed to the engine folds every stream event into per-user sliding
 windows and fleet tumbling counters, which the CLI prints at the end (the
 ``--users`` synthetic users).  ``build_serve_step`` and
@@ -47,7 +55,7 @@ from ..data.windows import WindowedMetrics
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention
 from ..models import (context_conditioned, decode_step, init_cache,
-                      init_params, positional_cache, prefill)
+                      init_params, positional_cache, prefill, recurrent)
 from ..models.common import ModelConfig
 from ..runtime.batcher import DecodeBatch
 from ..runtime.engine import (ContinuousEngine, EngineBackend, ServeConfig,
@@ -63,12 +71,14 @@ def _refuse_context(cfg: ModelConfig) -> None:
 
 def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
                  device) -> EngineBackend:
-    """An :class:`EngineBackend` over the dense transformer: a one-token
+    """An :class:`EngineBackend` over the model substrate: a one-token
     decode, a one-pass prefill of a padded bucket (after each row's cached
     prefix, given ``prefix_len``) and a cache constructor with per-slot
     positions; prefix sharing is on when every cache leaf is indexed by
-    position (``positional_cache``).  Context-conditioned archs raise the
-    JAX package's NotImplementedError."""
+    position (``positional_cache``).  An arch with a recurrent layer gets
+    ``prefill=None``: the engine runs the decode step over the bucket.
+    Context-conditioned archs raise the JAX package's
+    NotImplementedError."""
     _refuse_context(cfg)
     if config.model_parallel != 1:
         raise NotImplementedError(
@@ -88,7 +98,7 @@ def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
 
     return EngineBackend(decode=decode, init_cache=make_cache, params=params,
                          vocab_size=cfg.vocab_size, device=torch.device(device),
-                         prefill=prefill_bucket,
+                         prefill=None if recurrent(cfg) else prefill_bucket,
                          prefix_sharing=positional_cache(cfg))
 
 

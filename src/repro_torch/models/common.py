@@ -19,15 +19,17 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The JAX package's model config, cut to the fields the dense, MoE and
-    context-conditioned families read (the SSM / MLA fields come with those
-    slices).  Layer ``i`` has block type ``layer_pattern[i % period]`` and
-    FFN type ``ffn_pattern[i % period]``; the port runs ``attn``, ``local``
-    (attention within ``sliding_window`` keys) and ``xattn`` (gated
-    cross-attention to the context) blocks with ``dense`` or ``moe`` FFNs,
-    an encoder of ``encoder_layers`` bidirectional layers over the context
-    (whisper), and with ``decoder_cross_attn`` a cross-attention after every
-    ``attn`` / ``local`` layer's self-attention."""
+    """The JAX package's model config, cut to the fields the dense, MoE,
+    context-conditioned and recurrent families read (MLA's projection
+    ranks come with its slice; ``use_mla`` is here so that such a config
+    is refused).  Layer ``i`` has block type ``layer_pattern[i % period]``
+    and FFN type ``ffn_pattern[i % period]``; the port runs ``attn``,
+    ``local`` (attention within ``sliding_window`` keys), ``xattn`` (gated
+    cross-attention to the context), ``mamba``, ``mlstm`` and ``slstm``
+    blocks with ``dense``, ``moe`` or no (``none``) FFN, an encoder of
+    ``encoder_layers`` bidirectional layers over the context (whisper), and
+    with ``decoder_cross_attn`` a cross-attention after every ``attn`` /
+    ``local`` layer's self-attention."""
 
     name: str
     family: str                      # dense | moe | hybrid | ssm | audio | vlm
@@ -53,6 +55,15 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     num_padded_experts: int = 0      # trailing experts masked out of routing
                                      # (qwen2-moe: 60 real + 4 pads for EP=16)
+    # -- MLA (DeepSeek-V2): not ported yet, refused by the model layer
+    use_mla: bool = False
+    # -- SSM (Mamba)
+    d_state: int = 16
+    d_conv: int = 4
+    ssm_expand: int = 2
+    # -- xLSTM
+    mlstm_proj_factor: float = 2.0
+    slstm_proj_factor: float = 1.3333
     # -- encoder-decoder (whisper): the decoder uses the main fields
     encoder_layers: int = 0
     encoder_seq: int = 1500          # whisper 30s @ 50Hz after the conv stub
@@ -84,6 +95,10 @@ class ModelConfig:
 
     def ffn_type(self, layer_idx: int) -> str:
         return self.ffn_pattern[layer_idx % self.period]
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     def num_params(self) -> int:
         """Parameter count from the shapes ``init_params`` makes (on the

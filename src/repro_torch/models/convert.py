@@ -12,8 +12,11 @@ two models then compute the same function.  Nested leaves carry over as they
 are: an MoE layer's ``ffn`` holds ``router``, ``we_gate``, ``we_up``,
 ``we_down`` and the ``shared`` dense FFN dict; a cross-attending layer's
 ``xattn`` dict (with its 0-d ``gate``) and ``norm_x``; an ``xattn`` layer's
-``mix`` with its ``gate``.  The encoder's unrolled ``encoder["layer_i"]``
-become the list ``encoder["layers"]``, beside its ``final_norm``.
+``mix`` with its ``gate``; a recurrent layer's ``mix`` (Mamba's ``A_log``,
+``D_skip``, ``dt_bias``, conv and projections; mLSTM's ``b_if`` and
+``ln_g``; sLSTM's block-diagonal ``w_h``), and no ``norm2`` / ``ffn`` where
+the FFN is ``none``.  The encoder's unrolled ``encoder["layer_i"]`` become
+the list ``encoder["layers"]``, beside its ``final_norm``.
 """
 from __future__ import annotations
 
@@ -39,10 +42,10 @@ def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> Dict[str, Any]:
-    """The port's parameters from the JAX package's (dense, MoE and
-    context-conditioned families; layers stacked with period ``cfg.period``
-    plus remainder layers; the encoder's layers unrolled), cast to
-    ``cfg.dtype`` on ``device``."""
+    """The port's parameters from the JAX package's (dense, MoE,
+    context-conditioned and recurrent families; layers stacked with period
+    ``cfg.period`` plus remainder layers; the encoder's layers unrolled),
+    cast to ``cfg.dtype`` on ``device``."""
     _check_supported(cfg)
     device = torch.device(device)
 

@@ -31,9 +31,17 @@ llama-3.2-vision's stub patch embeddings as they are.  With
 it (``norm_x``, ``xattn``).  :func:`init_cache` projects the context's K/V
 once per cross-attending layer (``xk`` / ``xv``) and the decode step reads
 them.  The engine's one-pass :func:`prefill` refuses these archs, as the
-JAX package's engine does.  SSM / xLSTM blocks (xlstm, jamba) and MLA
-(deepseek-v2) are not ported yet (``init_params`` / ``init_cache`` raise
-for them).
+JAX package's engine does.
+
+Recurrent layers (``mamba``, ``mlstm``, ``slstm``: :mod:`repro_torch.models.ssm`;
+xlstm-1.3b's 7:1 mLSTM:sLSTM stack with no FFN, jamba's 7:1 Mamba:attention
+stack with dense and MoE FFNs) keep a state in the decode cache instead of
+K/V rows (``ssm_h`` / ``ssm_conv``, ``ml_C`` / ``ml_n``, ``sl_h`` /
+``sl_c``), which the decode step advances in place.  They have no one-pass
+prefill (:func:`prefill` raises): the engine runs the decode step over the
+bucket, as the JAX package's engine does for every arch.  MLA
+(deepseek-v2, ``cfg.use_mla``) is not ported yet (``init_params`` /
+``init_cache`` raise for it).
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ import torch.utils._pytree as pytree
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm
 from .common import ModelConfig, embed_lookup, init_normal, rms_norm
 from .moe import _act, dense_ffn  # noqa: F401  (their home is moe.py)
 
@@ -52,14 +61,24 @@ Pytree = Any
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention (use_mla) is not ported yet")
     for i in range(cfg.num_layers):
-        if cfg.block_type(i) not in ("attn", "local", "xattn") or \
-                cfg.ffn_type(i) not in ("dense", "moe"):
+        if cfg.block_type(i) not in ("attn", "local", "xattn") + \
+                ssm.RECURRENT_BLOCKS or \
+                cfg.ffn_type(i) not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: layer {i} is ({cfg.block_type(i)}, "
-                f"{cfg.ffn_type(i)}); the port runs attention and "
-                "cross-attention layers with dense or MoE FFNs (SSM / MLA "
-                "layers are not ported yet)")
+                f"{cfg.ffn_type(i)}); the port runs attention, "
+                "cross-attention, mamba, mlstm and slstm layers with dense, "
+                "MoE or no FFN")
+
+
+def recurrent(cfg: ModelConfig) -> bool:
+    """True for an arch with a recurrent layer (mamba, mlstm, slstm)."""
+    return any(cfg.block_type(i) in ssm.RECURRENT_BLOCKS
+               for i in range(cfg.num_layers))
 
 
 def context_conditioned(cfg: ModelConfig) -> bool:
@@ -91,7 +110,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                 device="cuda") -> Pytree:
     """Random parameters with the JAX package's shapes and scales
     (``std = 1/sqrt(fan_in)``, norms at one, cross-attention gates at
-    zero), drawn from ``gen``."""
+    zero, Mamba's ``A_log`` / ``dt_bias`` at zero and ``D_skip`` at one),
+    drawn from ``gen``.  A layer whose FFN is ``none`` has no ``norm2`` /
+    ``ffn``."""
     _check_supported(cfg)
     device = torch.device(device)
     D = cfg.d_model
@@ -110,16 +131,21 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         return {**_init_attn(cfg, normal, ones, zeros), "gate": zeros(())}
 
     def layer(ltype, ftype, cross_attends):
-        p = {"norm1": ones(D),
-             "mix": cross() if ltype == "xattn" else
-             _init_attn(cfg, normal, ones, zeros)}
-        if cross_attends and ltype != "xattn":
+        if ltype == "xattn":
+            mix = cross()
+        elif ltype in ssm.INIT:
+            mix = ssm.INIT[ltype](cfg, normal, ones, zeros)
+        else:
+            mix = _init_attn(cfg, normal, ones, zeros)
+        p = {"norm1": ones(D), "mix": mix}
+        if cross_attends and ltype in ("attn", "local"):
             p["xattn"] = cross()
             p["norm_x"] = ones(D)
-        p["norm2"] = ones(D)
-        p["ffn"] = moe_mod.init_moe(cfg, gen, device=device) \
-            if ftype == "moe" else \
-            moe_mod.init_dense_ffn(cfg, gen, device=device)
+        if ftype != "none":
+            p["norm2"] = ones(D)
+            p["ffn"] = moe_mod.init_moe(cfg, gen, device=device) \
+                if ftype == "moe" else \
+                moe_mod.init_dense_ffn(cfg, gen, device=device)
         return p
 
     params: Dict[str, Any] = {"embed": normal((cfg.vocab_size, D), D)}
@@ -142,7 +168,7 @@ def positional_cache(cfg: ModelConfig) -> bool:
     absolute sequence position — the property prefix KV sharing needs;
     true of every self-attention stack, false when the cache holds a
     context's K/V (an encoder, a cross-attending decoder, ``xattn``
-    layers)."""
+    layers) or a recurrent state (``mamba``, ``mlstm``, ``slstm``)."""
     if cfg.encoder_layers > 0 or cfg.decoder_cross_attn:
         return False
     return all(cfg.block_type(i) in ("attn", "local")
@@ -164,7 +190,11 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
     An ``xattn`` layer without a context gets zeros of
     ``cfg.num_image_tokens`` rows; a cross-attending ``attn`` layer without
     one gets none (its decode skips the cross-attention, as the JAX
-    package's does)."""
+    package's does).  A recurrent layer gets its zeroed state
+    (``ssm.INIT_CACHE``): Mamba's ``ssm_h`` (B, d_inner, d_state) float32
+    and ``ssm_conv`` (B, d_conv - 1, d_inner); mLSTM's ``ml_C`` (B, H, hd,
+    hd) and ``ml_n`` (B, H, hd) float32; sLSTM's ``sl_h`` / ``sl_c`` (B, H,
+    D // H) float32."""
     _check_supported(cfg)
     device = params["embed"].device
     if cfg.encoder_layers > 0 and context is not None:
@@ -178,6 +208,10 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
 
     layers = []
     for i, p in enumerate(params["layers"]):
+        if cfg.block_type(i) in ssm.INIT_CACHE:
+            layers.append(ssm.INIT_CACHE[cfg.block_type(i)](cfg, batch,
+                                                            device))
+            continue
         if cfg.block_type(i) == "xattn":
             if context is not None:
                 xk, xv = attn.cross_kv(p["mix"], cfg, context)
@@ -197,7 +231,10 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
 def _apply_ffn(p: Dict, cfg: ModelConfig, ftype: str, x: torch.Tensor,
                stats: Optional[Dict]):
     """The residual FFN block -> (x, stats): an MoE layer adds its stats
-    into ``stats`` (the reference's ``_apply_ffn``)."""
+    into ``stats``, a ``none`` FFN returns x (the reference's
+    ``_apply_ffn``)."""
+    if ftype == "none":
+        return x, stats
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if ftype == "dense":
         return x + dense_ffn(p["ffn"], cfg, h), stats
@@ -223,12 +260,15 @@ def _decode_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
         mixed = attn.cross_attention(p["mix"], cfg, h,
                                      (cache["xk"], cache["xv"]), gated=True,
                                      decode=True)
+    elif ltype in ssm.DECODE:
+        mixed, _ = ssm.DECODE[ltype](p["mix"], cfg, h, cache)
     else:
         mixed, _ = attn.attention_decode(p["mix"], cfg, h,
                                          (cache["k"], cache["v"]), pos,
                                          window=window)
     x = x + mixed
-    if cfg.decoder_cross_attn and ltype != "xattn" and "xk" in cache:
+    if cfg.decoder_cross_attn and ltype in ("attn", "local") and \
+            "xk" in cache:
         x = _cross_attend(p, cfg, x, (cache["xk"], cache["xv"]), decode=True)
     x, _ = _apply_ffn(p, cfg, ftype, x, None)
     return x
@@ -246,11 +286,14 @@ def _full_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
         mixed = attn.cross_attention(p["mix"], cfg, h,
                                      attn.cross_kv(p["mix"], cfg, context),
                                      gated=True)
+    elif ltype in ssm.MIX:
+        mixed = ssm.MIX[ltype](p["mix"], cfg, h)
     else:
         mixed, kv = attn.attention(p["mix"], cfg, h, q_offset=q_offset,
                                    cache=cache, span=span, window=window)
     x = x + mixed
-    if cfg.decoder_cross_attn and ltype != "xattn" and context is not None:
+    if cfg.decoder_cross_attn and ltype in ("attn", "local") and \
+            context is not None:
         x = _cross_attend(p, cfg, x, attn.cross_kv(p["xattn"], cfg, context))
     x, stats = _apply_ffn(p, cfg, ftype, x, stats)
     return x, kv, stats
@@ -382,6 +425,11 @@ def prefill(params: Pytree, cfg: ModelConfig, cache: Pytree,
             f"{cfg.name}: context-conditioned archs (audio/vision) have no "
             "one-pass prefill; the JAX package's engine refuses them, and "
             "the decode step over a context cache is their path")
+    if recurrent(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent layers (mamba / mlstm / slstm) have no "
+            "one-pass prefill; the engine runs the decode step over the "
+            "bucket, as the JAX package's engine does")
     B, S = tokens.shape
     h, _ = _forward(params, cfg, tokens, cache["layers"], prefix_len)
     rows = torch.arange(B, device=h.device)

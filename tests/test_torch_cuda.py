@@ -854,3 +854,65 @@ def test_cuda_whisper_decode_step_replays_from_a_graph(cuda_device):
                                                  iters=2)
     assert equal
     assert flash_attention.launches == before
+
+
+# chip_smoke.py's case j: jamba-v0.1-52b's attention layer in a (4, 64)
+# forward, (B, H, KV, Sq, Sk, d), causal
+JAMBA_FLASH_CASE = (4, 32, 8, 64, 64, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [
+    (torch.float32, 1e-4), (torch.bfloat16, 3e-2), (torch.float16, 4e-3)])
+def test_cuda_flash_attention_jamba_shape(cuda_device, dtype, atol):
+    """Causal GQA at 32 / 8 x 128 heads (4 query heads per K/V head): one
+    launch, equal to the plain version within phase 2's tolerances."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v = _qkv(gen, cuda_device, *JAMBA_FLASH_CASE, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-v0.1-52b"])
+def test_cuda_recurrent_smoke_model_equals_the_cpu(cuda_device, arch):
+    """The float32 smoke model on the card and the CPU with the same
+    weights: ``forward`` logits within 1e-4 (jamba's attention layer one
+    ``flash_attention`` launch), and ``build_engine``'s greedy tokens for
+    prompts shorter than their buckets equal, ``segment_fold`` once per
+    engine step."""
+    err, cpu_tokens, card_tokens, launched, folds, steps = \
+        _chip_smoke().recurrent_reference_run(arch, 0)
+    assert err <= 1e-4
+    assert cpu_tokens == card_tokens
+    assert launched == (1 if arch == "jamba-v0.1-52b" else 0)
+    assert folds == steps > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-v0.1-52b"])
+def test_cuda_recurrent_decode_step_replays_from_a_graph(cuda_device, arch):
+    """The bf16 smoke decode step (8 slots) advances its recurrent states
+    in place and reads nothing back to the host: it captures in a CUDA
+    graph, and one replay's logits and cache equal the eager step's bit
+    for bit; no ``flash_attention`` launch in the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+
+    chip_smoke = _chip_smoke()
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(1), device=cuda_device)
+    cache = init_cache(params, cfg, 8, 32)
+    toks = torch.randint(1, cfg.vocab_size, (8, 5), dtype=torch.int32,
+                         device=cuda_device)
+    chip_smoke.feed_prompt(cfg, params, cache, toks[:, :4])
+    before = flash_attention.launches
+    _, _, equal = chip_smoke.step_eager_vs_graph(cfg, params, cache,
+                                                 toks[:, 4:], iters=2)
+    assert equal
+    assert flash_attention.launches == before

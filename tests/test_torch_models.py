@@ -161,16 +161,28 @@ def test_cache_update_clamps_like_dynamic_update_slice():
 
 
 def test_other_families_are_later_slices():
-    """The MLA and SSM archs are not ported: the registry refuses them,
-    and a layer the port cannot run is refused at init."""
-    for arch in ("deepseek-v2-236b", "xlstm-1.3b", "jamba-v0.1-52b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
+    """The MLA arch is not ported: the registry refuses deepseek-v2, and a
+    ``use_mla`` config is refused at init.  The recurrent archs and blocks
+    are ported (``tests/test_torch_ssm.py``): xlstm and jamba come from the
+    registry, and a mamba / mlstm / slstm layer with a dense or no FFN
+    builds."""
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_config("deepseek-v2-236b")
+    dense_cfg = get_config("qwen3-0.6b", smoke=True)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        init_params(dataclasses.replace(dense_cfg, use_mla=True),
+                    torch.Generator(), device="cpu")
+    for arch in ("xlstm-1.3b", "jamba-v0.1-52b"):
+        assert get_config(arch).subquadratic
     for block in ("mamba", "mlstm", "slstm"):
-        cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
-                                  layer_pattern=(block,))
-        with pytest.raises(NotImplementedError, match="dense or MoE FFNs"):
-            init_params(cfg, torch.Generator(), device="cpu")
+        for ffn in ("dense", "none"):
+            cfg = dataclasses.replace(dense_cfg, layer_pattern=(block,),
+                                      ffn_pattern=(ffn,))
+            params = init_params(cfg, torch.Generator(), device="cpu")
+            assert ("ffn" in params["layers"][0]) == (ffn == "dense")
+            logits, _ = decode_step(params, cfg, init_cache(params, cfg, 1, 4),
+                                    torch.ones((1, 1), dtype=torch.int32))
+            assert bool(torch.isfinite(logits).all())
 
 
 FWD_B, FWD_S = 2, 12
@@ -543,7 +555,8 @@ def test_window_mask_matches_jax():
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-14b",
                                   "starcoder2-15b", "gemma3-1b",
                                   "qwen2-moe-a2.7b", "whisper-small",
-                                  "llama-3.2-vision-90b"])
+                                  "llama-3.2-vision-90b", "xlstm-1.3b",
+                                  "jamba-v0.1-52b"])
 def test_registry_configs_are_the_references_field_for_field(arch, smoke):
     """Every arch the port registers: its config (full and smoke) is the
     JAX package's, field for field."""
