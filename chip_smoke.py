@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
   python3 chip_smoke.py [--seed 0] [--requests 16] [--serve-only]
+                        [--train-only]
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -133,6 +134,26 @@ Phases, each of which must pass or the script exits non-zero:
    against its replay and its byte bound (experts hit counted on random
    rows), a (4, 64) ``forward`` in 1 launch with ``expert_load`` summing to
    4 x 64 x 2 x 4.
+14. training: (a) ``flash_attention``'s backward through its autograd
+   Function (the forward launch writing each row's log-sum-exp, then
+   ``csrc/flash_attention_bwd.cu``) against its f32 plain version at the
+   training shapes t1-t5 (qwen3-0.6b B 8 x S 1024, gemma3's window 512 at
+   d 256, the whisper encoder, cross-attention at Sq 64 / Sk 1500, odd f32
+   sizes): each gradient within 2e-2 (16-bit) or 1e-4 (f32) of its max
+   magnitude, one backward launch per call, timed beside its bound, its
+   plain version and SDPA's backward, and forward + backward beside SDPA's
+   forward + backward; (b) the qwen3 smoke model
+   in f32 trains 5 steps (2 microbatches) on the card and on the CPU from
+   the same parameters and batches, loss and grad_norm within 1e-4; (c)
+   qwen3-0.6b at full width, nothing cut, through the training CLI: 20
+   steps of 8 x 1024 tokens in 2 microbatches, remat per layer, a
+   checkpoint at step 10; finite, falling loss; ``flash_attention`` 28 x 2
+   x 2 launches a step, its backward 28 x 2, ``cms_update`` one; a second
+   CLI run from a copy of the step-10 checkpoint to step 20 ends with the
+   stream stats and token count equal and losses within 1e-2; median step
+   time, tokens/s, the step's bound and share, peak memory and the
+   backward's share of one profiled step.  ``--train-only`` runs phases 1
+   and 14 alone.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -802,9 +823,7 @@ FLASH_DIFFER_SHARE = 0.02
 def flash_work(B, H, Sq, Sk, d, causal):
     """Multiply-adds x 2 of q k^T and p v over the (query, key) pairs the
     mask keeps (top-left causal: query i sees keys 0..min(i, Sk - 1))."""
-    i = np.arange(Sq)
-    pairs = int(np.minimum(i + 1, Sk).sum()) if causal else Sq * Sk
-    return 4 * B * H * pairs * d
+    return 4 * B * H * window_pairs(Sq, Sk, causal, None) * d
 
 
 def plain_p_rounded(q, k, v, causal, q_offset=None, window=None):
@@ -2907,6 +2926,352 @@ def jamba_phase(args, flash_attention):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training (loss_fn, AdamW, the microbatch fold, checkpoint and
+# restart) on flash_attention's hand-written backward
+# ---------------------------------------------------------------------------
+
+# (name, B, H, KV, Sq, Sk, d, dtype, causal, window)
+FLASH_BWD_CASES = [
+    ("t1: qwen3-0.6b training B8 S1024 H16/KV8 d128 bf16 causal", 8, 16, 8,
+     1024, 1024, 128, torch.bfloat16, True, None),
+    ("t2: gemma3 local layer B2 S1024 H4/KV1 d256 bf16 window 512", 2, 4, 1,
+     1024, 1024, 256, torch.bfloat16, True, 512),
+    ("t3: whisper encoder B8 S1500 H12/KV12 d64 bf16 non-causal", 8, 12, 12,
+     1500, 1500, 64, torch.bfloat16, False, None),
+    ("t4: cross-attention B2 Sq64 Sk1500 H12/KV12 d64 bf16 non-causal", 2, 12,
+     12, 64, 1500, 64, torch.bfloat16, False, None),
+    ("t5: odd sizes B2 S100 H4/KV2 d40 f32 causal", 2, 4, 2, 100, 100, 40,
+     torch.float32, True, None),
+]
+# each gradient's max error against the f32 plain version, as a share of
+# that gradient's max magnitude: 16-bit inputs round dq / dk / dv once (and
+# the forward's o, which D reads) to 8 (bf16) or 11 (f16) bits; f32 sums
+# the same products in another order
+FLASH_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2,
+                  torch.float16: 2e-2}
+TRAIN_ARCH = "qwen3-0.6b"
+# the weights come from TrainerConfig's seed, 0 (the CLI takes no --seed, as
+# the JAX package's takes none)
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--full", "--steps", "20", "--batch", "8",
+             "--seq", "1024", "--microbatches", "2", "--ckpt-every", "10",
+             "--log-every", "1"]
+
+
+def window_pairs(Sq, Sk, causal, window) -> int:
+    """(query, key) pairs the forward's mask keeps (top-left causal, the
+    sliding window, or none)."""
+    if not causal:
+        return Sq * Sk
+    i = np.arange(Sq)
+    hi = np.minimum(i + 1, Sk)
+    lo = np.zeros_like(i) if window is None else np.maximum(i - window + 1, 0)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def run_flash_bwd_case(case, gen, dev) -> dict:
+    """Phase 14(a): the backward through the autograd Function (the forward
+    launch writing the row log-sum-exp, then ``flash_attention_bwd``)
+    against ``flash_attention_backward_plain`` on the same inputs in f32;
+    one backward launch per call; the backward kernel, its plain version,
+    SDPA's backward alone (``library_ms``), and our forward + backward
+    beside SDPA's (``fwd_bwd_ms``, ``library_fwd_bwd_ms``) timed."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward_plain, flash_attention_bwd)
+
+    name, B, H, KV, Sq, Sk, d, dtype, causal, window = case
+    q, k, v = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+               .requires_grad_()
+               for shape in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+    do = torch.randn((B, H, Sq, d), generator=gen, device=dev).to(dtype)
+    before = flash_attention_bwd.launches
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    launches = flash_attention_bwd.launches - before
+    o = o.detach()
+    want = flash_attention_backward_plain(
+        q.detach().float(), k.detach().float(), v.detach().float(),
+        o.float(), do.float(), causal=causal, window=window)
+    rel = [max_err(g, w) / max(float(w.abs().max()), 1e-30)
+           for g, w in zip(got, want)]
+    rtol = FLASH_BWD_RTOL[dtype]
+    ok = launches == 1 and all(e <= rtol for e in rel)
+
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    from repro_torch.kernels.flash_attention import _launch
+    _launch(qd, kd, vd, causal, None, window, lse)
+    iters = 3 if Sq * Sk * B * H > 1 << 26 else 20
+
+    def kernel():
+        return flash_attention_bwd(qd, kd, vd, o, do, lse, causal=causal,
+                                   window=window)
+
+    def plain():
+        return flash_attention_backward_plain(qd, kd, vd, o, do, lse,
+                                              causal=causal, window=window)
+
+    def ours_fwd_bwd():
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        return torch.autograd.grad(out, (q, k, v), do)
+
+    mask = None
+    if window is not None:
+        qp = torch.arange(Sq, device=dev)[:, None]
+        kp = torch.arange(Sk, device=dev)[None, :]
+        mask = (kp <= qp) & (kp > qp - window)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    def library_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (q, k, v), do)
+
+    sdpa_out = sdpa()
+
+    def library():                # SDPA's backward alone, on a kept graph
+        return torch.autograd.grad(sdpa_out, (q, k, v), do,
+                                   retain_graph=True)
+
+    ms = cuda_ms(kernel, iters)
+    plain_ms = cuda_ms(plain, iters)
+    fwd_bwd_ms = cuda_ms(ours_fwd_bwd, iters)
+    library_ms = cuda_ms(library, iters)
+    library_fwd_bwd_ms = cuda_ms(library_fwd_bwd, iters)
+    del sdpa_out
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + \
+        lse.numel() * 4
+    # q, o, do and lse read, dq written; k, v read, dk, dv written
+    flops = 2.5 * 4 * B * H * window_pairs(Sq, Sk, causal, window) * d
+    # the forward's q k^T and p v once, the backward's five products
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(name=name, ok=ok, max_abs_err=max(max_err(g, w) for g, w in
+                                                  zip(got, want)),
+                rel_errs=rel, tolerance=f"rtol={rtol} of max|grad|",
+                launches=launches, ms=ms, plain_ms=plain_ms,
+                fwd_bwd_ms=fwd_bwd_ms, library_ms=library_ms,
+                library_fwd_bwd_ms=library_fwd_bwd_ms,
+                bound_ms=max(bytes_ms, ops_ms), flops=flops,
+                bound_bytes=nbytes,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def train_smoke_card_vs_cpu(args) -> None:
+    """Phase 14(b): qwen3-0.6b's smoke model in float32 trains 5 steps
+    through ``make_train_step`` (2 microbatches, remat) on the card and on
+    the CPU from the same parameters and batches; loss and grad_norm agree
+    within 1e-4 (relative) at every step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, smoke=True),
+                              dtype=torch.float32)
+    step = make_train_step(cfg, num_microbatches=2, opt=OptConfig(
+        peak_lr=1e-3, warmup_steps=2, decay_steps=100))
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=64, global_batch=4,
+                                        seed=args.seed), device="cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                         device="cpu")
+    states = {"cpu": (params, init_opt_state(params))}
+    cuda_params = pytree.tree_map(lambda t: t.cuda(), params)
+    states["cuda"] = (cuda_params, init_opt_state(cuda_params))
+    worst = 0.0
+    for i in range(5):
+        batch = corpus(i)
+        out = {}
+        for where, (p, o) in states.items():
+            b = {k: v.to(where) for k, v in batch.items()}
+            p, o, m = step(p, o, b)
+            states[where] = (p, o)
+            out[where] = (float(m["loss"]), float(m["grad_norm"]))
+        errs = [abs(a - b) / max(abs(b), 1.0)
+                for a, b in zip(out["cuda"], out["cpu"])]
+        worst = max(worst, *errs)
+        print(f"  train smoke step {i + 1}: card loss={out['cuda'][0]:.6f} "
+              f"grad_norm={out['cuda'][1]:.6f}  cpu loss={out['cpu'][0]:.6f} "
+              f"grad_norm={out['cpu'][1]:.6f}", flush=True)
+    print(f"train smoke (f32, card vs CPU, 5 steps): worst relative "
+          f"difference of loss / grad_norm {worst:.3g} (limit 1e-4)",
+          flush=True)
+    if not worst <= 1e-4:
+        raise RuntimeError(f"train smoke: card and CPU disagree ({worst})")
+
+
+def step_bound_ms(cfg, batch: int, seq: int) -> float:
+    """The least time of one training step on the tensor cores: 6 x
+    parameters x tokens of matrix products (forward and backward, no
+    recompute) plus attention's q k^T and p v forward (x 1) and backward
+    (x 2.5) over the causal pairs, at the bf16 peak."""
+    tokens = batch * seq
+    attn = 3.5 * cfg.num_layers * 4 * batch * cfg.num_heads * \
+        window_pairs(seq, seq, True, None) * cfg.head_dim
+    return (6 * cfg.num_params() * tokens + attn) / PEAK_FLOPS[
+        torch.bfloat16] * 1e3
+
+
+def train_phase(args) -> int:
+    """Phase 14(c): qwen3-0.6b at full width, nothing cut (28 layers,
+    d_model 1024, 16 / 8 x 128, d_ff 3072, vocab 151936 tied, bf16), trained
+    through the CLI (``repro_torch.launch.train.main``): 20 steps at global
+    batch 8 x seq 1024 in 2 microbatches, remat per layer, a checkpoint at
+    step 10; then a second CLI run from a copy of the step-10 checkpoint to
+    step 20.  Returns the backward's launches in the straight run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cms import cms_counts
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.segment_fold import segment_fold
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.data import DataConfig, SyntheticCorpus
+
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.num_layers
+    steps, mbs = 20, 2
+    os.makedirs(os.path.join(_HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(
+        _HERE, "build"))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        cms_counts.launches = segment_fold.launches = 0
+        t0 = time.perf_counter()
+        out1 = train_main(TRAIN_CLI + ["--ckpt-dir",
+                                       os.path.join(root, "straight")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+        cms, fold = cms_counts.launches, segment_fold.launches
+        peak = torch.cuda.max_memory_allocated()
+        hist = out1["history"]
+        losses = [h["loss"] for h in hist]
+        dts = sorted(h["dt"] for h in hist[2:])
+        med_s = dts[len(dts) // 2]
+        bound = step_bound_ms(cfg, 8, 1024)
+        print(f"qwen3-0.6b train (full width, {cfg.num_params()} params, "
+              f"batch 8 x 1024 in {mbs} microbatches, remat): {steps} steps "
+              f"in {run_s:.1f}s; losses {losses}", flush=True)
+        print(f"  launches: flash_attention {fwd} (expected {L * mbs * 2 * steps}"
+              f" = {L} layers x {mbs} microbatches x 2 (remat) x {steps}), "
+              f"flash_attention_bwd {bwd} (expected {L * mbs * steps}), "
+              f"cms_update {cms} (expected {steps}), segment_fold {fold}",
+              flush=True)
+        print(f"  step: median {med_s * 1e3:.1f} ms after the first 2 "
+              f"(wall, ends in a sync), {8 * 1024 / med_s:.0f} tokens/s; "
+              f"bound {bound:.2f} ms (bf16 tensor cores: 6 x params x tokens "
+              f"+ attention), share {bound / (med_s * 1e3):.3f}; peak memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        ok = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+        ok &= fwd == L * mbs * 2 * steps and bwd == L * mbs * steps
+        ok &= cms == steps
+        if not ok:
+            raise RuntimeError("qwen3-0.6b training: a loss is not finite, "
+                               "the loss did not fall, or a launch count is "
+                               "off")
+
+        # the restart: a copy of the step-10 checkpoint, resumed to 20
+        resumed = os.path.join(root, "resumed")
+        os.makedirs(resumed)
+        shutil.copytree(os.path.join(root, "straight", "step_00000010"),
+                        os.path.join(resumed, "step_00000010"))
+        with open(os.path.join(resumed, "LATEST"), "w") as f:
+            f.write("10")
+        out2 = train_main(TRAIN_CLI + ["--ckpt-dir", resumed])
+        stats_equal = all(torch.equal(out1["stream_stats"][k],
+                                      out2["stream_stats"][k])
+                          for k in out1["stream_stats"])
+        tokens_equal = torch.equal(out1["metrics_acc"]["tokens"],
+                                   out2["metrics_acc"]["tokens"])
+        loss_diff = max(abs(a["loss"] - b["loss"]) for a, b in
+                        zip(hist[10:], out2["history"]))
+        print(f"  restart at 10 -> 20: stream stats equal {stats_equal}, "
+              f"tokens equal {tokens_equal} "
+              f"({float(out2['metrics_acc']['tokens'])}), worst loss "
+              f"difference over steps 11-20 {loss_diff:.3g} (limit 1e-2; the "
+              f"embedding's backward adds with atomics, so the parameters "
+              f"are not bit for bit)", flush=True)
+        if not (stats_equal and tokens_equal and loss_diff <= 1e-2):
+            raise RuntimeError("qwen3-0.6b restart is not exact")
+
+        # the backward kernel's share of one step, from a profiler trace
+        from torch.profiler import ProfilerActivity, profile
+        step = make_train_step(cfg, num_microbatches=mbs)
+        params, opt_state = out1["params"], out1["opt_state"]
+        del out1, out2
+        batch = SyntheticCorpus(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=1024, global_batch=8,
+            seed=0), device="cuda")(steps)
+        batch.pop("valid_mask", None)
+        params, opt_state, _ = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(params, opt_state, batch)
+            torch.cuda.synchronize()
+        dev_us = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0.0)
+            dev_us[e.key] = t
+        total = sum(dev_us.values())
+        # flash_attention_bwd.cu's kernels: D, then dK / dV and dQ (the
+        # tensor-core and the CUDA-core forms)
+        bwd_us = sum(t for k, t in dev_us.items()
+                     if any(n in k for n in ("delta_kernel", "dkdv_kernel",
+                                             "dkdv_mma_kernel", "dq_kernel",
+                                             "dq_mma_kernel")))
+        fwd_us = sum(t for k, t in dev_us.items()
+                     if "flash_attention_kernel" in k)
+        print(f"  one step's device time (profiler): {total / 1e3:.1f} ms; "
+              f"flash_attention_bwd {bwd_us / 1e3:.1f} ms (share "
+              f"{bwd_us / max(total, 1e-9):.3f}), flash_attention forward "
+              f"{fwd_us / 1e3:.1f} ms (share {fwd_us / max(total, 1e-9):.3f})",
+              flush=True)
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+        for k, t in top:
+            print(f"    {t / 1e3:9.2f} ms  {k[:100]}", flush=True)
+        return bwd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def training_phase(args, gen, dev) -> tuple:
+    """Phase 14: (a) the backward cases t1-t5, (b) the smoke model card vs
+    CPU, (c) qwen3-0.6b at full width through the CLI with a restart.
+    Returns (t1's row, the backward's launches in (c))."""
+    rows = []
+    for case in FLASH_BWD_CASES:
+        row = run_flash_bwd_case(case, gen, dev)
+        rows.append(row)
+        print_row("flash_attention_bwd", row)
+        print(f"  launches per call={row['launches']} rel_errs(dq, dk, dv)="
+              f"{row['rel_errs']} fwd_bwd_ms={row['fwd_bwd_ms']} "
+              f"library_fwd_bwd_ms={row['library_fwd_bwd_ms']} "
+              f"flops={row['flops']}"
+              f" bytes={row['bound_bytes']}", flush=True)
+        torch.cuda.empty_cache()
+    bad = [r["name"] for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"flash_attention_bwd disagrees with its plain "
+                           f"version or is not one launch: {bad}")
+    train_smoke_card_vs_cpu(args)
+    torch.cuda.empty_cache()
+    launches = train_phase(args)
+    torch.cuda.empty_cache()
+    return rows[0], launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2915,6 +3280,9 @@ def main(argv=None) -> int:
                     help="run phases 1 and 3 only and print no record (to "
                          "compare the serve path of two checkouts, each "
                          "with this script at its root, in one session)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run phases 1 and 14 (training) only and print no "
+                         "record")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2923,6 +3291,7 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.cms import LIBRARY as CMS_LIBRARY
+    from repro_torch.kernels.flash_attention import BWD_LIBRARY
     from repro_torch.kernels.flash_attention import LIBRARY as FLASH_LIBRARY
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.segment_fold import LIBRARY as FOLD_LIBRARY
@@ -2947,10 +3316,16 @@ def main(argv=None) -> int:
     # phase 2: build from the checkout's sources, then kernel vs plain
     t0 = time.perf_counter()
     libs = build_all([FOLD_LIBRARY, CMS_LIBRARY, STRIPES_LIBRARY,
-                      FLASH_LIBRARY])
+                      FLASH_LIBRARY, BWD_LIBRARY])
     print(f"built {[os.path.relpath(p, _HERE) for p in libs]} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if args.train_only:
+        t0 = time.perf_counter()
+        training_phase(args, gen, dev)
+        print(f"phase 14 took {time.perf_counter() - t0:.1f}s", flush=True)
+        print(f"card: {card}")
+        return 0
     rows = []
     for case in kernel_cases(gen, dev):
         row = run_kernel_case(case, segment_fold, segment_fold_plain)
@@ -3078,6 +3453,11 @@ def main(argv=None) -> int:
     xlstm_phase(args, segment_fold, flash_attention)
     jamba_phase(args, flash_attention)
     print(f"phase 13 took {time.perf_counter() - t0:.1f}s", flush=True)
+    # phase 14: training on flash_attention's backward
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bwd_row, bwd_launches = training_phase(args, gen, dev)
+    print(f"phase 14 took {time.perf_counter() - t0:.1f}s", flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",
@@ -3100,6 +3480,11 @@ def main(argv=None) -> int:
         entry("flash_attention", "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:68", flash_launches,
               next(r for r in flash_rows if r["path"])),
+        dict(entry("flash_attention_bwd", "flash_attention_bwd.cu",
+                   "src/repro/models/attention.py:151 (XLA autodiff of the "
+                   "attention; no TPU kernel)", bwd_launches, bwd_row),
+             fwd_bwd_ms=bwd_row["fwd_bwd_ms"],
+             library_fwd_bwd_ms=bwd_row["library_fwd_bwd_ms"]),
     ]}
     print(f"card: {card}")
     print(json.dumps(record))

@@ -12,5 +12,6 @@ runs its plain PyTorch version.
   engine = build_engine(ServeConfig(arch="qwen3-0.6b", full=True))
 """
 from .core import Monoid, execute_fold, monoids, plan_fold
+from . import optim  # noqa: F401,E402  (registers the lossy monoids)
 
 __all__ = ["Monoid", "execute_fold", "monoids", "plan_fold"]

@@ -1,7 +1,7 @@
 """The paper's core: monoids, the zoo, the cost model, the planner and the
 MapReduce jobs (Algorithms 1-5), under the JAX package's names."""
 from . import monoids
-from .aggregation import local_fold, tree_bytes
+from .aggregation import grad_accum_fold, local_fold, tree_bytes
 from .calibration import (Calibration, TierCoeff, calibration_path,
                           default_calibration, get_calibration,
                           load_calibration, save_calibration,
@@ -24,6 +24,7 @@ __all__ = [
     "calibration_path", "check_laws", "check_structure",
     "collective_algorithm", "cooccurrence_stripes_job", "default_calibration",
     "execute_fold", "fold_map", "fold_stats", "get_calibration",
+    "grad_accum_fold",
     "load_calibration", "local_fold", "monoids", "plan_fold", "product",
     "register_kernel_lowering", "save_calibration", "scan_fold",
     "segment_fold", "set_calibration", "tree_bytes", "tree_fold",

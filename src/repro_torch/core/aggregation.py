@@ -3,14 +3,16 @@
 The local half of the JAX package's ``core/aggregation.py``: the combiner
 that runs before any collective, the monoid families the collectives lower
 to, the fast/slow (ICI/DCN) split of mesh axes the planner prices, and the
-byte count of a value pytree.  Keyed folds live in
+byte count of a value pytree, and the gradient accumulation fold of
+training (:func:`grad_accum_fold`).  Keyed folds live in
 :mod:`repro_torch.core.plan` (``execute_fold``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Sequence, Tuple
+from typing import Any, Callable, Sequence, Tuple
 
+import torch
 import torch.utils._pytree as pytree
 
 from .monoid import Monoid, Pytree, scan_fold, tree_fold
@@ -50,6 +52,28 @@ def split_axis_names(axes: Sequence[Any]) -> Tuple[Tuple[Any, ...],
     names = tuple(axes)
     return (tuple(a for a in names if a not in DCN_AXIS_NAMES),
             tuple(a for a in names if a in DCN_AXIS_NAMES))
+
+
+def grad_accum_fold(loss_and_grad_fn: Callable[[Pytree, Pytree],
+                                               Tuple[Pytree, Pytree]],
+                    params: Pytree, microbatches: Pytree
+                    ) -> Tuple[Pytree, Pytree]:
+    """Fold gradients over a leading microbatch axis without keeping them.
+
+    ``loss_and_grad_fn(params, microbatch) -> (metrics_monoid_value,
+    grads)``.  Both metrics and grads are folded with the Sum monoid, one
+    microbatch at a time -- the paper's Algorithm 4 with the weight-vector
+    monoid of §3 -- through the planner's in-mapper scan tier
+    (:func:`repro_torch.core.plan.execute_fold`, ``layout="scan"``).
+
+    Returns (metrics_accum, grads_sum); callers divide by the number of
+    microbatches (an ``extract``) for the mean.
+    """
+    from . import monoids          # local: monoids is a sibling, not a dep
+    from .plan import execute_fold
+
+    return execute_fold(monoids.sum_, microbatches, layout="scan",
+                        map_fn=lambda mb: loss_and_grad_fn(params, mb))
 
 
 def tree_bytes(tree: Pytree) -> int:

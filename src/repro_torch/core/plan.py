@@ -364,7 +364,8 @@ def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
               lifted: bool = True, map_fn: Optional[Callable] = None,
               axis_sizes: Optional[Mapping[Any, int]] = None,
               pre_combine: bool = True, lossy=None,
-              calibration: Optional[Calibration] = None) -> Plan:
+              calibration: Optional[Calibration] = None,
+              value_shape: Optional[Pytree] = None) -> Plan:
     """Lower a fold to a :class:`Plan` without executing it.
 
     ``values`` may be concrete or ``meta``-device tensors — planning costs
@@ -379,6 +380,9 @@ def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
     algorithm chosen by the link model.  ``pre_combine=False`` models the
     paper's Algorithm 1 (no combiner: every valid lifted pair crosses the
     wire, receivers fold) for byte accounting.
+
+    ``value_shape`` is one lifted value's shape when the caller already
+    has it; ``map_fn`` is then not run on ``meta`` tensors.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}")
@@ -398,7 +402,8 @@ def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
         _check_valid_mask(valid_mask, n)
     num_valid = _static_valid_count(valid_mask)
     n_model = n if num_valid is None else num_valid
-    value_shape = _lifted_value_shape(m, values, lifted, map_fn)
+    if value_shape is None:
+        value_shape = _lifted_value_shape(m, values, lifted, map_fn)
     vbytes = tree_bytes(value_shape)
     out_bytes = (num_segments * vbytes) if keyed else vbytes
     masked = " +mask" if valid_mask is not None else ""
@@ -655,23 +660,38 @@ def execute_fold(m: Monoid, values: Pytree, *, segment_ids=None,
     ``m.lift`` to each element first.
 
     Returns the folded value — or ``(value, plan)`` with ``with_plan=True``.
+    A flat fold forced onto the scan with a ``map_fn`` runs before it is
+    planned, and is planned from the folded value's shape: the scan needs
+    no shape to be chosen, and a map that runs a model (a forward and
+    backward) cannot be sized on ``meta`` tensors.
     Folding across devices (``mesh_axes=``) is not ported yet.
     """
     if mesh_axes:
         raise _not_ported("execute_fold(mesh_axes=)")
+    if lossy is not None:
+        raise _not_ported("lossy= compression")
+    if valid_mask is not None and axis != 0:
+        raise ValueError("valid_mask requires the batch axis at 0")
     plan_mask = valid_mask
     if valid_mask is not None:
+        _check_valid_mask(valid_mask, _leading_dim(values))
         # plan from the mask's SHAPE only: counting a device mask would
         # synchronize just for byte bookkeeping
         plan_mask = torch.empty(tuple(valid_mask.shape), dtype=torch.bool,
                                 device="meta")
+    out = value_shape = None
+    if (segment_ids is None and init is None and map_fn is not None
+            and layout == "scan"):
+        out = _scan_fold_map(m, values, map_fn, axis, valid_mask=valid_mask)
+        value_shape = pytree.tree_map(
+            lambda t: torch.empty_like(t, device="meta"), out)
     plan = plan_fold(m, values, segment_ids=segment_ids,
                      num_segments=num_segments, valid_mask=plan_mask,
                      layout=layout, lifted=lifted, map_fn=map_fn,
-                     lossy=lossy, calibration=calibration)
+                     calibration=calibration, value_shape=value_shape)
+    if out is not None:
+        return (out, plan) if with_plan else out
     kind = plan.local_tier.kind
-    if valid_mask is not None and axis != 0:
-        raise ValueError("valid_mask requires the batch axis at 0")
 
     if segment_ids is not None:
         if axis != 0:

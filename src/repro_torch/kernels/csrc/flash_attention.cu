@@ -17,7 +17,9 @@
 //     keys k_pos <= qp - window of the query at position qp, so each query
 //     keeps qp - window < k_pos <= qp;
 //   * the m_safe / alpha guards keep a row with no live key at o = 0;
-//   * the output is o / max(l, 1e-30), rounded once to q's dtype.
+//   * the output is o / max(l, 1e-30), rounded once to q's dtype;
+//   * on request (a non-null lse) each row's log-sum-exp m + log(l), the
+//     normaliser the backward reads (the Pallas kernel has no backward).
 // Unlike the Pallas kernel it takes ragged Sq and Sk (it masks the edge of
 // both axes itself), q, k, v all float32, all bfloat16 or all float16, any
 // head dim 1..256, and any batch / head / row strides with a unit-stride last
@@ -89,6 +91,7 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 128;     // a block: 4 warps of 16 query rows each
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Args {
     const void* q;
@@ -105,6 +108,7 @@ struct Args {
     const int* q_off;             // (B,) query offsets, or null (all 0)
     int window;                   // sliding window in keys, or 0 (none)
     int vec_q, vec_k, vec_v, vec_o;   // 16-byte aligned bases and strides
+    float* lse;                   // (B, H, Sq) row log-sum-exp, or null
 };
 
 // -- element types ----------------------------------------------------------
@@ -607,6 +611,11 @@ flash_attention_kernel(const Args a) {
         const float den = fmaxf(lt, 1e-30f);
         const int qr = i == 0 ? r_lo : r_hi;
         if (qr >= a.Sq) continue;
+        // the backward's softmax normaliser: lse = m + log(l) in the
+        // natural-log domain (m is kept in log2); -inf for a row with no key
+        if (a.lse != nullptr && t4 == 0)
+            a.lse[(long long)bh * a.Sq + qr] =
+                lt > 0.f ? m[i] * kLn2 + logf(lt) : -INFINITY;
         T* orow = O + qr * a.o_ss;
 #pragma unroll
         for (int j = 0; j < DB / 8; ++j) {
@@ -671,7 +680,11 @@ int aligned16(const void* p, int size, long long s0, long long s1,
 // offsets on the device (causal only: query i of batch b keeps the keys at
 // positions <= q_offset[b] + i).  window: 0, or the sliding window in keys
 // (causal only: the query at position qp also drops the keys <= qp -
-// window).  Launches on `stream`; returns cudaGetLastError() (0 on
+// window).  lse: null, or a (B, H, Sq) contiguous float32 output that
+// receives each query row's log-sum-exp of its scaled scores, m + log(l)
+// (-inf for a row with no key), which the backward
+// (flash_attention_bwd.cu) reads instead of recomputing m and l; null
+// writes nothing.  Launches on `stream`; returns cudaGetLastError() (0 on
 // success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype,
@@ -680,7 +693,7 @@ extern "C" int flash_attention_launch(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    float scale, int causal, const void* q_offset, int window,
+    float scale, int causal, const void* q_offset, int window, void* lse,
     void* stream) {
     if (batch < 0 || H < 1 || KV < 1 || H % KV != 0 || Sq < 0 || Sk < 0 ||
         d < 1 || d > 256 || dtype < 0 || dtype > 2 ||
@@ -698,7 +711,8 @@ extern "C" int flash_attention_launch(
                  aligned16(q, size, q_sb, q_sh, q_ss),
                  aligned16(k, size, k_sb, k_sh, k_ss),
                  aligned16(v, size, v_sb, v_sh, v_ss),
-                 aligned16(o, size, o_sb, o_sh, o_ss)};
+                 aligned16(o, size, o_sb, o_sh, o_ss),
+                 static_cast<float*>(lse)};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return dispatch<float>(a, batch, st);
     if (dtype == 1) return dispatch<__nv_bfloat16>(a, batch, st);

@@ -42,6 +42,16 @@ any ``Sq`` and ``Sk`` are taken (no block-multiple assert), and the kernel
 reads any batch / head / row strides with a unit-stride last axis: the model
 hands it its ``(B, S, H, d)`` projections transposed as views, and the
 output has q's memory layout.
+
+Training differentiates through the same wrapper: with grad mode on and an
+input that requires grad, :func:`flash_attention` runs a
+``torch.autograd.Function`` whose forward launch also writes each row's
+log-sum-exp (``lse``, (B, H, Sq) float32; null on the serve path, which
+writes nothing more than before) and whose backward is
+:func:`flash_attention_bwd`: the hand-written ``csrc/flash_attention_bwd.cu``
+on CUDA tensors (no TPU kernel to replace: the Pallas kernel has no
+backward, the JAX package differentiates its XLA attention), and
+:func:`flash_attention_backward_plain` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -58,7 +68,10 @@ _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 LIBRARY = CudaLibrary("flash_attention", {"flash_attention_launch": [
     _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
     _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-    ctypes.c_float, _I, _P, _I, _P]})
+    ctypes.c_float, _I, _P, _I, _P, _P]})
+BWD_LIBRARY = CudaLibrary("flash_attention_bwd", {
+    "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_L] * 24 +
+    [ctypes.c_float, _I, _I, _P]})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 256      # the largest attention head of any config (gemma3)
@@ -151,29 +164,23 @@ def _unit_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    q_offset: Optional[torch.Tensor] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Attention of ``q`` over ``k`` / ``v`` (layout ``(B, heads, S, d)``),
-    queries at ``q_offset[b] + i`` when given, keys within ``window`` of
-    each query when given: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns ``(B, H, Sq, d)`` in q's dtype, laid
-    out in memory as q is."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda (kernel) or cpu "
-                         f"(plain version); got a {q.device} tensor")
-    _check(q, k, v, q_offset, causal, window)
+def _device_of(q: torch.Tensor, *others: torch.Tensor) -> torch.device:
     dev = q.device
-    if k.device != dev or v.device != dev:
-        raise ValueError("q, k and v must share a device")
+    if any(t.device != dev for t in others):
+        raise ValueError("q, k and v (and o, do) must share a device")
+    return dev
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            q_offset: Optional[torch.Tensor], window: Optional[int],
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the forward kernel on CUDA tensors (checked), writing
+    each row's log-sum-exp into ``lse`` when given; counted."""
+    _check(q, k, v, q_offset, causal, window)
+    dev = _device_of(q, k, v)
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
-                                   window=window)
+            return _launch(q, k, v, causal, q_offset, window, lse)
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
     if q_offset is not None and q_offset.dtype != torch.int32:
         q_offset = q_offset.to(torch.int32)
@@ -191,6 +198,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         *out.stride()[:3], 1.0 / math.sqrt(d), int(causal),
         None if q_offset is None else q_offset.contiguous().data_ptr(),
         0 if window is None else min(int(window), _INT32_MAX),
+        None if lse is None else lse.data_ptr(),
         torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
@@ -200,4 +208,170 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    q_offset: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Attention of ``q`` over ``k`` / ``v`` (layout ``(B, heads, S, d)``),
+    queries at ``q_offset[b] + i`` when given, keys within ``window`` of
+    each query when given: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  Returns ``(B, H, Sq, d)`` in q's dtype, laid
+    out in memory as q is.
+
+    When grad mode is on and an input requires grad, the call goes through
+    a ``torch.autograd.Function`` whose backward is
+    :func:`flash_attention_bwd` (the forward launch then also writes each
+    row's log-sum-exp for it); otherwise the call is the serve path's
+    launch, which writes no log-sum-exp.  ``q_offset`` has no backward (the
+    warm prefill is never differentiated) and raises with grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        if q_offset is not None:
+            raise ValueError("flash_attention has no backward for q_offset "
+                             "(the warm prefill is not differentiated); "
+                             "call it under torch.no_grad()")
+        return _FlashAttention.apply(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda (kernel) or cpu "
+                         f"(plain version); got a {q.device} tensor")
+    return _launch(q, k, v, causal, q_offset, window)
+
+
 flash_attention.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The differentiable call: the forward kernel (with its log-sum-exp)
+    and :func:`flash_attention_bwd`, or the plain pair on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.device.type == "cpu":
+            out = flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+            lse = None
+        elif q.device.type == "cuda":
+            B, H, Sq, _ = q.shape
+            lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                              device=q.device)
+            out = _launch(q, k, v, causal, None, window, lse)
+        else:
+            raise ValueError(f"flash_attention runs on cuda (kernel) or cpu "
+                             f"(plain version); got a {q.device} tensor")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   do: torch.Tensor,
+                                   lse: Optional[torch.Tensor] = None, *,
+                                   causal: bool = True,
+                                   window: Optional[int] = None):
+    """The backward's formulas in plain PyTorch, float32, under the
+    forward's masks (top-left causal, ``window``, or none): with ``s = (q .
+    k) * scale``, ``D = rowsum(do * o)``, ``P = exp(s - lse)``, ``dV = P^T
+    do``, ``dP = do V^T``, ``dS = P * (dP - D)``, ``dQ = dS K * scale``,
+    ``dK = dS^T Q * scale``, the query heads of a GQA group summed into
+    their KV head.  ``lse`` (B, H, Sq) is the forward's row log-sum-exp,
+    computed here when None.  Returns (dq, dk, dv) in the inputs' dtypes."""
+    _check(q, k, v, None, causal, window)
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(d)
+    qf = q.to(torch.float32).reshape(B, KV, G, Sq, d)
+    kf = k.to(torch.float32)[:, :, None]                  # (B, KV, 1, Sk, d)
+    vf = v.to(torch.float32)[:, :, None]
+    of = o.to(torch.float32).reshape(B, KV, G, Sq, d)
+    dof = do.to(torch.float32).reshape(B, KV, G, Sq, d)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device)[:, None]
+        k_pos = torch.arange(Sk, device=q.device)[None, :]
+        keep = k_pos <= q_pos
+        if window is not None:
+            keep &= k_pos > q_pos - window
+    s = s.masked_fill(~keep, -math.inf)
+    lse = torch.logsumexp(s, dim=-1) if lse is None else \
+        lse.to(torch.float32).reshape(B, KV, G, Sq)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf).sum(dim=2) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dof).sum(dim=2)
+    return (dq.reshape(B, H, Sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor,
+                        lse: Optional[torch.Tensor], *, causal: bool = True,
+                        window: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_attention`'s output ``o`` under the
+    upstream gradient ``do``: the CUDA kernel (``csrc/flash_attention_bwd.cu``,
+    reading the forward's (B, H, Sq) float32 ``lse``) for CUDA tensors, the
+    plain version for CPU tensors.  Each result has its input's dtype and,
+    for a dense input, its memory layout.  ``flash_attention_bwd.launches``
+    counts kernel calls (each is three CUDA launches: D, dK / dV, dQ)."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, do, lse,
+                                              causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda (kernel) or cpu "
+                         f"(plain version); got a {q.device} tensor")
+    _check(q, k, v, None, causal, window)
+    dev = _device_of(q, k, v, o, do)
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
+            do.dtype != q.dtype:
+        raise ValueError(f"o and do must be (B, H, Sq, d) = {tuple(q.shape)} "
+                         f"in {q.dtype}; got {tuple(o.shape)} {o.dtype}, "
+                         f"{tuple(do.shape)} {do.dtype}")
+    if lse is None or tuple(lse.shape) != (B, H, Sq) or \
+            lse.dtype != torch.float32 or lse.device != dev:
+        raise ValueError(f"the kernel reads the forward's ({B}, {H}, {Sq}) "
+                         f"float32 lse on {dev}")
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                       window=window)
+    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+    o, do, lse = _unit_last(o), _unit_last(do), lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if B == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    err = BWD_LIBRARY.load().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], B, H, KV, Sq,
+        Sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
+        *dk.stride()[:3], *dv.stride()[:3], 1.0 / math.sqrt(d), int(causal),
+        0 if window is None else min(int(window), _INT32_MAX),
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -5,15 +5,16 @@ decode."""
 from . import moe, ssm
 from .common import ModelConfig, dense, embed_lookup, rms_norm, rotary_embed
 from .convert import params_from_jax
-from .transformer import (context_conditioned, decode_step, encode, forward,
-                          forward_with_stats, init_cache, init_params,
-                          num_params, positional_cache, prefill, recurrent,
-                          unembed)
+from .transformer import (RunCtx, context_conditioned, decode_step, encode,
+                          forward, forward_with_stats, init_cache,
+                          init_params, loss_fn, num_params, positional_cache,
+                          prefill, recurrent, unembed)
 
 __all__ = [
-    "ModelConfig", "context_conditioned", "decode_step", "dense",
+    "ModelConfig", "RunCtx", "context_conditioned", "decode_step", "dense",
     "embed_lookup", "encode", "forward",
-    "forward_with_stats", "init_cache", "init_params", "moe", "num_params",
+    "forward_with_stats", "init_cache", "init_params", "loss_fn", "moe",
+    "num_params",
     "params_from_jax", "positional_cache", "prefill", "recurrent",
     "rms_norm", "rotary_embed", "ssm", "unembed",
 ]

@@ -17,6 +17,11 @@ are: an MoE layer's ``ffn`` holds ``router``, ``we_gate``, ``we_up``,
 ``ln_g``; sLSTM's block-diagonal ``w_h``), and no ``norm2`` / ``ffn`` where
 the FFN is ``none``.  The encoder's unrolled ``encoder["layer_i"]`` become
 the list ``encoder["layers"]``, beside its ``final_norm``.
+
+:func:`to_jax_layout` / :func:`from_jax_layout` move any tree shaped like
+the port's parameters (gradients, error-feedback state) into the JAX
+package's stacked layout and back, for what reads a stacked leaf as one
+unit (the lossy gradient compressors select and scale per leaf).
 """
 from __future__ import annotations
 
@@ -81,3 +86,59 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                        for i in range(cfg.encoder_layers)],
             "final_norm": conv(enc["final_norm"])}
     return out
+
+
+def to_jax_layout(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """A tree shaped like the port's parameters in the JAX package's
+    layout: layer ``p * P + j`` becomes period ``p`` of
+    ``layers["slot_j"]`` (stacked along a new leading dim), the remainder
+    layers ``rem_i``, the encoder's layers ``encoder["layer_i"]``."""
+    P = cfg.period
+    n_periods = cfg.num_layers // P
+    layers = tree["layers"]
+    out = {k: v for k, v in tree.items() if k not in ("layers", "encoder")}
+    if n_periods:
+        out["layers"] = {
+            f"slot_{j}": pytree.tree_map(
+                lambda *xs: torch.stack(xs),
+                *[layers[p * P + j] for p in range(n_periods)])
+            for j in range(P)}
+    for i in range(cfg.num_layers - n_periods * P):
+        out[f"rem_{i}"] = layers[n_periods * P + i]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {f"layer_{i}": layer
+                          for i, layer in enumerate(enc["layers"])}
+        out["encoder"]["final_norm"] = enc["final_norm"]
+    return out
+
+
+def from_jax_layout(tree: Dict[str, Any], cfg: ModelConfig,
+                    like: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`to_jax_layout` (tensors kept as they are:
+    views of the stacked leaves), with the keys in ``like``'s order, so it
+    flattens leaf for leaf as ``like`` does."""
+    P = cfg.period
+    n_periods = cfg.num_layers // P
+    layers = [pytree.tree_map(lambda a, p=p: a[p],
+                              tree["layers"][f"slot_{j}"])
+              for p in range(n_periods) for j in range(P)]
+    layers += [tree[f"rem_{i}"] for i in range(cfg.num_layers -
+                                                n_periods * P)]
+    out = {k: v for k, v in tree.items()
+           if k not in ("layers", "encoder") and not k.startswith("rem_")}
+    out["layers"] = layers
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [enc[f"layer_{i}"] for i in range(cfg.encoder_layers)],
+            "final_norm": enc["final_norm"]}
+    return _ordered_as(out, like)
+
+
+def _ordered_as(tree, like):
+    if isinstance(like, dict):
+        return {k: _ordered_as(tree[k], like[k]) for k in like}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_ordered_as(t, x) for t, x in zip(tree, like))
+    return tree

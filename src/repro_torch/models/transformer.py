@@ -1,7 +1,8 @@
 """Model assembly: init, full-sequence forward, one-pass prefill, decode
-cache, decode step, and the encoder of the encoder-decoder archs.
+cache, decode step, the encoder of the encoder-decoder archs, and the
+training loss.
 
-The port of the serving half of ``repro/models/transformer.py``.  The JAX
+The port of ``repro/models/transformer.py`` but for MLA.  The JAX
 package stacks the layers over a leading ``n_periods`` dim and runs them
 with ``lax.scan``; here ``params["layers"]`` is a list of per-layer dicts run
 by a Python loop (``models/convert.py`` unstacks JAX weights).  The decode
@@ -42,14 +43,23 @@ prefill (:func:`prefill` raises): the engine runs the decode step over the
 bucket, as the JAX package's engine does for every arch.  MLA
 (deepseek-v2, ``cfg.use_mla``) is not ported yet (``init_params`` /
 ``init_cache`` raise for it).
+
+:func:`loss_fn` (with :class:`RunCtx`) is the training form: the forward
+under the caller's grad mode, each layer recomputed in the backward with
+``remat="full"``, the attention differentiated through
+``flash_attention``'s autograd Function (its hand-written backward
+kernel), and the cross-entropy folded chunk by chunk with ``ce_chunk``.
+``init_cache``, ``prefill`` and ``decode_step`` stay no-grad.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -315,14 +325,29 @@ def _embed(params: Pytree, cfg: ModelConfig,
     return x
 
 
+def _remat_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
+                 x: torch.Tensor, window: Optional[int],
+                 stats: Optional[Dict], context):
+    """One layer under ``torch.utils.checkpoint``: its activations are
+    dropped after the forward and recomputed in the backward (the JAX
+    package's ``remat="full"``, which wraps each period)."""
+    def run(x, stats, context):
+        x, _, stats = _full_layer(p, cfg, ltype, ftype, x, window, stats,
+                                  context)
+        return x, stats
+    return checkpoint(run, x, stats, context, use_reentrant=False)
+
+
 def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
-             cache_layers=None, prefix_len=None, context=None):
+             cache_layers=None, prefix_len=None, context=None,
+             remat: bool = False):
     """(final hidden states of (B, S) tokens, MoE stats or None); with
     ``cache_layers``, each layer's (k, v) is written in place into rows
     [0, S) of its cache, or, with ``prefix_len``, into rows [prefix_len,
     prefix_len + S) after the cached prefix rows it attends to.  A
     ``context`` is encoded first when the arch has an encoder, then every
-    cross-attending layer attends to it."""
+    cross-attending layer attends to it.  ``remat`` (training) recomputes
+    each layer in the backward (:func:`_remat_layer`)."""
     S = tokens.shape[1]
     x = _embed(params, cfg, tokens)
     stats = _zero_stats(cfg, x.device)
@@ -333,6 +358,10 @@ def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     for i, p in enumerate(params["layers"]):
         ltype, window, ftype = cfg.block_type(i), layer_window(cfg, i), \
             cfg.ffn_type(i)
+        if remat:
+            x, stats = _remat_layer(p, cfg, ltype, ftype, x, window, stats,
+                                    context)
+            continue
         if prefix_len is not None:
             c = cache_layers[i]
             x, _, stats = _full_layer(p, cfg, ltype, ftype, x, window, stats,
@@ -357,7 +386,6 @@ def _sinusoid(S: int, D: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
-@torch.no_grad()
 def encode(params: Pytree, cfg: ModelConfig,
            features: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder over precomputed frame embeddings (B, S_enc, D) ->
@@ -376,17 +404,16 @@ def encode(params: Pytree, cfg: ModelConfig,
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
-@torch.no_grad()
 def forward_with_stats(params: Pytree, cfg: ModelConfig,
                        tokens: torch.Tensor, *,
                        context: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Token ids (B, S) -> (final hidden states (B, S, D), stats): the JAX
-    package's ``forward`` (no remat; forward only, as the attention kernel
-    is).  ``context`` (B, Sc, D) conditions a context arch (encoded first
-    when it has an encoder).  ``stats`` is ``{"expert_load": (E,) int32,
-    "dropped": int32}`` summed over the MoE layers, or None without
-    experts."""
+    package's ``forward`` (no remat; :func:`loss_fn` is the training form),
+    under the caller's grad mode.  ``context`` (B, Sc, D) conditions a
+    context arch (encoded first when it has an encoder).  ``stats`` is
+    ``{"expert_load": (E,) int32, "dropped": int32}`` summed over the MoE
+    layers, or None without experts."""
     return _forward(params, cfg, tokens, context=context)
 
 
@@ -444,6 +471,87 @@ def unembed(params: Pytree, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     float32, as ``preferred_element_type=float32`` does."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.matmul(h.to(torch.float32), w.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# training: the loss
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RunCtx:
+    """Execution-context knobs of the training forward (the JAX package's
+    ``RunCtx``).  ``mesh`` must be None: the mesh tier is a later slice.
+    ``moe_impl`` is accepted and, on one device, runs ``moe_ffn_local`` as
+    the JAX package does there.  ``attn_chunk`` is accepted for the JAX
+    package's chunked attention; the kernel's own KV tiles take its place.
+    ``ce_chunk > 0`` folds the cross-entropy chunk by chunk of the
+    sequence; ``remat="full"`` recomputes each layer in the backward."""
+    mesh: Any = None
+    moe_impl: str = "replicated"
+    attn_chunk: Optional[int] = None
+    ce_chunk: int = 0
+    remat: str = "full"                 # full | none
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "RunCtx(mesh=) needs the mesh tier, a later slice of the port "
+                "(ROADMAP: mesh tier)")
+        if self.remat not in ("full", "none"):
+            raise ValueError(f"remat must be 'full' or 'none'; got "
+                             f"{self.remat!r}")
+
+
+def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor):
+    """(sum of the masked token losses, int32 count of masked tokens whose
+    argmax is the label) of (..., V) logits."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    loss = (lse - gold) * mask
+    correct = (torch.argmax(logits, dim=-1) == labels) & (mask > 0)
+    return loss.sum(), correct.sum().to(torch.int32)
+
+
+def loss_fn(params: Pytree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            ctx: RunCtx = RunCtx()) -> Tuple[torch.Tensor, Dict]:
+    """Mean cross-entropy and its metrics, a Sum-monoid dict (``loss_sum``,
+    ``tokens``, ``correct``, plus ``expert_load`` and ``moe_dropped`` with
+    experts, all float32), differentiable in ``params``: the JAX package's
+    ``loss_fn``.  Labels < 0 are masked.
+
+    ``ctx.ce_chunk > 0`` (dividing S) produces and folds the logits chunk
+    by chunk of the sequence -- in-mapper combining of ``(loss_sum,
+    correct)`` -- each chunk's logits recomputed in the backward, so the
+    full (B, S, V) logits are never live."""
+    tokens = batch["tokens"]
+    labels = batch["labels"]
+    mask = (labels >= 0).to(torch.float32)
+    labels_safe = torch.clamp(labels, min=0)
+    h, stats = _forward(params, cfg, tokens, context=batch.get("context"),
+                        remat=ctx.remat == "full")
+    S = tokens.shape[1]
+    if ctx.ce_chunk and S % ctx.ce_chunk == 0:
+        def chunk(hc, lc, mc):
+            return _ce_from_logits(unembed(params, cfg, hc), lc, mc)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        correct = torch.zeros((), dtype=torch.int32, device=h.device)
+        for c0 in range(0, S, ctx.ce_chunk):
+            sl = slice(c0, c0 + ctx.ce_chunk)
+            ls, cr = checkpoint(chunk, h[:, sl], labels_safe[:, sl],
+                                mask[:, sl], use_reentrant=False)
+            loss_sum, correct = loss_sum + ls, correct + cr
+    else:
+        loss_sum, correct = _ce_from_logits(unembed(params, cfg, h),
+                                            labels_safe, mask)
+    ntok = mask.sum()
+    metrics = {"loss_sum": loss_sum, "tokens": ntok,
+               "correct": correct.to(torch.float32)}
+    if stats is not None:
+        metrics["expert_load"] = stats["expert_load"].to(torch.float32)
+        metrics["moe_dropped"] = stats["dropped"].to(torch.float32)
+    return loss_sum / torch.clamp(ntok, min=1.0), metrics
 
 
 @torch.no_grad()

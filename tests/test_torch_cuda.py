@@ -916,3 +916,101 @@ def test_cuda_recurrent_decode_step_replays_from_a_graph(cuda_device, arch):
                                                  toks[:, 4:], iters=2)
     assert equal
     assert flash_attention.launches == before
+
+
+# (B, H, KV, Sq, Sk, d, causal, window): the backward's contract at small
+# shapes -- head-dim buckets, GQA, ragged tiles, Sq != Sk, the window
+FLASH_BWD_CASES = {
+    "d8 GQA causal": (2, 4, 2, 37, 37, 8, True, None),
+    "d40 causal ragged": (2, 4, 1, 100, 100, 40, True, None),
+    "d128 GQA causal": (1, 8, 2, 130, 130, 128, True, None),
+    "d256 window": (1, 4, 1, 200, 200, 256, True, 48),
+    "d64 non-causal Sq<Sk": (2, 3, 3, 50, 170, 64, False, None),
+    "d40 non-causal Sq>Sk": (1, 4, 2, 90, 33, 40, False, None),
+    "d128 window 3": (1, 2, 1, 70, 70, 128, True, 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2),
+                                        (torch.float16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_CASES))
+def test_cuda_flash_attention_backward_matches_plain(cuda_device, case,
+                                                     dtype, rtol):
+    """The backward kernel (through the autograd Function) against
+    ``flash_attention_backward_plain`` in f32 on the same inputs: each of
+    dq, dk, dv within ``rtol`` of its max magnitude (16-bit: one rounding
+    of each gradient and of the forward's o); one backward launch per
+    call; the forward's output equal to the no-grad launch's bit for
+    bit."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_plain, flash_attention_bwd)
+
+    B, H, KV, Sq, Sk, d, causal, window = FLASH_BWD_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + d)
+    q, k, v = [torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+               .requires_grad_() for s in
+               ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+    do = torch.randn((B, H, Sq, d), generator=gen,
+                     device=cuda_device).to(dtype)
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == f0 + 1
+    assert flash_attention_bwd.launches == b0 + 1
+    with torch.no_grad():
+        plain_launch = flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(o.detach(), plain_launch)
+    want = flash_attention_backward_plain(
+        q.detach().float(), k.detach().float(), v.detach().float(),
+        o.detach().float(), do.float(), causal=causal, window=window)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert float((g.float() - w).abs().max()) <= \
+            rtol * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_backward_empty_and_strided(cuda_device):
+    """Keys no query sees get zero dk / dv (causal Sk > Sq); inputs read
+    through (B, S, heads, d) strides, as the model passes them."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_plain)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((2, 40, 6, 32), generator=gen, device=cuda_device)
+    q = x[:, :, :4].transpose(1, 2).detach().requires_grad_()
+    kv = torch.randn((2, 90, 2, 32), generator=gen, device=cuda_device)
+    k = kv[:, :, :1].transpose(1, 2).detach().requires_grad_()
+    v = kv[:, :, 1:].transpose(1, 2).detach().requires_grad_()
+    o = flash_attention(q, k, v, causal=True)
+    do = torch.randn_like(o)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    want = flash_attention_backward_plain(q.detach(), k.detach(), v.detach(),
+                                          o.detach(), do, causal=True)
+    for g, w in zip((dq, dk, dv), want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    assert float(dk[:, :, 40:].abs().max()) == 0.0
+    assert float(dv[:, :, 40:].abs().max()) == 0.0
+    # window 1: each query sees only its own key, so P = 1 and dS = P (dP -
+    # D) = 0: dq and dk vanish up to the rounding of D, dv is do
+    q1, k1, v1 = (torch.randn((1, 2, 70, 128), generator=gen,
+                              device=cuda_device).to(torch.bfloat16)
+                  .requires_grad_() for _ in range(3))
+    o1 = flash_attention(q1, k1, v1, causal=True, window=1)
+    do1 = torch.randn_like(o1)
+    dq1, dk1, dv1 = torch.autograd.grad(o1, (q1, k1, v1), do1)
+    assert torch.equal(o1.detach(), v1.detach())
+    assert torch.equal(dv1, do1)
+    assert float(dq1.abs().max()) <= 1e-3 and float(dk1.abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_train_smoke_matches_cpu(cuda_device):
+    """chip_smoke phase 14(b): the f32 qwen3 smoke model trains 5 steps (2
+    microbatches, remat) on the card and on the CPU from the same weights
+    and batches; loss and grad_norm within 1e-4 at every step."""
+    import argparse
+    _chip_smoke().train_smoke_card_vs_cpu(argparse.Namespace(seed=0))

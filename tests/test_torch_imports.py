@@ -41,7 +41,13 @@ def test_scan_sees_the_whole_port():
                    "kernels/flash_attention.py",
                    "kernels/stripes.py", "kernels/_build.py",
                    "examples/quickstart.py",
-                   "examples/streaming_analytics.py"):
+                   "examples/streaming_analytics.py",
+                   # the training slice
+                   "optim/__init__.py", "optim/adamw.py",
+                   "optim/compress.py", "checkpoint/__init__.py",
+                   "checkpoint/store.py", "runtime/fault_tolerance.py",
+                   "launch/steps.py", "launch/train.py",
+                   "examples/train_lm.py", "core/aggregation.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) >= 30
     assert _forbidden("jax.numpy") and _forbidden("repro.core.plan")

@@ -13,6 +13,7 @@ import pytest
 import torch
 import torch.utils._pytree as pytree
 
+import repro.optim  # noqa: F401  (registers the JAX lossy monoids)
 from repro.core import monoid as jmonoid
 from repro.core import monoids as jm
 from repro_torch.core import monoid as tmonoid
@@ -47,17 +48,19 @@ def test_law_samples_and_combines_match_jax(name):
 
 
 def test_registry_is_the_kernel_lowered_family():
-    """The JAX registry minus the monoids of a later slice (lossy_*:
-    training, which ``repro.optim`` registers when some other test has
-    imported it); the decay monoids and ``cache_stats`` came with the
-    prefix cache.  The kernel-lowered family is exactly the monoids with a
-    registered lowering."""
-    later = {n for n in jm.REGISTRY if n.startswith("lossy_")}
+    """The JAX registry, monoid for monoid: the decay monoids and
+    ``cache_stats`` came with the prefix cache, the lossy gradient monoids
+    (``lossy_topk8``, ``lossy_int8``) with training, which registers them
+    when ``repro_torch`` is imported (``repro.optim`` registers the JAX
+    package's, imported at the top of this file).  The kernel-lowered
+    family is exactly the monoids with a registered lowering."""
     assert {n for n in tm.REGISTRY if n.startswith(("decayed_",
                                                      "cache_stats"))} == {
         "decayed_sum(hl=16)", "decayed_count(hl=16)", "decayed_lru(hl=16)",
         "cache_stats(hl=32)"}
-    assert set(tm.REGISTRY) == set(jm.REGISTRY) - later
+    assert {n for n in tm.REGISTRY if n.startswith("lossy_")} == {
+        "lossy_topk8", "lossy_int8"}
+    assert set(tm.REGISTRY) == set(jm.REGISTRY)
     assert tm.missing_law_samples() == []
     lowered = {name for name, m in tm.REGISTRY.items()
                if m.kernel_lowering() is not None}
