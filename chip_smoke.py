@@ -140,9 +140,12 @@ Phases, each of which must pass or the script exits non-zero:
    training shapes t1-t5 (qwen3-0.6b B 8 x S 1024, gemma3's window 512 at
    d 256, the whisper encoder, cross-attention at Sq 64 / Sk 1500, odd f32
    sizes): each gradient within 2e-2 (16-bit) or 1e-4 (f32) of its max
-   magnitude, one backward launch per call, timed beside its bound, its
-   plain version and SDPA's backward, and forward + backward beside SDPA's
-   forward + backward; (b) the qwen3 smoke model
+   magnitude, one backward launch per call in the design the case must
+   take (``wgmma`` for t1-t4, the CUDA cores for t5; printed), timed in
+   turns with SDPA's backward (ours, SDPA, SDPA, ours; 20 calls a
+   reading after a warm-up, both readings printed) beside its bound and
+   its plain version, and forward + backward beside SDPA's forward +
+   backward; (b) the qwen3 smoke model
    in f32 trains 5 steps (2 microbatches) on the card and on the CPU from
    the same parameters and batches, loss and grad_norm within 1e-4; (c)
    qwen3-0.6b at full width, nothing cut, through the training CLI: 20
@@ -152,8 +155,8 @@ Phases, each of which must pass or the script exits non-zero:
    CLI run from a copy of the step-10 checkpoint to step 20 ends with the
    stream stats and token count equal and losses within 1e-2; median step
    time, tokens/s, the step's bound and share, peak memory and the
-   backward's share of one profiled step.  ``--train-only`` runs phases 1
-   and 14 alone.
+   backward's share of one profiled step, split by kernel.
+   ``--train-only`` runs phases 1 and 14 alone.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2931,19 +2934,22 @@ def jamba_phase(args, flash_attention):
 # restart) on flash_attention's hand-written backward
 # ---------------------------------------------------------------------------
 
-# (name, B, H, KV, Sq, Sk, d, dtype, causal, window)
+# (name, B, H, KV, Sq, Sk, d, dtype, causal, window, the design the
+# launcher must take: flash_attention.backward_design)
 FLASH_BWD_CASES = [
     ("t1: qwen3-0.6b training B8 S1024 H16/KV8 d128 bf16 causal", 8, 16, 8,
-     1024, 1024, 128, torch.bfloat16, True, None),
+     1024, 1024, 128, torch.bfloat16, True, None, "wgmma"),
     ("t2: gemma3 local layer B2 S1024 H4/KV1 d256 bf16 window 512", 2, 4, 1,
-     1024, 1024, 256, torch.bfloat16, True, 512),
+     1024, 1024, 256, torch.bfloat16, True, 512, "wgmma"),
     ("t3: whisper encoder B8 S1500 H12/KV12 d64 bf16 non-causal", 8, 12, 12,
-     1500, 1500, 64, torch.bfloat16, False, None),
+     1500, 1500, 64, torch.bfloat16, False, None, "wgmma"),
     ("t4: cross-attention B2 Sq64 Sk1500 H12/KV12 d64 bf16 non-causal", 2, 12,
-     12, 64, 1500, 64, torch.bfloat16, False, None),
+     12, 64, 1500, 64, torch.bfloat16, False, None, "wgmma"),
     ("t5: odd sizes B2 S100 H4/KV2 d40 f32 causal", 2, 4, 2, 100, 100, 40,
-     torch.float32, True, None),
+     torch.float32, True, None, "cuda_cores"),
 ]
+# calls timed per reading of phase 14(a), after a warm-up call
+BWD_ITERS = 20
 # each gradient's max error against the f32 plain version, as a share of
 # that gradient's max magnitude: 16-bit inputs round dq / dk / dv once (and
 # the forward's o, which D reads) to 8 (bf16) or 11 (f16) bits; f32 sums
@@ -2973,13 +2979,16 @@ def run_flash_bwd_case(case, gen, dev) -> dict:
     """Phase 14(a): the backward through the autograd Function (the forward
     launch writing the row log-sum-exp, then ``flash_attention_bwd``)
     against ``flash_attention_backward_plain`` on the same inputs in f32;
-    one backward launch per call; the backward kernel, its plain version,
-    SDPA's backward alone (``library_ms``), and our forward + backward
-    beside SDPA's (``fwd_bwd_ms``, ``library_fwd_bwd_ms``) timed."""
+    one backward launch per call, in the design the case expects; the
+    backward kernel and SDPA's backward alone timed in turns (ours, SDPA,
+    SDPA, ours: ``kernel_ms`` and ``library_ms`` are the means of each
+    pair), then its plain version and our forward + backward beside SDPA's
+    (``fwd_bwd_ms``, ``library_fwd_bwd_ms``), ``BWD_ITERS`` calls a
+    reading."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_backward_plain, flash_attention_bwd)
 
-    name, B, H, KV, Sq, Sk, d, dtype, causal, window = case
+    name, B, H, KV, Sq, Sk, d, dtype, causal, window, expect = case
     q, k, v = [torch.randn(shape, generator=gen, device=dev).to(dtype)
                .requires_grad_()
                for shape in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
@@ -2996,13 +3005,13 @@ def run_flash_bwd_case(case, gen, dev) -> dict:
     rel = [max_err(g, w) / max(float(w.abs().max()), 1e-30)
            for g, w in zip(got, want)]
     rtol = FLASH_BWD_RTOL[dtype]
-    ok = launches == 1 and all(e <= rtol for e in rel)
+    design = flash_attention_bwd.last_design
+    ok = launches == 1 and all(e <= rtol for e in rel) and design == expect
 
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     from repro_torch.kernels.flash_attention import _launch
     _launch(qd, kd, vd, causal, None, window, lse)
-    iters = 3 if Sq * Sk * B * H > 1 << 26 else 20
 
     def kernel():
         return flash_attention_bwd(qd, kd, vd, o, do, lse, causal=causal,
@@ -3036,11 +3045,12 @@ def run_flash_bwd_case(case, gen, dev) -> dict:
         return torch.autograd.grad(sdpa_out, (q, k, v), do,
                                    retain_graph=True)
 
-    ms = cuda_ms(kernel, iters)
-    plain_ms = cuda_ms(plain, iters)
-    fwd_bwd_ms = cuda_ms(ours_fwd_bwd, iters)
-    library_ms = cuda_ms(library, iters)
-    library_fwd_bwd_ms = cuda_ms(library_fwd_bwd, iters)
+    pair = [cuda_ms(kernel, BWD_ITERS), cuda_ms(library, BWD_ITERS)]
+    pair += [cuda_ms(library, BWD_ITERS), cuda_ms(kernel, BWD_ITERS)]
+    ms, library_ms = (pair[0] + pair[3]) / 2, (pair[1] + pair[2]) / 2
+    plain_ms = cuda_ms(plain, BWD_ITERS)
+    fwd_bwd_ms = cuda_ms(ours_fwd_bwd, BWD_ITERS)
+    library_fwd_bwd_ms = cuda_ms(library_fwd_bwd, BWD_ITERS)
     del sdpa_out
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + \
         lse.numel() * 4
@@ -3049,14 +3059,21 @@ def run_flash_bwd_case(case, gen, dev) -> dict:
     # the forward's q k^T and p v once, the backward's five products
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    # the kernels' own floor: 7 tile products where the bound counts 5 (s
+    # and dP are recomputed in the dQ kernel, which keeps the sums free of
+    # atomics)
+    seven_ms = max(bytes_ms, ops_ms * 7 / 5)
     return dict(name=name, ok=ok, max_abs_err=max(max_err(g, w) for g, w in
                                                   zip(got, want)),
                 rel_errs=rel, tolerance=f"rtol={rtol} of max|grad|",
+                design=design, expected_design=expect,
+                readings=dict(ours=[pair[0], pair[3]],
+                              sdpa_backward=[pair[1], pair[2]]),
                 launches=launches, ms=ms, plain_ms=plain_ms,
                 fwd_bwd_ms=fwd_bwd_ms, library_ms=library_ms,
                 library_fwd_bwd_ms=library_fwd_bwd_ms,
-                bound_ms=max(bytes_ms, ops_ms), flops=flops,
-                bound_bytes=nbytes,
+                bound_ms=max(bytes_ms, ops_ms), seven_product_ms=seven_ms,
+                flops=flops, bound_bytes=nbytes,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -3226,11 +3243,14 @@ def train_phase(args) -> int:
             dev_us[e.key] = t
         total = sum(dev_us.values())
         # flash_attention_bwd.cu's kernels: D, then dK / dV and dQ (the
-        # tensor-core and the CUDA-core forms)
+        # wgmma, mma.sync and CUDA-core designs)
+        bwd_names = ("delta_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel",
+                     "dkdv_mma_kernel", "dq_mma_kernel", "dkdv_kernel",
+                     "dq_kernel")
         bwd_us = sum(t for k, t in dev_us.items()
-                     if any(n in k for n in ("delta_kernel", "dkdv_kernel",
-                                             "dkdv_mma_kernel", "dq_kernel",
-                                             "dq_mma_kernel")))
+                     if any(n in k for n in bwd_names))
+        split = {n: sum(t for k, t in dev_us.items() if n in k)
+                 for n in bwd_names}
         fwd_us = sum(t for k, t in dev_us.items()
                      if "flash_attention_kernel" in k)
         print(f"  one step's device time (profiler): {total / 1e3:.1f} ms; "
@@ -3238,6 +3258,8 @@ def train_phase(args) -> int:
               f"{bwd_us / max(total, 1e-9):.3f}), flash_attention forward "
               f"{fwd_us / 1e3:.1f} ms (share {fwd_us / max(total, 1e-9):.3f})",
               flush=True)
+        print("  flash_attention_bwd by kernel (ms): " + ", ".join(
+            f"{n} {t / 1e3:.2f}" for n, t in split.items() if t), flush=True)
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
         for k, t in top:
             print(f"    {t / 1e3:9.2f} ms  {k[:100]}", flush=True)
@@ -3255,6 +3277,12 @@ def training_phase(args, gen, dev) -> tuple:
         row = run_flash_bwd_case(case, gen, dev)
         rows.append(row)
         print_row("flash_attention_bwd", row)
+        print(f"  design={row['design']} (expected "
+              f"{row['expected_design']}) readings in turns (ours, SDPA "
+              f"backward, SDPA backward, ours; {BWD_ITERS} calls each): "
+              f"ours={row['readings']['ours']} "
+              f"sdpa_backward={row['readings']['sdpa_backward']} "
+              f"seven_product_ms={row['seven_product_ms']}", flush=True)
         print(f"  launches per call={row['launches']} rel_errs(dq, dk, dv)="
               f"{row['rel_errs']} fwd_bwd_ms={row['fwd_bwd_ms']} "
               f"library_fwd_bwd_ms={row['library_fwd_bwd_ms']} "
@@ -3264,7 +3292,8 @@ def training_phase(args, gen, dev) -> tuple:
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"flash_attention_bwd disagrees with its plain "
-                           f"version or is not one launch: {bad}")
+                           f"version, is not one launch or took another "
+                           f"design: {bad}")
     train_smoke_card_vs_cpu(args)
     torch.cuda.empty_cache()
     launches = train_phase(args)
@@ -3484,7 +3513,8 @@ def main(argv=None) -> int:
                    "src/repro/models/attention.py:151 (XLA autodiff of the "
                    "attention; no TPU kernel)", bwd_launches, bwd_row),
              fwd_bwd_ms=bwd_row["fwd_bwd_ms"],
-             library_fwd_bwd_ms=bwd_row["library_fwd_bwd_ms"]),
+             library_fwd_bwd_ms=bwd_row["library_fwd_bwd_ms"],
+             design=bwd_row["design"]),
     ]}
     print(f"card: {card}")
     print(json.dumps(record))

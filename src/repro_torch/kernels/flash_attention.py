@@ -51,7 +51,15 @@ writes nothing more than before) and whose backward is
 :func:`flash_attention_bwd`: the hand-written ``csrc/flash_attention_bwd.cu``
 on CUDA tensors (no TPU kernel to replace: the Pallas kernel has no
 backward, the JAX package differentiates its XLA attention), and
-:func:`flash_attention_backward_plain` on CPU tensors.
+:func:`flash_attention_backward_plain` on CPU tensors.  The kernel runs one
+of three designs, chosen by :func:`backward_design` from dtype, head dim
+and strides before the launch: ``wgmma`` (16-bit at head dims 64 / 128 /
+256 with TMA-ready bases and strides: a producer warp fills a ring of
+TMA-loaded tiles, consumer warpgroups run every product as ``wgmma``),
+``mma_sync`` (the other 16-bit inputs) and ``cuda_cores`` (float32).  For
+16-bit inputs P and dS are rounded once to the inputs' dtype before the
+products that read them, as the reference rounds its softmax weights
+before p . v; everything else is float32.
 """
 from __future__ import annotations
 
@@ -71,12 +79,18 @@ LIBRARY = CudaLibrary("flash_attention", {"flash_attention_launch": [
     ctypes.c_float, _I, _P, _I, _P, _P]})
 BWD_LIBRARY = CudaLibrary("flash_attention_bwd", {
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_L] * 24 +
-    [ctypes.c_float, _I, _I, _P]})
+    [ctypes.c_float, _I, _I, _I, _P]})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 256      # the largest attention head of any config (gemma3)
 PLAIN_BLOCK_K = 128     # the Pallas kernel's default KV block
 _INT32_MAX = 2 ** 31 - 1
+# the backward's designs (csrc/flash_attention_bwd.cu's enum Design), the
+# head dims its wgmma design takes, and the rows of its lse / D scratch per
+# (batch, head): Sq rounded up to BWD_ROW_PAD (the source's kRowPad)
+BWD_DESIGNS = ("cuda_cores", "mma_sync", "wgmma")
+WGMMA_HEAD_DIMS = (64, 128, 256)
+BWD_ROW_PAD = 128
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -318,6 +332,34 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
             dv.to(v.dtype))
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """What the wgmma design's TMA boxes and paired stores need of one
+    16-bit operand: a 16-byte aligned base and 16-byte strides on every
+    axis of more than one entry (the source's ``tma_ready``)."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    return all(s > 0 and s * t.element_size() % 16 == 0
+               for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def backward_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor) -> str:
+    """The design :func:`flash_attention_bwd` launches for these inputs
+    (unit-stride last axis; its outputs take their inputs' layout), chosen
+    by dtype, head dim and strides before the launch: ``"cuda_cores"`` for
+    float32; ``"wgmma"`` (TMA ring, warp-specialised ``wgmma``) for 16-bit
+    inputs at a head dim of 64, 128 or 256 with non-empty Sq and Sk and q,
+    k, v and do all :func:`_tma_ready`; ``"mma_sync"`` for every other
+    16-bit input (odd head dims, unaligned bases or strides, empty
+    sequences)."""
+    if q.dtype == torch.float32:
+        return "cuda_cores"
+    if q.shape[-1] in WGMMA_HEAD_DIMS and q.shape[2] > 0 and \
+            k.shape[2] > 0 and all(_tma_ready(t) for t in (q, k, v, do)):
+        return "wgmma"
+    return "mma_sync"
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
                         lse: Optional[torch.Tensor], *, causal: bool = True,
@@ -327,7 +369,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reading the forward's (B, H, Sq) float32 ``lse``) for CUDA tensors, the
     plain version for CPU tensors.  Each result has its input's dtype and,
     for a dense input, its memory layout.  ``flash_attention_bwd.launches``
-    counts kernel calls (each is three CUDA launches: D, dK / dV, dQ)."""
+    counts kernel calls (each is three CUDA launches: D, dK / dV, dQ);
+    ``flash_attention_bwd.last_design`` names the design the last kernel
+    call ran (:func:`backward_design`)."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, do, lse,
                                               causal=causal, window=window)
@@ -356,22 +400,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0:
         return dq, dk, dv
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    design = backward_design(q, k, v, do)
+    sqp = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
+    scratch = torch.empty(2 * B * H * sqp, dtype=torch.float32, device=dev)
     err = BWD_LIBRARY.load().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], B, H, KV, Sq,
         Sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
         *dk.stride()[:3], *dv.stride()[:3], 1.0 / math.sqrt(d), int(causal),
         0 if window is None else min(int(window), _INT32_MAX),
+        BWD_DESIGNS.index(design),
         torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype})")
+                           f"{tuple(k.shape)}, {q.dtype}, {design})")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.last_design = design
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.last_design = None

@@ -919,7 +919,9 @@ def test_cuda_recurrent_decode_step_replays_from_a_graph(cuda_device, arch):
 
 
 # (B, H, KV, Sq, Sk, d, causal, window): the backward's contract at small
-# shapes -- head-dim buckets, GQA, ragged tiles, Sq != Sk, the window
+# shapes -- head-dim buckets, GQA, ragged tiles, Sq != Sk, the window; the
+# wgmma design's edges: d 64 / 128 / 256, Sq and Sk off the 64-row tile,
+# GQA groups of 1, 2 and 8, window 512 at d 256
 FLASH_BWD_CASES = {
     "d8 GQA causal": (2, 4, 2, 37, 37, 8, True, None),
     "d40 causal ragged": (2, 4, 1, 100, 100, 40, True, None),
@@ -928,6 +930,13 @@ FLASH_BWD_CASES = {
     "d64 non-causal Sq<Sk": (2, 3, 3, 50, 170, 64, False, None),
     "d40 non-causal Sq>Sk": (1, 4, 2, 90, 33, 40, False, None),
     "d128 window 3": (1, 2, 1, 70, 70, 128, True, 3),
+    "d64 GQA8 causal ragged": (2, 8, 1, 100, 100, 64, True, None),
+    "d128 GQA2 causal S300": (2, 4, 2, 300, 300, 128, True, None),
+    "d128 GQA1 non-causal Sq>Sk": (1, 3, 3, 200, 77, 128, False, None),
+    "d256 window 512 ragged": (1, 4, 1, 1100, 1100, 256, True, 512),
+    "d256 GQA2 non-causal Sq>Sk": (1, 4, 2, 130, 70, 256, False, None),
+    "d128 causal Sk>Sq": (1, 2, 1, 40, 90, 128, True, None),
+    "d128 window past int32": (1, 2, 1, 70, 70, 128, True, 1 << 40),
 }
 
 
@@ -968,6 +977,77 @@ def test_cuda_flash_attention_backward_matches_plain(cuda_device, case,
         o.detach().float(), do.float(), causal=causal, window=window)
     for g, w in zip(got, want):
         assert g.dtype == dtype
+        assert float((g.float() - w).abs().max()) <= \
+            rtol * float(w.abs().max())
+
+
+def _bwd_inputs(device, shape, dtype, seed=0):
+    B, H, KV, Sq, Sk, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = [torch.randn(s, generator=gen, device=device).to(dtype)
+               for s in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+    do = torch.randn((B, H, Sq, d), generator=gen, device=device).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,causal,window", [
+    ((2, 16, 8, 512, 512, 128), torch.bfloat16, True, None),
+    ((1, 4, 1, 700, 700, 256), torch.bfloat16, True, 512),
+    ((2, 4, 4, 300, 300, 64), torch.float16, False, None),
+    ((2, 4, 2, 100, 100, 40), torch.bfloat16, True, None),
+    ((2, 4, 2, 100, 100, 40), torch.float32, True, None),
+])
+def test_cuda_flash_attention_backward_is_deterministic(
+        cuda_device, shape, dtype, causal, window):
+    """Two backward calls on the same inputs give bit-identical dq, dk, dv
+    in every design: each sum is taken in one fixed order, no atomics."""
+    from repro_torch.kernels.flash_attention import (_launch,
+                                                     flash_attention_bwd)
+
+    q, k, v, do = _bwd_inputs(cuda_device, shape, dtype, seed=shape[3])
+    B, H, Sq = q.shape[:3]
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=cuda_device)
+    o = _launch(q, k, v, causal, None, window, lse)
+    first = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                window=window)
+    second = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,design", [
+    ((1, 16, 8, 1024, 1024, 128), torch.bfloat16, "wgmma"),
+    ((2, 4, 1, 1024, 1024, 256), torch.bfloat16, "wgmma"),
+    ((2, 12, 12, 64, 1500, 64), torch.bfloat16, "wgmma"),
+    ((2, 4, 2, 100, 100, 40), torch.bfloat16, "mma_sync"),
+    ((2, 4, 2, 100, 100, 40), torch.float32, "cuda_cores"),
+])
+def test_cuda_flash_attention_backward_design(cuda_device, shape, dtype,
+                                              design):
+    """t1's shape at B 1 (and t2's, t4's) runs the wgmma design, d 40 the
+    mma.sync kernels and f32 the CUDA cores: one backward launch each,
+    ``last_design`` naming the design, the gradients within the 16-bit /
+    f32 tolerance of the plain version."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_plain, flash_attention_bwd)
+
+    q, k, v, do = _bwd_inputs(cuda_device, shape, dtype)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = flash_attention_bwd.launches
+    o = flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.last_design == design
+    want = flash_attention_backward_plain(
+        q.detach().float(), k.detach().float(), v.detach().float(),
+        o.detach().float(), do.float(), causal=True)
+    rtol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
         assert float((g.float() - w).abs().max()) <= \
             rtol * float(w.abs().max())
 
