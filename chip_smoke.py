@@ -157,9 +157,34 @@ Phases, each of which must pass or the script exits non-zero:
    time, tokens/s, the step's bound and share, peak memory and the
    backward's share of one profiled step, split by kernel.
    ``--train-only`` runs phases 1 and 14 alone.
+15. MLA and deepseek-v2-236b: (a) ``flash_attention`` at v's head dim 128
+   != q / k's 192 (128 heads, bf16): m1, the engine's (4, 64) bucket; m2,
+   S 4096 causal; m3, the warm call (Sq 16 over 96 cache rows at per-row
+   offsets), each against its plain version with phase 2's checks (the
+   p-rounded control on 16 heads), one launch per call, timed beside its
+   bound, its plain version and SDPA at dv != d (the backend it took
+   printed; v zero-padded to 192 only if SDPA refused); the backward at
+   m1's shape (v, o and do padded to 192 on the card: ``mma_sync``)
+   against the f32 plain backward; (b) the float32 smoke model card vs
+   CPU: ``forward`` logits and ``loss_fn``'s loss and gradient norm
+   within 1e-4, engine tokens equal with the prefix cache on and off,
+   greedy and at 0.8, warm == cold; (c) deepseek-v2-236b at full width
+   cut to 4 layers (the dense prelude and 3 MoE layers of 160 experts,
+   top-6, 2 shared; 13.3 B parameters; the cut printed as ``reduced``)
+   through ``build_engine`` with phase 3's traffic: ``flash_attention``
+   4 launches per prefill call and none in a decode step,
+   ``segment_fold`` one per step, 3 grouped products per MoE layer per
+   step and prefill call, a (4, 64) forward's ``expert_load`` summing to
+   4 x 64 x 6 x 3; tokens/s, TTFT, the decode step eager against its
+   replay and its byte bound, the latent cache's 1152 bytes per token
+   per layer against an up-projected K / V cache's 81920, peak memory.
+   ``--mla-only`` runs phases 1 and 15 alone.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  The exit code
+is 0 only when every phase passed; a failing phase raises (exit 1), no
+card exits 2, and a copy of this script without ``src/repro_torch`` beside
+it exits 1, none of them printing the record or the ok line.
 """
 from __future__ import annotations
 
@@ -849,7 +874,8 @@ def plain_p_rounded(q, k, v, causal, q_offset=None, window=None):
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     o = torch.matmul(p.to(q.dtype).to(torch.float32),
                      v.to(torch.float32)[:, :, None])
-    return (o / p.sum(dim=-1, keepdim=True)).reshape(B, H, Sq, d).to(q.dtype)
+    return (o / p.sum(dim=-1, keepdim=True)).reshape(
+        B, H, Sq, v.shape[-1]).to(q.dtype)
 
 
 def differ_share(a, b) -> float:
@@ -2988,11 +3014,12 @@ def run_flash_bwd_case(case, gen, dev) -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_backward_plain, flash_attention_bwd)
 
-    name, B, H, KV, Sq, Sk, d, dtype, causal, window, expect = case
+    name, B, H, KV, Sq, Sk, d, dtype, causal, window, expect = case[:11]
+    dv = case[11] if len(case) > 11 else d      # v's head dim (MLA: 128)
     q, k, v = [torch.randn(shape, generator=gen, device=dev).to(dtype)
                .requires_grad_()
-               for shape in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
-    do = torch.randn((B, H, Sq, d), generator=gen, device=dev).to(dtype)
+               for shape in ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, dv))]
+    do = torch.randn((B, H, Sq, dv), generator=gen, device=dev).to(dtype)
     before = flash_attention_bwd.launches
     o = flash_attention(q, k, v, causal=causal, window=window)
     got = torch.autograd.grad(o, (q, k, v), do)
@@ -3032,9 +3059,11 @@ def run_flash_bwd_case(case, gen, dev) -> dict:
         mask = (kp <= qp) & (kp > qp - window)
 
     def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True)
+        if dv == d:
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+        return mla_sdpa(q, k, v, causal, mask)[0]
 
     def library_fwd_bwd():
         return torch.autograd.grad(sdpa(), (q, k, v), do)
@@ -3052,17 +3081,20 @@ def run_flash_bwd_case(case, gen, dev) -> dict:
     fwd_bwd_ms = cuda_ms(ours_fwd_bwd, BWD_ITERS)
     library_fwd_bwd_ms = cuda_ms(library_fwd_bwd, BWD_ITERS)
     del sdpa_out
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + \
-        lse.numel() * 4
+    nbytes = (2 * q.numel() + 2 * o.numel() + 2 * k.numel() +
+              2 * v.numel()) * q.element_size() + lse.numel() * 4
     # q, o, do and lse read, dq written; k, v read, dk, dv written
-    flops = 2.5 * 4 * B * H * window_pairs(Sq, Sk, causal, window) * d
-    # the forward's q k^T and p v once, the backward's five products
+    pairs = B * H * window_pairs(Sq, Sk, causal, window)
+    flops = 2 * pairs * (3 * d + 2 * dv)
+    # the backward's five products: s = q k^T, dQ and dK over d columns,
+    # dV and dP over dv (at d == dv: 2.5 x the forward's 4 pairs d)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     # the kernels' own floor: 7 tile products where the bound counts 5 (s
     # and dP are recomputed in the dQ kernel, which keeps the sums free of
     # atomics)
-    seven_ms = max(bytes_ms, ops_ms * 7 / 5)
+    seven_ms = max(bytes_ms, 2 * pairs * (4 * d + 3 * dv) /
+                   PEAK_FLOPS[dtype] * 1e3)
     return dict(name=name, ok=ok, max_abs_err=max(max_err(g, w) for g, w in
                                                   zip(got, want)),
                 rel_errs=rel, tolerance=f"rtol={rtol} of max|grad|",
@@ -3301,6 +3333,444 @@ def training_phase(args, gen, dev) -> tuple:
     return rows[0], launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: MLA and deepseek-v2-236b
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-v2-236b"
+# flash_attention at MLA's shapes: q / k at d 192 (128 nope + 64 rope), v at
+# dv 128, 128 heads (MHA): (name, B, H, KV, Sq, Sk, d, dv, dtype, offsets or
+# None).  m1 is the engine's (4, 64) prefill bucket, m2 a long causal call
+# (~0.69 TFLOP: operations bound it), m3 the warm prefill of phase 8's
+# shape (suffixes of 16 over a 96-row cache at per-row offsets)
+FLASH_MLA_CASES = [
+    ("m1: deepseek-v2 prefill bucket B4 S64 H128/KV128 d192 dv128 bf16 "
+     "causal", 4, 128, 128, 64, 64, 192, 128, torch.bfloat16, None),
+    ("m2: B1 S4096 H128/KV128 d192 dv128 bf16 causal", 1, 128, 128, 4096,
+     4096, 192, 128, torch.bfloat16, None),
+    ("m3: deepseek-v2 warm prefill B4 Sq16 Sk96 H128/KV128 d192 dv128 bf16 "
+     "offsets 0/20/44/80", 4, 128, 128, 16, 96, 192, 128, torch.bfloat16,
+     (0, 20, 44, 80)),
+]
+# the backward at m1's shape: 192 is no wgmma head dim, so the card pads
+# v, o and do to 192 columns and runs the mma_sync design
+FLASH_MLA_BWD_CASE = (
+    "mb: deepseek-v2 backward B4 S64 H128/KV128 d192 dv128 bf16 causal "
+    "(v, o, do zero-padded to 192)", 4, 128, 128, 64, 64, 192,
+    torch.bfloat16, True, None, "mma_sync", 128)
+# heads of the p-rounded control (its plain product holds every score)
+CONTROL_HEADS = 16
+DEEPSEEK_LAYERS = 4          # the dense prelude layer and 3 MoE layers
+
+
+def sdpa_backend(fn) -> str:
+    """Which of SDPA's backends one call of ``fn`` ran, read from the names
+    of the kernels ``torch.profiler`` records ("not measured" when every
+    try came back empty)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            low = " ".join(names).lower()
+            for key, label in (("flash", "flash"), ("cudnn", "cudnn"),
+                               ("fmha", "efficient"), ("efficient",
+                                                       "efficient")):
+                if key in low:
+                    return label
+            return f"math ({names[0][:48]})"
+    return "not measured"
+
+
+def mla_sdpa(q, k, v, causal, mask=None, pad=None):
+    """SDPA on MLA's shapes, the yardstick: called with v at its own head
+    dim; if SDPA refuses that (or ``pad`` is True), with v zero-padded to
+    q's head dim and the output sliced (the scale is 1 / sqrt(d) either
+    way).  ``pad`` False or True calls that form without trying the other
+    (what a CUDA graph captures).  -> (output, how it was called)."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(attn_mask=mask, is_causal=causal and mask is None)
+    if not pad:
+        try:
+            return f(q, k, v, **kw), "dv != d"
+        except RuntimeError:
+            if pad is False:
+                raise
+    dv = v.shape[-1]
+    vpad = torch.nn.functional.pad(v, (0, q.shape[-1] - dv))
+    return f(q, k, vpad, **kw)[..., :dv], "v zero-padded to d (SDPA " \
+        "refused dv != d)"
+
+
+def run_mla_flash_case(case, gen, dev) -> dict:
+    """Phase 15(a): ``flash_attention`` at dv != d against its plain
+    version with phase 2's tolerances and 16-bit controls (the p-rounded
+    control on the first ``CONTROL_HEADS`` heads), one launch per call
+    (the wrapper's count, and one CUDA kernel where the profiler records
+    the call); timed beside its bound, its plain version and SDPA at dv !=
+    d (the backend it took printed)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    name, B, H, KV, Sq, Sk, d, dv, dtype, offsets = case
+    q, k = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, H, Sq, d), (B, KV, Sk, d))]
+    v = torch.randn((B, KV, Sk, dv), generator=gen, device=dev).to(dtype)
+    off = None if offsets is None else torch.tensor(
+        offsets, dtype=torch.int32, device=dev)
+
+    def kernel():
+        return flash_attention(q, k, v, q_offset=off)
+
+    def plain():
+        return flash_attention_plain(q, k, v, q_offset=off)
+
+    before = flash_attention.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    launches = flash_attention.launches - before
+    ref = plain()
+    err = max_err(got, ref)
+    atol = FLASH_ATOL[dtype]
+    h = min(H, CONTROL_HEADS)
+    controls = {"differ_share": differ_share(got, ref),
+                "p_rounded_share": differ_share(
+                    plain_p_rounded(q[:, :h], k[:, :h], v[:, :h], True, off),
+                    ref[:, :h])}
+    cuda_count = cuda_launches(kernel)
+    ok = err <= atol and launches == 1 and cuda_count in (1, None) and \
+        got.shape == (B, H, Sq, dv) and \
+        controls["differ_share"] <= FLASH_DIFFER_SHARE < \
+        controls["p_rounded_share"]
+    iters = 5 if Sk >= 1024 else 50
+    ms = cuda_ms(kernel, iters)
+    device_ms = graph_ms(kernel)
+    plain_ms = cuda_ms(plain, min(iters, 5))
+    mask = None
+    if off is not None:
+        q_pos = off.long()[:, None] + torch.arange(Sq, device=dev)
+        mask = (torch.arange(Sk, device=dev) <= q_pos[..., None])[:, None]
+    _, called = mla_sdpa(q, k, v, True, mask)
+    padded = called != "dv != d"
+
+    def library():
+        return mla_sdpa(q, k, v, True, mask, pad=padded)[0]
+    backend = sdpa_backend(library)
+    library_ms = cuda_ms(library, iters)
+    library_device_ms = graph_ms(library)
+    # the (query, key) pairs the mask keeps and the key rows some query reads
+    if off is None:
+        pairs, keys = B * window_pairs(Sq, Sk, True, None), B * min(Sq, Sk)
+    else:
+        pairs = sum(int(np.minimum(o + np.arange(Sq) + 1, Sk).sum())
+                    for o in offsets)
+        keys = sum(min(o + Sq, Sk) for o in offsets)
+    nbytes = (q.numel() + B * H * Sq * dv + keys * KV * (d + dv)) * \
+        q.element_size()
+    flops = 2 * H * pairs * (d + dv)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(name=name, ok=ok, max_abs_err=err, tolerance=f"atol={atol}",
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                device_ms=device_ms, library_device_ms=library_device_ms,
+                library_backend=f"{backend}, {called}",
+                bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
+                flops=flops, launches=launches, cuda_launches=cuda_count,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                controls=controls)
+
+
+def mla_flash_cases(gen, dev):
+    """Phase 15(a): m1-m3, then the backward at m1's shape (its padded
+    ``mma_sync`` design against the f32 plain backward at dv columns)."""
+    rows = []
+    for case in FLASH_MLA_CASES:
+        row = run_mla_flash_case(case, gen, dev)
+        print_row("flash_attention", row)
+        print(f"  launches={row['launches']} cuda_launches="
+              f"{row['cuda_launches']} device_ms={row['device_ms']} (graph "
+              f"replay) SDPA: library_device_ms={row['library_device_ms']} "
+              f"backend={row['library_backend']} flops={row['flops']} "
+              f"bytes={row['bound_bytes']}"
+              + "".join(f" {k}={v}" for k, v in row["controls"].items()),
+              flush=True)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    bwd = run_flash_bwd_case(FLASH_MLA_BWD_CASE, gen, dev)
+    print_row("flash_attention_bwd", bwd)
+    print(f"  design={bwd['design']} (expected {bwd['expected_design']}) "
+          f"readings in turns (ours, SDPA backward, SDPA backward, ours): "
+          f"ours={bwd['readings']['ours']} sdpa_backward="
+          f"{bwd['readings']['sdpa_backward']} launches per call="
+          f"{bwd['launches']} rel_errs(dq, dk, dv)={bwd['rel_errs']} "
+          f"fwd_bwd_ms={bwd['fwd_bwd_ms']} library_fwd_bwd_ms="
+          f"{bwd['library_fwd_bwd_ms']} seven_product_ms="
+          f"{bwd['seven_product_ms']}", flush=True)
+    torch.cuda.empty_cache()
+    bad = [r["name"] for r in rows + [bwd] if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"flash_attention at MLA's shapes: {bad}")
+    return rows, bwd
+
+
+def deepseek_reference(args) -> None:
+    """Phase 15(b): deepseek-v2-236b's float32 smoke model (4 layers, MLA,
+    the dense prelude, 8 experts top-2, 2 shared) on the card and the CPU
+    with the same weights: ``forward`` logits within 1e-4, ``loss_fn`` loss
+    and gradient norm within 1e-4 (relative), then ``cache_reference``'s
+    engines (card == CPU == cold tokens with the prefix cache on and off,
+    greedy and at 0.8, a warm prefix trace)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.models import (RunCtx, forward, init_params, loss_fn,
+                                    unembed)
+
+    cfg = dataclasses.replace(get_config(DEEPSEEK, smoke=True),
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                         device="cpu")
+    rng = np.random.default_rng(args.seed + 15)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 16))
+                            .astype(np.int32))
+    labels = torch.cat([toks[:, 1:], torch.full((2, 1), -1,
+                                                dtype=torch.int32)], 1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = pytree.tree_map(lambda t: t.to(dev), params)
+        before = flash_attention.launches, flash_attention_bwd.launches
+        with torch.no_grad():
+            logits = unembed(p, cfg, forward(p, cfg, toks.to(dev)))
+        leaves, spec = pytree.tree_flatten(p)
+        req = [t.detach().clone().requires_grad_() for t in leaves]
+        loss, _ = loss_fn(pytree.tree_unflatten(req, spec), cfg,
+                          {"tokens": toks.to(dev), "labels": labels.to(dev)},
+                          RunCtx(remat="none"))
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+        norm = math.sqrt(sum(float((g.double() ** 2).sum())
+                             for g in grads if g is not None))
+        out[dev] = (logits.cpu(), loss.item(), norm,
+                    flash_attention.launches - before[0],
+                    flash_attention_bwd.launches - before[1])
+    err = float((out["cpu"][0] - out["cuda"][0]).abs().max())
+    loss_rel = abs(out["cpu"][1] - out["cuda"][1]) / abs(out["cpu"][1])
+    norm_rel = abs(out["cpu"][2] - out["cuda"][2]) / out["cpu"][2]
+    launches, bwd_launches = out["cuda"][3:]
+    ok = err <= 1e-4 and loss_rel <= 1e-4 and norm_rel <= 1e-4 and \
+        launches == 2 * cfg.num_layers and bwd_launches == cfg.num_layers
+    print(f"deepseek reference ({cfg.name}, float32): "
+          f"{'OK' if ok else 'MISMATCH'} forward logits max |card - cpu| = "
+          f"{err} (atol 1e-4); loss_fn card {out['cuda'][1]} cpu "
+          f"{out['cpu'][1]} (rel {loss_rel}), grad norm card "
+          f"{out['cuda'][2]} cpu {out['cpu'][2]} (rel {norm_rel}; limit "
+          f"1e-4); card flash_attention launches {launches} (forward + "
+          f"loss, want {2 * cfg.num_layers}), backward launches "
+          f"{bwd_launches} (want {cfg.num_layers})", flush=True)
+    if not ok:
+        raise RuntimeError("deepseek: the card's float32 smoke model differs "
+                           "from the CPU's")
+    vocab = cfg.vocab_size
+    shared = rng.integers(1, vocab, 8).tolist()
+    prompts = [(shared if rng.random() < 0.75 else []) +
+               rng.integers(1, vocab, int(rng.integers(1, 7))).tolist()
+               for _ in range(9)]
+    cache_reference(args, DEEPSEEK, prompts, (8, 16),
+                    "deepseek reference (MLA, dense prelude, 8 experts, "
+                    "top-2, 2 shared)")
+
+
+def deepseek_phase(args, segment_fold, flash_attention) -> None:
+    """Phase 15(c): deepseek-v2-236b at full width cut in depth to
+    ``DEEPSEEK_LAYERS`` layers (the dense prelude and 3 MoE layers of 160
+    experts of 5120 x 1536, top-6, 2 shared; MLA at 128 heads; bf16,
+    random weights from ``--seed``; the cut printed as ``reduced``) through
+    ``build_engine`` with phase 3's traffic: 8 slots, buckets 16 / 32 / 64,
+    ``--requests`` requests of 8-64 tokens at t = 0, 32 new tokens, greedy,
+    the prefix cache on.  ``flash_attention`` must launch once per layer
+    per prefill call and never in a decode step, ``segment_fold`` once per
+    step, the three grouped expert products once per MoE layer per step
+    and prefill call, and a (4, 64) forward's ``expert_load`` must sum to
+    4 x 64 x 6 x 3.  Prints tokens/s, TTFT, the decode step eager against
+    its CUDA-graph replay (equal bit for bit) and its byte bound (the
+    experts the step hit, ``lm_head`` once at the model's dtype), the
+    latent cache's bytes per token per layer against an up-projected K / V
+    cache's, and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (forward_with_stats, init_params, moe,
+                                    num_params)
+    from repro_torch.serving import (ServeConfig, build_engine,
+                                     poisson_trace, serve_trace)
+
+    full = get_config(DEEPSEEK)
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_LAYERS)
+    n_moe = sum(cfg.ffn_type(i) == "moe" for i in range(cfg.num_layers))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.num_layers} layers (ffn "
+          f"{[cfg.ffn_type(i) for i in range(cfg.num_layers)]}) d_model="
+          f"{cfg.d_model} heads={cfg.num_heads} MLA q_lora={cfg.q_lora_rank} "
+          f"kv_lora={cfg.kv_lora_rank} nope/rope/v={cfg.qk_nope_dim}/"
+          f"{cfg.qk_rope_dim}/{cfg.v_head_dim} d_ff={cfg.d_ff} experts="
+          f"{cfg.num_experts} top-{cfg.moe_top_k} shared="
+          f"{cfg.num_shared_experts} x {cfg.d_ff_expert} vocab="
+          f"{cfg.vocab_size} {cfg.dtype} params={num_params(params)} "
+          f"(full depth {full.num_params()}) init_s="
+          f"{time.perf_counter() - t0} reduced: num_layers "
+          f"{full.num_layers} -> {cfg.num_layers}", flush=True)
+    config = ServeConfig(arch=DEEPSEEK, full=True, num_slots=8,
+                         prefill_buckets=(16, 32, 64), max_new_tokens=32,
+                         prefill_batch=4, seed=args.seed)
+    engine = build_engine(config, device="cuda", params=params,
+                          model_config=cfg)
+    # warm-up: one short request (cuBLAS handles, allocator) before timing
+    engine.submit(list(range(1, 9)), max_new_tokens=2)
+    for _ in engine.run(max_steps=64):
+        pass
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(args.seed)
+    trace = poisson_trace(rng, args.requests, 0.0, 8, 64, cfg.vocab_size,
+                          32)
+    steps0, prefills0 = engine.stats.steps, engine.stats.prefill_calls
+    segment_fold.launches = 0
+    flash_attention.launches = 0
+    moe.expert_compute.calls = 0
+    results, wall = serve_trace(engine, trace)
+    torch.cuda.synchronize()
+    fold_launches, flash_launches = segment_fold.launches, \
+        flash_attention.launches
+    grouped_calls = moe.expert_compute.calls
+    steps = engine.stats.steps - steps0
+    prefills = engine.stats.prefill_calls - prefills0
+    if len(results) != args.requests:
+        raise RuntimeError(f"{len(results)} of {args.requests} completed")
+    for r in results:
+        if not (1 <= len(r.tokens) <= 32) or \
+                not math.isfinite(r.logprob_sum):
+            raise RuntimeError(f"bad result {r}")
+        if any(not 0 <= t < cfg.vocab_size for t in r.tokens):
+            raise RuntimeError(f"token outside the vocab in {r.tokens}")
+        if len(r.tokens) < 32 and not r.stopped:
+            raise RuntimeError(f"uid {r.uid} ended early without eos")
+    if prefills <= 0 or flash_launches != cfg.num_layers * prefills:
+        raise RuntimeError(f"flash_attention launched {flash_launches} times "
+                           f"over {prefills} prefill calls; each must "
+                           f"launch it once per layer ({cfg.num_layers}) "
+                           f"and no decode step any")
+    if fold_launches <= 0 or fold_launches != steps:
+        raise RuntimeError(f"segment_fold launched {fold_launches} times "
+                           f"over {steps} decode steps")
+    if grouped_calls != n_moe * (steps + prefills):
+        raise RuntimeError(f"expert_compute ran {grouped_calls} times over "
+                           f"{steps} steps and {prefills} prefill calls of "
+                           f"{n_moe} MoE layers")
+    counts = engine.compile_counts()
+    if sum(counts.values()) > engine.compile_bound():
+        raise RuntimeError(f"program shapes {counts} exceed the bound "
+                           f"{engine.compile_bound()}")
+    gen_toks = sum(len(r.tokens) for r in results)
+    ttft = np.array([r.ttft_s for r in results])
+    ps = engine.prefix.stats
+    print(f"{cfg.name} serve (build_engine, {cfg.num_layers} layers): "
+          f"completed={len(results)} generated_tokens={gen_toks} wall_s="
+          f"{wall} tokens_per_s={gen_toks / wall} ttft_p50_ms="
+          f"{np.percentile(ttft, 50) * 1e3} ttft_p99_ms="
+          f"{np.percentile(ttft, 99) * 1e3} decode_steps={steps} "
+          f"prefill_calls={prefills} flash_attention.launches="
+          f"{flash_launches} (== {cfg.num_layers} x prefill calls) "
+          f"segment_fold.launches={fold_launches} (== steps) "
+          f"grouped_mm products={3 * grouped_calls} (3 x {n_moe} MoE layers "
+          f"x (steps + prefill calls)) prefix hit_rate={ps.hit_rate()} "
+          f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30}",
+          flush=True)
+
+    # the decode step at 8 busy slots: eager against its graph replay, the
+    # experts it hits counted on the eager step's own rows
+    be = engine.backend
+    B = config.num_slots
+    cache = be.init_cache(B, True)
+    prompt = torch.randint(1, cfg.vocab_size, (B, 16), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    tok = feed_prompt(cfg, params, cache, prompt)
+    hits = []
+    compute = moe.expert_compute
+
+    def counted(p, xbuf, gs):     # no host read: it runs under capture too
+        hits.append((gs > 0).sum())
+        return compute(p, xbuf, gs)
+    counted.calls = 0             # expert_compute counts on the module name
+    moe.expert_compute = counted
+    try:
+        flash_attention.launches = 0
+        eager_ms, replay_ms, equal = step_eager_vs_graph(
+            cfg, params, cache, tok.to(torch.int32))
+        step_launches = flash_attention.launches
+    finally:
+        moe.expert_compute = compute
+    # the eager step whose logits and cache the replay must equal (the
+    # last n_moe calls are the capture's)
+    hits = [int(t) for t in hits[-2 * n_moe:-n_moe]]
+    nbytes = recurrent_step_bytes(cfg, params, cache) + sum(
+        moe_layer_bytes(cfg, h) - moe_layer_bytes(cfg, 0) for h in hits)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    lat = cache["layers"][0]
+    per_token = sum(lat[n].shape[-1] * lat[n].element_size()
+                    for n in ("lat_c", "lat_r"))
+    kv_token = cfg.num_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim +
+                                cfg.v_head_dim) * cfg.dtype.itemsize
+    print(f"{cfg.name} decode step ({B} slots): eager_wall_ms={eager_ms} "
+          f"graph_replay_ms={replay_ms} replay == eager bit for bit: {equal}"
+          f" flash_attention launches in decode steps={step_launches} "
+          f"(want 0) bound_ms={bound_ms} (bytes={nbytes}, experts hit per "
+          f"MoE layer {hits}, lm_head once at {cfg.dtype}) replay/bound="
+          f"{replay_ms / bound_ms}; latent cache bytes per token per layer="
+          f"{per_token} (an up-projected K / V cache: {kv_token}, "
+          f"{kv_token / per_token}x)", flush=True)
+    if not equal or step_launches:
+        raise RuntimeError("the deepseek decode step's graph replay differs "
+                           "from the eager step, or it launched "
+                           "flash_attention")
+    del cache, engine
+    toks = torch.randint(1, cfg.vocab_size, (4, 64), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    flash_attention.launches = 0
+    h, stats = forward_with_stats(params, cfg, toks)
+    torch.cuda.synchronize()
+    launched = flash_attention.launches
+    load = int(stats["expert_load"].sum())
+    want_load = 4 * 64 * cfg.moe_top_k * n_moe
+    print(f"{cfg.name} forward of (4, 64) tokens: flash_attention.launches="
+          f"{launched} (want {cfg.num_layers}) expert_load sum={load} (want "
+          f"{want_load}) finite={bool(torch.isfinite(h).all())} "
+          f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30}",
+          flush=True)
+    if launched != cfg.num_layers or load != want_load or \
+            not bool(torch.isfinite(h).all()):
+        raise RuntimeError(f"deepseek forward: {launched} launches, "
+                           f"expert_load {load}")
+    del params, h
+    torch.cuda.empty_cache()
+
+
+def mla_phase(args, gen, dev, segment_fold, flash_attention) -> tuple:
+    """Phase 15: (a) the flash cases m1-m3 and the padded backward, (b) the
+    smoke model card vs CPU, (c) deepseek-v2-236b at full width, 4 layers.
+    -> (the m rows, the backward row)."""
+    rows, bwd = mla_flash_cases(gen, dev)
+    deepseek_reference(args)
+    torch.cuda.empty_cache()
+    deepseek_phase(args, segment_fold, flash_attention)
+    return rows, bwd
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3312,12 +3782,19 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="run phases 1 and 14 (training) only and print no "
                          "record")
+    ap.add_argument("--mla-only", action="store_true",
+                    help="run phases 1 and 15 (MLA, deepseek-v2-236b) only "
+                         "and print no record")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(_HERE, "src", "repro_torch")):
+        print("chip_smoke: src/repro_torch is not beside this script; run it "
+              "from the root of a checkout", file=sys.stderr)
+        return 1
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.cms import LIBRARY as CMS_LIBRARY
     from repro_torch.kernels.flash_attention import BWD_LIBRARY
@@ -3353,6 +3830,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         training_phase(args, gen, dev)
         print(f"phase 14 took {time.perf_counter() - t0:.1f}s", flush=True)
+        print(f"card: {card}")
+        return 0
+    if args.mla_only:
+        t0 = time.perf_counter()
+        mla_phase(args, gen, dev, segment_fold, flash_attention)
+        print(f"phase 15 took {time.perf_counter() - t0:.1f}s", flush=True)
         print(f"card: {card}")
         return 0
     rows = []
@@ -3487,6 +3970,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     bwd_row, bwd_launches = training_phase(args, gen, dev)
     print(f"phase 14 took {time.perf_counter() - t0:.1f}s", flush=True)
+    # phase 15: MLA and deepseek-v2-236b on flash_attention at dv != d
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mla_phase(args, gen, dev, segment_fold, flash_attention)
+    print(f"phase 15 took {time.perf_counter() - t0:.1f}s", flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

@@ -1,14 +1,14 @@
 """Architecture registry of the port, and the assigned input-shape cells.
 
-The JAX package registers ten architectures; the port runs the dense family
-(qwen3-0.6b, qwen2.5-14b, starcoder2-15b and gemma3-1b, its 5:1
-local:global stack), the MoE family on one device (qwen2-moe-a2.7b: 60
-routed experts plus 4 pads, top-4, 4 shared), the context-conditioned
-family (whisper-small's encoder-decoder, llama-3.2-vision-90b's gated
-cross-attention layers) and the recurrent family (xlstm-1.3b's 7:1
-mLSTM:sLSTM stack, jamba-v0.1-52b's 7:1 Mamba:attention stack with MoE
-FFNs).  The MLA arch (deepseek-v2-236b) is not ported yet (``get_config``
-raises for it).
+The JAX package registers ten architectures and the port runs all ten: the
+dense family (qwen3-0.6b, qwen2.5-14b, starcoder2-15b and gemma3-1b, its
+5:1 local:global stack), the MoE family on one device (qwen2-moe-a2.7b: 60
+routed experts plus 4 pads, top-4, 4 shared; deepseek-v2-236b: multi-head
+latent attention, a dense first layer, 160 experts top-6, 2 shared), the
+context-conditioned family (whisper-small's encoder-decoder,
+llama-3.2-vision-90b's gated cross-attention layers) and the recurrent
+family (xlstm-1.3b's 7:1 mLSTM:sLSTM stack, jamba-v0.1-52b's 7:1
+Mamba:attention stack with MoE FFNs).
 
 ``SHAPES`` / ``valid_cells`` / ``context_spec`` / ``input_specs`` are the
 JAX package's cells and input stand-ins; the stand-ins are tensors on the
@@ -23,14 +23,15 @@ from typing import Dict, List, Optional
 import torch
 
 from ..models.common import ModelConfig
-from . import (gemma3_1b, jamba_v0p1_52b, llama3p2_vision_90b,
-               qwen2_moe_a2p7b, qwen2p5_14b, qwen3_0p6b, starcoder2_15b,
-               whisper_small, xlstm_1p3b)
+from . import (deepseek_v2_236b, gemma3_1b, jamba_v0p1_52b,
+               llama3p2_vision_90b, qwen2_moe_a2p7b, qwen2p5_14b, qwen3_0p6b,
+               starcoder2_15b, whisper_small, xlstm_1p3b)
 
 _MODULES = {m.ARCH_ID: m for m in (qwen3_0p6b, qwen2p5_14b, starcoder2_15b,
                                      gemma3_1b, qwen2_moe_a2p7b,
                                      whisper_small, llama3p2_vision_90b,
-                                     xlstm_1p3b, jamba_v0p1_52b)}
+                                     xlstm_1p3b, jamba_v0p1_52b,
+                                     deepseek_v2_236b)}
 
 ARCH_IDS: List[str] = list(_MODULES)
 

@@ -1,9 +1,14 @@
 // Flash attention forward for Hopper, sm_90a, on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
-// flash_attention (body _flash_kernel): q (B, H, Sq, d), k and v (B, KV, Sk,
-// d) with H % KV == 0 -> o (B, H, Sq, d) in q's dtype, the attn_state
-// (m, l, o) online-softmax fold over KV tiles.  Its contract, kept here:
+// flash_attention (body _flash_kernel): q (B, H, Sq, d), k (B, KV, Sk, d) and
+// v (B, KV, Sk, dv) with H % KV == 0 -> o (B, H, Sq, dv) in q's dtype, the
+// attn_state (m, l, o) online-softmax fold over KV tiles.  The Pallas kernel
+// has dv == d; MLA (DeepSeek-V2) attends with q / k at d = 192 (128 nope +
+// 64 rope) and v at dv = 128, which the reference runs in XLA einsums
+// (src/repro/models/attention.py:502-524), so here dv may differ from d
+// (1..256 each) and the scale stays the caller's, 1 / sqrt(d).  Its
+// contract, kept here:
 //   * q, k, v are cast up to f32; scores s = (q . k) * scale and the softmax
 //     weights p stay in f32; o accumulates in f32;
 //   * the causal mask is top-left, k_pos <= q_pos (not the bottom-right
@@ -22,8 +27,9 @@
 //     normaliser the backward reads (the Pallas kernel has no backward).
 // Unlike the Pallas kernel it takes ragged Sq and Sk (it masks the edge of
 // both axes itself), q, k, v all float32, all bfloat16 or all float16, any
-// head dim 1..256, and any batch / head / row strides with a unit-stride last
-// axis, so the model passes its (B, S, H, d) projections without a copy.
+// head dim 1..256 (and any v head dim 1..256), and any batch / head / row
+// strides with a unit-stride last axis, so the model passes its (B, S, H, d)
+// projections without a copy.
 //
 // Bound.  At the serving path's prefill shape (B 4, S 64, 16 / 8 heads of
 // 128, bf16) the work is 3 MB against ~68 MFLOP: bytes bound it, and in
@@ -52,10 +58,14 @@
 //     padded by 16 bytes so ldmatrix's 8 row addresses fall in distinct
 //     banks.  Head dims are zero-padded in shared memory up to a multiple of
 //     16 (the mma k-depth; zero columns add nothing to q . k, and o's
-//     columns past d are never stored); k-steps past that are skipped, so
+//     columns past dv are never stored); k-steps past that are skipped, so
 //     one tile shape per head-dim bucket (32, 64, 128, 256 columns) serves
-//     every d.  Up to 128 columns a warp keeps its q fragments in registers
-//     for the whole KV loop.
+//     every d.  q . k runs over d's bucket (DB), V's tiles, the o
+//     accumulators and p . v over dv's (DVB).  Instantiated are the equal
+//     pairs (DB == DVB, one bucket for max(d, dv)) and MLA's (256, 128): at
+//     d 192 / dv 128 it keeps 64 o accumulators a thread, not 128, and V
+//     tiles half as wide.  Up to 128 columns a warp keeps its q fragments
+//     in registers for the whole KV loop.
 //   * A block is 4 warps, 64 query rows of one (batch, head).  The grid's
 //     fast axis is (batch, head), the slow one the query tile, heaviest
 //     causal tiles first.  At the prefill's 4 x 64 bucket that is 64 blocks
@@ -102,7 +112,7 @@ struct Args {
     long long k_sb, k_sh, k_ss;
     long long v_sb, v_sh, v_ss;
     long long o_sb, o_sh, o_ss;
-    int H, KV, Sq, Sk, d;
+    int H, KV, Sq, Sk, d, dv;     // dv: v's and o's head dim
     float scale_log2;             // scale * log2(e): p = exp2(s2 - m2)
     int causal;
     const int* q_off;             // (B,) query offsets, or null (all 0)
@@ -211,8 +221,9 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // -- tile geometry ----------------------------------------------------------
 
-// DB: the head-dim bucket (32, 64, 128 or 256 columns); T: the input type
-template <int DB, typename T>
+// DB: the head-dim bucket of q and k (32, 64, 128 or 256 columns); DVB: the
+// bucket of v and o (DVB <= DB); T: the input type
+template <int DB, int DVB, typename T>
 struct Tile {
     using M = typename MmaOf<T>::type;
     static constexpr bool kSplit = sizeof(T) == 4;
@@ -221,17 +232,21 @@ struct Tile {
     static constexpr int BK = kSplit ? 16 : 32;
     static constexpr int STAGES = kSplit || DB >= 256 ? 2 : 3;
     static constexpr int LD = DB + 8;                     // M row, padded
+    static constexpr int LDV = DVB + 8;                   // M row of V
     static constexpr int RAW_LD = DB + 16 / (int)sizeof(T);   // T row
+    static constexpr int RAW_LDV = DVB + 16 / (int)sizeof(T); // T row of V
     static constexpr int NT = BK / 8;                     // n-tiles of keys
     static constexpr int KSTEPS = DB / 16;                // of q . k
     static constexpr int NW = kThreads / 32;              // warps per block
     static constexpr int BQ = 16 * NW;                    // query rows
     static constexpr size_t kRaw = (size_t)BK * RAW_LD * sizeof(T);
+    static constexpr size_t kRawV = (size_t)BK * RAW_LDV * sizeof(T);
     static constexpr size_t kConv = (size_t)BK * LD * sizeof(M);
+    static constexpr size_t kConvV = (size_t)BK * LDV * sizeof(M);
     // [raw K x STAGES][raw V x STAGES][K hi, K lo, V hi, V lo (split)]
     // [Q hi (, Q lo)]
-    static constexpr size_t kSmem = 2 * STAGES * kRaw +
-        (kSplit ? 4 * kConv : 0) +
+    static constexpr size_t kSmem = STAGES * (kRaw + kRawV) +
+        (kSplit ? 2 * (kConv + kConvV) : 0) +
         (size_t)(kSplit ? 2 : 1) * BQ * LD * sizeof(M);
 };
 
@@ -332,12 +347,13 @@ __device__ __forceinline__ void store2(__half* p, float x, float y) {
     *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
 }
 
-template <int DB, typename T>
+template <int DB, int DVB, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const Args a) {
-    using C = Tile<DB, T>;
+    using C = Tile<DB, DVB, T>;
     using M = typename C::M;
     constexpr int BK = C::BK, NT = C::NT, LD = C::LD, RAW_LD = C::RAW_LD;
+    constexpr int LDV = C::LDV, RAW_LDV = C::RAW_LDV;
     constexpr int STAGES = C::STAGES, BQ = C::BQ;
     constexpr bool kSplit = C::kSplit;
     M* const tag = nullptr;                 // selects mma16816's operand type
@@ -349,12 +365,12 @@ flash_attention_kernel(const Args a) {
 
     T* rawK = reinterpret_cast<T*>(smem);                // STAGES tiles
     T* rawV = rawK + STAGES * BK * RAW_LD;               // STAGES tiles
-    M* conv = reinterpret_cast<M*>(rawV + STAGES * BK * RAW_LD);
+    M* conv = reinterpret_cast<M*>(rawV + STAGES * BK * RAW_LDV);
     M* sKhi = conv;                                      // split only
     M* sKlo = sKhi + BK * LD;
     M* sVhi = sKlo + BK * LD;
-    M* sVlo = sVhi + BK * LD;
-    M* sQ = kSplit ? sVlo + BK * LD : conv;
+    M* sVlo = sVhi + BK * LDV;
+    M* sQ = kSplit ? sVlo + BK * LDV : conv;
     M* sQlo = sQ + BQ * LD;                              // split only
 
     const int bh = blockIdx.x;
@@ -370,6 +386,8 @@ flash_attention_kernel(const Args a) {
 
     const int dk = (a.d + 15) / 16;              // live k-steps of q . k
     const int dpad = 16 * dk;
+    const int dvk = (a.dv + 15) / 16;            // live column steps of p . v
+    const int dvpad = 16 * dvk;
     // query row r sits at position off + r (off = 0: the top-left mask)
     const int off = a.q_off != nullptr ? a.q_off[b] : 0;
     const int q_last = min(q0 + BQ, a.Sq) - 1;
@@ -382,8 +400,8 @@ flash_attention_kernel(const Args a) {
         const int k0 = tile * BK;
         load_tile_async<DB, BK>(rawK + stage * BK * RAW_LD, RAW_LD, K, a.k_ss,
                                 k0, a.Sk, a.d, dpad, a.vec_k, tid);
-        load_tile_async<DB, BK>(rawV + stage * BK * RAW_LD, RAW_LD, V, a.v_ss,
-                                k0, a.Sk, a.d, dpad, a.vec_v, tid);
+        load_tile_async<DVB, BK>(rawV + stage * BK * RAW_LDV, RAW_LDV, V,
+                                 a.v_ss, k0, a.Sk, a.dv, dvpad, a.vec_v, tid);
     };
     // the pipeline's first STAGES - 1 tiles (a group is committed for
     // every tile index, empty past the last, so the waits count alike)
@@ -411,9 +429,9 @@ flash_attention_kernel(const Args a) {
 
     float m[2] = {-INFINITY, -INFINITY};   // rows g, g + 8; log2 domain
     float l[2] = {0.f, 0.f};               // this thread's partials
-    float o[DB / 8][4];
+    float o[DVB / 8][4];
 #pragma unroll
-    for (int j = 0; j < DB / 8; ++j)
+    for (int j = 0; j < DVB / 8; ++j)
         o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
     // ldmatrix lane offsets: A (q) and the trans B (v) address rows
@@ -454,16 +472,16 @@ flash_attention_kernel(const Args a) {
                 reinterpret_cast<const float*>(rawK) + stage * BK * RAW_LD,
                 RAW_LD, reinterpret_cast<__nv_bfloat16*>(sKhi),
                 reinterpret_cast<__nv_bfloat16*>(sKlo), LD, dpad, tid);
-            split_tile<DB, BK>(
-                reinterpret_cast<const float*>(rawV) + stage * BK * RAW_LD,
-                RAW_LD, reinterpret_cast<__nv_bfloat16*>(sVhi),
-                reinterpret_cast<__nv_bfloat16*>(sVlo), LD, dpad, tid);
+            split_tile<DVB, BK>(
+                reinterpret_cast<const float*>(rawV) + stage * BK * RAW_LDV,
+                RAW_LDV, reinterpret_cast<__nv_bfloat16*>(sVhi),
+                reinterpret_cast<__nv_bfloat16*>(sVlo), LDV, dvpad, tid);
             __syncthreads();
             tK = sKhi;
             tV = sVhi;
         } else {
             tK = reinterpret_cast<const M*>(rawK) + stage * BK * RAW_LD;
-            tV = reinterpret_cast<const M*>(rawV) + stage * BK * RAW_LD;
+            tV = reinterpret_cast<const M*>(rawV) + stage * BK * RAW_LDV;
         }
 
         const int k0 = t * BK;
@@ -549,7 +567,7 @@ flash_attention_kernel(const Args a) {
                     m[i] == -INFINITY ? 0.f : ex2(m[i] - m_safe[i]);
                 l[i] *= alpha;
 #pragma unroll
-                for (int j = 0; j < DB / 8; ++j) {
+                for (int j = 0; j < DVB / 8; ++j) {
                     o[j][2 * i] *= alpha;
                     o[j][2 * i + 1] *= alpha;
                 }
@@ -577,11 +595,11 @@ flash_attention_kernel(const Args a) {
                     split2<M>(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
                     split2<M>(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-                    for (int dp = 0; dp < DB / 16; ++dp) {
-                        if (dp < dk) {
+                    for (int dp = 0; dp < DVB / 16; ++dp) {
+                        if (dp < dvk) {
                             uint32_t vb[4];
                             const int off =
-                                (16 * kk + a_row) * LD + 16 * dp + a_col;
+                                (16 * kk + a_row) * LDV + 16 * dp + a_col;
                             ldsm_x4_trans(vb, tV + off);
                             mma16816(o[2 * dp], ph, vb[0], vb[1], tag);
                             mma16816(o[2 * dp + 1], ph, vb[2], vb[3], tag);
@@ -618,14 +636,14 @@ flash_attention_kernel(const Args a) {
                 lt > 0.f ? m[i] * kLn2 + logf(lt) : -INFINITY;
         T* orow = O + qr * a.o_ss;
 #pragma unroll
-        for (int j = 0; j < DB / 8; ++j) {
+        for (int j = 0; j < DVB / 8; ++j) {
             const int c = 8 * j + 2 * t4;
             const float x = o[j][2 * i] / den, y = o[j][2 * i + 1] / den;
-            if (a.vec_o && c + 1 < a.d) {
+            if (a.vec_o && c + 1 < a.dv) {
                 store2(orow + c, x, y);
             } else {
-                if (c < a.d) orow[c] = from_f32<T>(x);
-                if (c + 1 < a.d) orow[c + 1] = from_f32<T>(y);
+                if (c < a.dv) orow[c] = from_f32<T>(x);
+                if (c + 1 < a.dv) orow[c + 1] = from_f32<T>(y);
             }
         }
     }
@@ -633,10 +651,10 @@ flash_attention_kernel(const Args a) {
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
-template <int DB, typename T>
+template <int DB, int DVB, typename T>
 cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
-    using C = Tile<DB, T>;
-    auto kernel = flash_attention_kernel<DB, T>;
+    using C = Tile<DB, DVB, T>;
+    auto kernel = flash_attention_kernel<DB, DVB, T>;
     const long long bh = (long long)batch * a.H;
     const long long qtiles = cdiv(a.Sq, C::BQ);
     if (bh > 0x7fffffffLL || qtiles > 65535) return cudaErrorInvalidValue;
@@ -656,12 +674,16 @@ cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// the (DB, DVB) pairs the models use: one bucket for max(d, dv), and MLA's
+// (256, 128) when only d needs 256 columns
 template <typename T>
 cudaError_t dispatch(const Args& a, int batch, cudaStream_t stream) {
-    if (a.d <= 32) return launch<32, T>(a, batch, stream);
-    if (a.d <= 64) return launch<64, T>(a, batch, stream);
-    if (a.d <= 128) return launch<128, T>(a, batch, stream);
-    return launch<256, T>(a, batch, stream);
+    const int w = a.d > a.dv ? a.d : a.dv;
+    if (w <= 32) return launch<32, 32, T>(a, batch, stream);
+    if (w <= 64) return launch<64, 64, T>(a, batch, stream);
+    if (w <= 128) return launch<128, 128, T>(a, batch, stream);
+    if (a.dv <= 128) return launch<256, 128, T>(a, batch, stream);
+    return launch<256, 256, T>(a, batch, stream);
 }
 
 int aligned16(const void* p, int size, long long s0, long long s1,
@@ -673,10 +695,11 @@ int aligned16(const void* p, int size, long long s0, long long s1,
 
 }  // namespace
 
-// q: (B, H, Sq, d), k and v: (B, KV, Sk, d), o: (B, H, Sq, d), each given
-// by its base pointer and element strides of batch, head and row (the last
-// axis is unit-stride).  dtype: 0 = float32, 1 = bfloat16, 2 = float16, the
-// same for all four; d in 1..256.  q_offset: null, or (B,) int32 query
+// q: (B, H, Sq, d), k: (B, KV, Sk, d), v: (B, KV, Sk, dv), o: (B, H, Sq,
+// dv), each given by its base pointer and element strides of batch, head and
+// row (the last axis is unit-stride).  dtype: 0 = float32, 1 = bfloat16, 2 =
+// float16, the same for all four; d and dv in 1..256; scale is the caller's
+// (the reference's 1 / sqrt(d)).  q_offset: null, or (B,) int32 query
 // offsets on the device (causal only: query i of batch b keeps the keys at
 // positions <= q_offset[b] + i).  window: 0, or the sliding window in keys
 // (causal only: the query at position qp also drops the keys <= qp -
@@ -688,7 +711,7 @@ int aligned16(const void* p, int size, long long s0, long long s1,
 // success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype,
-    int batch, int H, int KV, int Sq, int Sk, int d,
+    int batch, int H, int KV, int Sq, int Sk, int d, int dv,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
@@ -696,7 +719,7 @@ extern "C" int flash_attention_launch(
     float scale, int causal, const void* q_offset, int window, void* lse,
     void* stream) {
     if (batch < 0 || H < 1 || KV < 1 || H % KV != 0 || Sq < 0 || Sk < 0 ||
-        d < 1 || d > 256 || dtype < 0 || dtype > 2 ||
+        d < 1 || d > 256 || dv < 1 || dv > 256 || dtype < 0 || dtype > 2 ||
         (q_offset != nullptr && !causal) || window < 0 ||
         (window > 0 && !causal)) {
         return cudaErrorInvalidValue;
@@ -706,7 +729,7 @@ extern "C" int flash_attention_launch(
     const Args a{q, k, v, o,
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                  v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                 H, KV, Sq, Sk, d, scale * kLog2e, causal,
+                 H, KV, Sq, Sk, d, dv, scale * kLog2e, causal,
                  static_cast<const int*>(q_offset), window,
                  aligned16(q, size, q_sb, q_sh, q_ss),
                  aligned16(k, size, k_sb, k_sh, k_ss),

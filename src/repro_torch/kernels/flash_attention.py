@@ -22,11 +22,14 @@ attention calls: on a CUDA tensor it launches the kernel (or raises), on a
 CPU tensor it runs :func:`flash_attention_plain`.
 ``flash_attention.launches`` counts kernel launches.
 
-Contract (the Pallas kernel's): q ``(B, H, Sq, d)``, k and v ``(B, KV, Sk,
-d)`` with ``H % KV == 0``, all float32, all bfloat16 or all float16, any
-``d`` in 1..256 (the reference's attention takes any head dim and float
-type).  Inputs are cast up to float32, scores and softmax weights stay
-float32, the output ``o / max(l, 1e-30)`` comes back in q's dtype.
+Contract (the Pallas kernel's): q ``(B, H, Sq, d)``, k ``(B, KV, Sk, d)``
+and v ``(B, KV, Sk, dv)`` with ``H % KV == 0``, all float32, all bfloat16
+or all float16, any ``d`` and ``dv`` in 1..256 (the reference's attention
+takes any head dim and float type; its MLA attends with q / k at 192 and v
+at 128, ``repro/models/attention.py:502-524``, where the Pallas kernel has
+``dv == d``).  The scale is ``1 / sqrt(d)``.  Inputs are cast up to
+float32, scores and softmax weights stay float32, the output ``o / max(l,
+1e-30)``, ``(B, H, Sq, dv)``, comes back in q's dtype.
 ``causal`` masks top-left, ``k_pos <= q_pos``.  ``q_offset``, a ``(B,)``
 integer tensor (causal only), places query ``i`` of batch ``b`` at
 position ``q_offset[b] + i``, so it keeps the keys ``k_pos <= q_offset[b] +
@@ -59,7 +62,11 @@ TMA-loaded tiles, consumer warpgroups run every product as ``wgmma``),
 ``mma_sync`` (the other 16-bit inputs) and ``cuda_cores`` (float32).  For
 16-bit inputs P and dS are rounded once to the inputs' dtype before the
 products that read them, as the reference rounds its softmax weights
-before p . v; everything else is float32.
+before p . v; everything else is float32.  At ``dv != d`` the card's
+backward pads the narrower of (v, o, do) and (q, k) with zero columns to
+the wider head dim and slices the gradients back: exact, since zero
+columns add nothing to ``q . k``, ``rowsum(do * o)`` or ``do . v`` and get
+zero gradients; MLA's d 192 then takes the ``mma_sync`` design.
 """
 from __future__ import annotations
 
@@ -74,7 +81,7 @@ from ._build import CudaLibrary
 
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 LIBRARY = CudaLibrary("flash_attention", {"flash_attention_launch": [
-    _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
     _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
     ctypes.c_float, _I, _P, _I, _P, _P]})
 BWD_LIBRARY = CudaLibrary("flash_attention_bwd", {
@@ -101,9 +108,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, _, d = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != d:
-        raise ValueError(f"k and v must be (B={B}, KV, Sk, d={d}) alike; "
-                         f"got {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != d:
+        raise ValueError(f"k (B={B}, KV, Sk, d={d}) and v (B, KV, Sk, dv) "
+                         f"must be alike but for v's head dim; got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     KV = k.shape[1]
     if KV < 1 or H % KV:
         raise ValueError(f"query heads ({H}) must be a multiple of the KV "
@@ -112,8 +120,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.dtype != q.dtype:
         raise TypeError(f"q, k, v must be all float32, all bfloat16 or all "
                         f"float16; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim must be in [1, {MAX_HEAD_DIM}]; got {d}")
+    if not 1 <= d <= MAX_HEAD_DIM or not 1 <= v.shape[3] <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim and v's head dim must be in [1, "
+                         f"{MAX_HEAD_DIM}]; got {d}, {v.shape[3]}")
     if q_offset is not None:
         if not causal:
             raise ValueError("q_offset places the queries on the causal "
@@ -143,7 +152,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window`` adds the lower edge ``k_pos > q_pos - window``."""
     _check(q, k, v, q_offset, causal, window)
     B, H, Sq, d = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
+    KV, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     scale = 1.0 / math.sqrt(d)
     qf = q.to(torch.float32).reshape(B, KV, H // KV, Sq, d)
     kf = k.to(torch.float32)[:, :, None]                  # (B, KV, 1, Sk, d)
@@ -156,7 +165,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_pos = (q_offset.to(torch.long)[:, None] + q_pos)[:, None, None]
         k_end = min(Sk, max(int(q_offset.max()), 0) + Sq) if B else 0
     rows = qf.new_empty(qf.shape[:-1])
-    acc = attn_state.identity_like((rows, rows, qf))
+    acc = attn_state.identity_like((rows, rows,
+                                    qf.new_empty(qf.shape[:-1] + (dv,))))
     for k0 in range(0, k_end, PLAIN_BLOCK_K):
         kb = kf[..., k0:k0 + PLAIN_BLOCK_K, :]
         vb = vf[..., k0:k0 + PLAIN_BLOCK_K, :]
@@ -171,11 +181,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m_safe = torch.where(torch.isneginf(m), 0.0, m)
         p = torch.where(torch.isneginf(s), 0.0, torch.exp(s - m_safe[..., None]))
         acc = attn_state.combine(acc, (m, p.sum(dim=-1), torch.matmul(p, vb)))
-    return attn_state.extract(acc).reshape(B, H, Sq, d).to(q.dtype)
+    return attn_state.extract(acc).reshape(B, H, Sq, dv).to(q.dtype)
 
 
 def _unit_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An uninitialised (B, H, Sq, dv) output in q's memory layout: q's own
+    (``empty_like``) at ``dv == d``; else the model's (B, Sq, H, dv) buffer
+    seen as (B, H, Sq, dv) when q is such a view, contiguous otherwise."""
+    if dv == q.shape[3]:
+        return torch.empty_like(q)
+    B, H, Sq, _ = q.shape
+    if q.transpose(1, 2).is_contiguous():
+        return q.new_empty((B, Sq, H, dv)).transpose(1, 2)
+    return q.new_empty((B, H, Sq, dv))
 
 
 def _device_of(q: torch.Tensor, *others: torch.Tensor) -> torch.device:
@@ -198,16 +220,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
     if q_offset is not None and q_offset.dtype != torch.int32:
         q_offset = q_offset.to(torch.int32)
-    out = torch.empty_like(q)      # q's layout (dense q) or contiguous
     B, H, Sq, d = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
+    KV, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = _out_like(q, dv)         # q's layout (dense q) or contiguous
     if B == 0 or Sq == 0:
         return out
     # the raw handle of the current stream (the one the inductor's launchers
     # read): torch.cuda.current_stream() builds a Stream object per call
     err = LIBRARY.load().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, d,
+        _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, d, dv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], 1.0 / math.sqrt(d), int(causal),
         None if q_offset is None else q_offset.contiguous().data_ptr(),
@@ -217,7 +239,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype})")
+                           f"{tuple(k.shape)}, v {tuple(v.shape)}, "
+                           f"{q.dtype})")
     flash_attention.launches += 1
     return out
 
@@ -229,8 +252,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of ``q`` over ``k`` / ``v`` (layout ``(B, heads, S, d)``),
     queries at ``q_offset[b] + i`` when given, keys within ``window`` of
     each query when given: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns ``(B, H, Sq, d)`` in q's dtype, laid
-    out in memory as q is.
+    version for CPU tensors.  Returns ``(B, H, Sq, dv)`` (v's head dim) in
+    q's dtype, laid out in memory as q is.
 
     When grad mode is on and an input requires grad, the call goes through
     a ``torch.autograd.Function`` whose backward is
@@ -300,17 +323,18 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     do``, ``dP = do V^T``, ``dS = P * (dP - D)``, ``dQ = dS K * scale``,
     ``dK = dS^T Q * scale``, the query heads of a GQA group summed into
     their KV head.  ``lse`` (B, H, Sq) is the forward's row log-sum-exp,
-    computed here when None.  Returns (dq, dk, dv) in the inputs' dtypes."""
+    computed here when None.  o, do and dV have v's head dim ``dv``.
+    Returns (dq, dk, dv) in the inputs' dtypes."""
     _check(q, k, v, None, causal, window)
     B, H, Sq, d = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
+    KV, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KV
     scale = 1.0 / math.sqrt(d)
     qf = q.to(torch.float32).reshape(B, KV, G, Sq, d)
     kf = k.to(torch.float32)[:, :, None]                  # (B, KV, 1, Sk, d)
     vf = v.to(torch.float32)[:, :, None]
-    of = o.to(torch.float32).reshape(B, KV, G, Sq, d)
-    dof = do.to(torch.float32).reshape(B, KV, G, Sq, d)
+    of = o.to(torch.float32).reshape(B, KV, G, Sq, dv)
+    dof = do.to(torch.float32).reshape(B, KV, G, Sq, dv)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     keep = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -371,7 +395,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for a dense input, its memory layout.  ``flash_attention_bwd.launches``
     counts kernel calls (each is three CUDA launches: D, dK / dV, dQ);
     ``flash_attention_bwd.last_design`` names the design the last kernel
-    call ran (:func:`backward_design`)."""
+    call ran (:func:`backward_design`).  At ``dv != d`` (o and do have v's
+    head dim) the kernel runs on copies padded with zero columns to the
+    wider head dim at the scale ``1 / sqrt(d)``, and the gradients are
+    sliced back (exact: see the module's docstring)."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, do, lse,
                                               causal=causal, window=window)
@@ -381,12 +408,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, None, causal, window)
     dev = _device_of(q, k, v, o, do)
     B, H, Sq, d = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
-    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
-            do.dtype != q.dtype:
-        raise ValueError(f"o and do must be (B, H, Sq, d) = {tuple(q.shape)} "
-                         f"in {q.dtype}; got {tuple(o.shape)} {o.dtype}, "
-                         f"{tuple(do.shape)} {do.dtype}")
+    KV, Sk, d_v = k.shape[1], k.shape[2], v.shape[3]
+    if o.shape != (B, H, Sq, d_v) or do.shape != o.shape or \
+            o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o and do must be (B, H, Sq, dv) = "
+                         f"{(B, H, Sq, d_v)} in {q.dtype}; got "
+                         f"{tuple(o.shape)} {o.dtype}, {tuple(do.shape)} "
+                         f"{do.dtype}")
     if lse is None or tuple(lse.shape) != (B, H, Sq) or \
             lse.dtype != torch.float32 or lse.device != dev:
         raise ValueError(f"the kernel reads the forward's ({B}, {H}, {Sq}) "
@@ -395,6 +423,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         with torch.cuda.device(dev):
             return flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                        window=window)
+    if d_v != d:
+        w = max(d, d_v)
+
+        def pad(t):
+            n = w - t.shape[3]
+            return torch.nn.functional.pad(t, (0, n)) if n else t
+        dq, dk, dv = _bwd_launch(pad(q), pad(k), pad(v), pad(o), pad(do),
+                                 lse, causal, window, 1.0 / math.sqrt(d))
+        return dq[..., :d], dk[..., :d], dv[..., :d_v]
+    return _bwd_launch(q, k, v, o, do, lse, causal, window,
+                       1.0 / math.sqrt(d))
+
+
+def _bwd_launch(q, k, v, o, do, lse, causal, window, scale):
+    """One call of the backward kernel on checked CUDA tensors of one head
+    dim; counted."""
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    dev = q.device
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
     o, do, lse = _unit_last(o), _unit_last(do), lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -409,7 +456,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], B, H, KV, Sq,
         Sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
-        *dk.stride()[:3], *dv.stride()[:3], 1.0 / math.sqrt(d), int(causal),
+        *dk.stride()[:3], *dv.stride()[:3], scale, int(causal),
         0 if window is None else min(int(window), _INT32_MAX),
         BWD_DESIGNS.index(design),
         torch._C._cuda_getCurrentRawStream(dev.index))

@@ -11,6 +11,9 @@ MapReduce.  The port of ``repro/launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
       --full --requests 16 --slots 8 --buckets 16,32 --min-prompt 8 \
       --max-prompt 32 --gen 32 --rate 0 --temperature 0
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-236b --device cpu --requests 6 --slots 3 \
+      --buckets 8,16 --gen 6 --rate 0 --temperature 0
 
 This module wires the model substrate (configs + models) into the
 model-agnostic :class:`repro_torch.runtime.engine.ContinuousEngine` and hosts
@@ -19,7 +22,11 @@ into rolling slots; each decode step folds the per-request metrics through
 ONE planner-lowered keyed fold — on the card, one launch of the CUDA
 ``segment_fold`` kernel — and each admission's prefill runs the bucket in
 one pass, one launch of the CUDA ``flash_attention`` kernel per layer (an
-MoE model's expert products run as grouped products, ``models/moe.py``).
+MoE model's expert products run as grouped products, ``models/moe.py``;
+deepseek-v2's MLA attends at q / k 192, v 128 in that launch and decodes
+over its latent cache).  deepseek-v2-236b's full config (~236 B parameters)
+does not fit one card; its smoke config serves here, and
+``build_engine(model_config=)`` serves a depth cut of the full width.
 With the radix prefix cache (on by default; ``--no-prefix-cache``) an
 admission prefills only its uncached suffix, in the same one pass, each
 row's queries at its prefix length.  An arch with a recurrent layer
@@ -104,16 +111,21 @@ def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
 
 def build_engine(config: ServeConfig, *, device="cuda",
                  params: Optional[Any] = None,
+                 model_config: Optional[ModelConfig] = None,
                  clock=time.perf_counter) -> ContinuousEngine:
     """A :class:`ContinuousEngine` over the real model substrate.
 
     ``params`` defaults to random weights drawn from ``config.seed`` with a
     ``torch.Generator`` on ``device`` (shapes and scales of the JAX
     package's init, not its numbers); pass carried-over weights
-    (``models.convert.params_from_jax``) to serve those.
+    (``models.convert.params_from_jax``) to serve those.  ``model_config``
+    serves that config in place of the registry's for ``config.arch`` (a
+    model cut in depth to fit one card, as ``chip_smoke.py`` serves
+    deepseek-v2-236b's first 4 layers).
     """
     device = resolve_device(device)
-    cfg = get_config(config.arch, smoke=not config.full)
+    cfg = model_config if model_config is not None else \
+        get_config(config.arch, smoke=not config.full)
     _refuse_context(cfg)
     if params is None:
         gen = torch.Generator(device=device)

@@ -1,8 +1,10 @@
 """GQA attention with qk-norm and RoPE: full-sequence and decode
-self-attention, the encoder's bidirectional attention and cross-attention
-to a context (whisper's decoder, llama-3.2-vision's gated image layers).
+self-attention, the encoder's bidirectional attention, cross-attention
+to a context (whisper's decoder, llama-3.2-vision's gated image layers),
+and DeepSeek-V2's multi-head latent attention (MLA).
 
-The port of the parts of ``repro/models/attention.py`` that serving runs.
+The port of the parts of ``repro/models/attention.py`` that serving and
+training run.
 Shapes: x (B, S, D); q (B, S, H, hd); k, v (B, S, KV, hd).  The
 full-sequence causal :func:`attention` (prefill) runs on the
 ``flash_attention`` kernel: float32 scores and softmax weights, output in
@@ -22,6 +24,17 @@ non-causal ``flash_attention`` launch each, the latter at ``Sq != Sk``.
 Cross-attention in the decode step (one query against the cached context)
 runs in plain PyTorch as the decode step's self-attention does, so the step
 reads nothing back to the host and can be captured in a CUDA graph.
+
+MLA (:func:`init_mla`, :func:`mla_attention`, :func:`mla_decode`) caches
+per token only the normalised latent ``c`` (``kv_lora_rank`` wide) and the
+rotated ``k_rope`` (``qk_rope_dim``), shared by all heads: the cache
+leaves ``lat_c`` (B, max_seq, kvl) and ``lat_r`` (B, max_seq, dr).  The
+full sequence up-projects the latent to per-head K (nope + rope, d 192 at
+full width) and V (dv 128) and runs one causal ``flash_attention`` launch
+at ``dv != d``; the warm prefill writes the suffix's latent rows first and
+up-projects the cache's rows.  The decode step is the reference's
+weight-absorbed form in plain PyTorch: the query absorbs ``wk_b`` and
+attends in the latent space, the output absorbs ``wv_b``.
 """
 from __future__ import annotations
 
@@ -31,7 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flash_attention import flash_attention
-from .common import ModelConfig, rms_norm, rotary_embed
+from .common import ModelConfig, dense, rms_norm, rotary_embed
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
@@ -309,3 +322,152 @@ def attention_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     H, hd = o.shape[2], o.shape[3]
     out = o.reshape(B, 1, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd, -1)
     return out, (kcache, vcache)
+
+
+# ---------------------------------------------------------------------------
+# MLA: DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, normal, ones) -> Dict:
+    """One layer's MLA projections (the JAX package's ``init_mla``): the
+    query through the ``q_lora_rank`` bottleneck (``wq_a``, ``q_a_norm``,
+    ``wq_b``) or straight (``wq``) when the rank is 0; ``wkv_a`` to the
+    latent and the rotary key, ``kv_a_norm``, the up-projections ``wk_b`` /
+    ``wv_b`` and ``wo``."""
+    D, H = cfg.d_model, cfg.num_heads
+    ql, kvl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dr, dn, dv = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    if ql > 0:
+        mix = {"wq_a": normal((D, ql), D), "q_a_norm": ones(ql),
+               "wq_b": normal((ql, H, dn + dr), ql)}
+    else:
+        mix = {"wq": normal((D, H, dn + dr), D)}
+    mix.update(wkv_a=normal((D, kvl + dr), D), kv_a_norm=ones(kvl),
+               wk_b=normal((kvl, H, dn), kvl), wv_b=normal((kvl, H, dv), kvl),
+               wo=normal((H, dv, D), H * dv))
+    return mix
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, L) x (L, H, k) -> (B, S, H, k) in x's dtype."""
+    L, H, k = w.shape
+    return (x @ w.to(x.dtype).reshape(L, H * k)).reshape(*x.shape[:2], H, k)
+
+
+def _mla_q(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr) rotated at
+    ``positions``)."""
+    if cfg.q_lora_rank > 0:
+        cq = rms_norm(dense(x, p["wq_a"]), p["q_a_norm"], cfg.norm_eps)
+        q = _heads(cq, p["wq_b"])
+    else:
+        q = _heads(x, p["wq"])
+    dn = cfg.qk_nope_dim
+    return q[..., :dn], rotary_embed(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """x -> (c (B, S, kvl) normalised, k_rope (B, S, dr) rotated): what the
+    MLA cache holds."""
+    kvl = cfg.kv_lora_rank
+    ckv = dense(x, p["wkv_a"])
+    c = rms_norm(ckv[..., :kvl], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = rotary_embed(ckv[..., None, kvl:], positions,
+                          cfg.rope_theta)[:, :, 0]
+    return c, k_rope
+
+
+def mla_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: Optional[torch.Tensor] = None, *,
+                  q_offset: Optional[torch.Tensor] = None,
+                  cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  span=None, k_rows: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Causal MLA over the full sequence (training and the prefill): the
+    latent up-projected to K = (k_nope, k_rope broadcast over the heads) at
+    ``qk_nope_dim + qk_rope_dim`` and V at ``v_head_dim``, then one
+    ``flash_attention`` launch at ``dv != d`` with the reference's scale
+    ``1 / sqrt(qk_nope_dim + qk_rope_dim)``.
+
+    Positions follow from ``q_offset`` as in :func:`attention` (passed ones
+    must equal them).  Without ``cache`` returns the (B, S, D) output and
+    the layer's latent rows (c, k_rope) for the prefill to cache.  With a
+    layer's ``cache`` (lat_c, lat_r), each (B, max_seq, ...): the suffix's
+    latent rows are written in place at ``[q_offset[b], q_offset[b] + S)``
+    (rows past ``max_seq`` dropped; ``span`` takes :func:`span_index`'s
+    indices when the caller has them), the cache's rows ``[0, k_rows)`` are
+    up-projected (``k_rows`` defaults to ``max(q_offset) + S`` capped at
+    ``max_seq``: the last key any query sees) and attended to under the
+    offset mask, and the cache is returned."""
+    B, S, _ = x.shape
+    H, dn, dv = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    derived = query_positions(B, S, q_offset, x.device)
+    if positions is not None and not torch.equal(
+            positions.to(torch.int32).expand(B, S), derived):
+        raise ValueError(
+            "mla_attention derives its query positions from q_offset; the "
+            "positions it was handed differ, and the kernel's causal mask "
+            "cannot follow them")
+    q_nope, q_rope = _mla_q(p, cfg, x, derived)
+    c, k_rope = _mla_latent(p, cfg, x, derived)
+    latent = (c, k_rope)
+    if cache is not None:
+        cc, rc = cache
+        size = cc.shape[1]
+        if span is None:
+            start = torch.zeros((B,), dtype=torch.int32, device=x.device) \
+                if q_offset is None else q_offset
+            span = span_index(start, S, size)
+        write_span(cc, c, span)
+        write_span(rc, k_rope, span)
+        if k_rows is None:
+            k_rows = S if q_offset is None else \
+                min(size, int(q_offset.max()) + S)
+        c, k_rope = cc[:, :k_rows], rc[:, :k_rows]
+        latent = (cc, rc)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([_heads(c, p["wk_b"]),
+                   k_rope[:, :, None].expand(-1, -1, H, -1)], dim=-1)
+    v = _heads(c, p["wv_b"])
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True,
+                        q_offset=q_offset).transpose(1, 2)
+    out = o.reshape(B, S, H * dv) @ p["wo"].to(o.dtype).reshape(H * dv, -1)
+    return out, latent
+
+
+def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+               cache: Tuple[torch.Tensor, torch.Tensor], pos: torch.Tensor
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One weight-absorbed MLA decode step: x (B, 1, D); cache (lat_c (B,
+    S, kvl), lat_r (B, S, dr)), updated in place at the rows' ``pos`` (()
+    or (B,)).  The query absorbs the key up-projection, ``q_lat = q_nope .
+    wk_b`` (B, 1, H, kvl); the scores ``q_lat . c + q_rope . k_rope`` and
+    the softmax are float32, the weights cast to the activation dtype; the
+    output is ``(w . c) . wv_b . wo``.  No device value is read on the
+    host, so the step can be captured in a CUDA graph."""
+    c_cache, r_cache = cache
+    B, S = c_cache.shape[0], c_cache.shape[1]
+    positions = decode_positions(pos, B)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)                # (B,1,H,*)
+    c_new, r_new = _mla_latent(p, cfg, x, positions)
+    c_cache = cache_row_update(c_cache, c_new, pos)
+    r_cache = cache_row_update(r_cache, r_new, pos)
+    wk_b = p["wk_b"].to(x.dtype)                                 # (kvl,H,dn)
+    q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope, wk_b)
+    f32 = torch.float32
+    s_lat = torch.einsum("bqhl,bsl->bhqs", q_lat.to(f32), c_cache.to(f32))
+    s_rope = torch.einsum("bqhk,bsk->bhqs", q_rope.to(f32), r_cache.to(f32))
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    scores = (s_lat + s_rope) * scale
+    k_pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    keep = _causal_mask(positions, k_pos)[:, None]
+    scores = torch.where(keep, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhqs,bsl->bqhl", w, c_cache)           # (B,1,H,kvl)
+    o = torch.einsum("bqhl,lhv->bqhv", o_lat, p["wv_b"].to(x.dtype))
+    H, dv = o.shape[2], o.shape[3]
+    out = o.reshape(B, 1, H * dv) @ p["wo"].to(o.dtype).reshape(H * dv, -1)
+    return out, (c_cache, r_cache)

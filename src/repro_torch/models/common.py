@@ -20,10 +20,11 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The JAX package's model config, cut to the fields the dense, MoE,
-    context-conditioned and recurrent families read (MLA's projection
-    ranks come with its slice; ``use_mla`` is here so that such a config
-    is refused).  Layer ``i`` has block type ``layer_pattern[i % period]``
-    and FFN type ``ffn_pattern[i % period]``; the port runs ``attn``,
+    MLA, context-conditioned and recurrent families read.  Layer ``i`` has
+    block type ``layer_pattern[i % period]`` and FFN type
+    ``ffn_pattern[i % period]``, but for the first ``prelude_dense_layers``
+    layers, whose FFN is dense (DeepSeek-V2's first_k_dense_replace); the
+    port runs ``attn`` (MLA's latent attention with ``use_mla``),
     ``local`` (attention within ``sliding_window`` keys), ``xattn`` (gated
     cross-attention to the context), ``mamba``, ``mlstm`` and ``slstm``
     blocks with ``dense``, ``moe`` or no (``none``) FFN, an encoder of
@@ -46,6 +47,7 @@ class ModelConfig:
     sliding_window: int = 4096       # for 'local' blocks
     layer_pattern: Tuple[str, ...] = ("attn",)
     ffn_pattern: Tuple[str, ...] = ("dense",)
+    prelude_dense_layers: int = 0
     # -- MoE
     num_experts: int = 0
     num_shared_experts: int = 0
@@ -55,8 +57,13 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     num_padded_experts: int = 0      # trailing experts masked out of routing
                                      # (qwen2-moe: 60 real + 4 pads for EP=16)
-    # -- MLA (DeepSeek-V2): not ported yet, refused by the model layer
+    # -- MLA (DeepSeek-V2)
     use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 128
+    v_head_dim: int = 128
     # -- SSM (Mamba)
     d_state: int = 16
     d_conv: int = 4
@@ -94,6 +101,8 @@ class ModelConfig:
         return self.layer_pattern[layer_idx % self.period]
 
     def ffn_type(self, layer_idx: int) -> str:
+        if layer_idx < self.prelude_dense_layers:
+            return "dense"
         return self.ffn_pattern[layer_idx % self.period]
 
     @property

@@ -2,9 +2,10 @@
 cache, decode step, the encoder of the encoder-decoder archs, and the
 training loss.
 
-The port of ``repro/models/transformer.py`` but for MLA.  The JAX
-package stacks the layers over a leading ``n_periods`` dim and runs them
-with ``lax.scan``; here ``params["layers"]`` is a list of per-layer dicts run
+The port of ``repro/models/transformer.py``.  The JAX package unrolls
+its ``prelude_dense_layers`` first layers (``prelude_i``), stacks the
+rest over a leading ``n_periods`` dim and runs them with ``lax.scan``;
+here ``params["layers"]`` is a list of per-layer dicts in layer order run
 by a Python loop (``models/convert.py`` unstacks JAX weights).  The decode
 cache mirrors that: ``{"pos": (B,) or (), "layers": [{"k", "v"}, ...]}``, and
 :func:`decode_step` updates it in place (the JAX engine donates its cache).
@@ -40,9 +41,14 @@ stack with dense and MoE FFNs) keep a state in the decode cache instead of
 K/V rows (``ssm_h`` / ``ssm_conv``, ``ml_C`` / ``ml_n``, ``sl_h`` /
 ``sl_c``), which the decode step advances in place.  They have no one-pass
 prefill (:func:`prefill` raises): the engine runs the decode step over the
-bucket, as the JAX package's engine does for every arch.  MLA
-(deepseek-v2, ``cfg.use_mla``) is not ported yet (``init_params`` /
-``init_cache`` raise for it).
+bucket, as the JAX package's engine does for every arch.
+
+With ``cfg.use_mla`` (deepseek-v2) an ``attn`` layer is multi-head latent
+attention (:func:`attn.mla_attention` / :func:`attn.mla_decode`) and caches
+the latent rows ``lat_c`` / ``lat_r`` instead of ``k`` / ``v``; still
+indexed by position, so the one-pass prefill, its warm form and the prefix
+cache run as for the dense family.  A full-sequence layer returns the rows
+it caches by leaf name, and the prefill writes whatever leaves it returns.
 
 :func:`loss_fn` (with :class:`RunCtx`) is the training form: the forward
 under the caller's grad mode, each layer recomputed in the backward with
@@ -71,9 +77,6 @@ Pytree = Any
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention (use_mla) is not ported yet")
     for i in range(cfg.num_layers):
         if cfg.block_type(i) not in ("attn", "local", "xattn") + \
                 ssm.RECURRENT_BLOCKS or \
@@ -122,7 +125,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     (``std = 1/sqrt(fan_in)``, norms at one, cross-attention gates at
     zero, Mamba's ``A_log`` / ``dt_bias`` at zero and ``D_skip`` at one),
     drawn from ``gen``.  A layer whose FFN is ``none`` has no ``norm2`` /
-    ``ffn``."""
+    ``ffn``; with ``cfg.use_mla`` an ``attn`` / ``local`` layer's ``mix``
+    holds MLA's projections (:func:`attn.init_mla`)."""
     _check_supported(cfg)
     device = torch.device(device)
     D = cfg.d_model
@@ -145,6 +149,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
             mix = cross()
         elif ltype in ssm.INIT:
             mix = ssm.INIT[ltype](cfg, normal, ones, zeros)
+        elif cfg.use_mla:
+            mix = attn.init_mla(cfg, normal, ones)
         else:
             mix = _init_attn(cfg, normal, ones, zeros)
         p = {"norm1": ones(D), "mix": mix}
@@ -190,7 +196,9 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
                context: Optional[torch.Tensor] = None,
                pos_per_slot: bool = False) -> Pytree:
     """Decode caches on the parameters' device: zeroed KV rows per
-    self-attention layer.  ``pos_per_slot=True`` makes ``pos`` a
+    self-attention layer (with ``cfg.use_mla`` the latent rows ``lat_c``
+    (B, max_seq, kv_lora_rank) and ``lat_r`` (B, max_seq, qk_rope_dim)
+    instead).  ``pos_per_slot=True`` makes ``pos`` a
     ``(batch,)`` vector: every row (request slot) carries its own cache
     position.
 
@@ -231,7 +239,11 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
                 xk, xv = zeros(shape_x), zeros(shape_x)
             layers.append({"xk": xk, "xv": xv})
             continue
-        c = {"k": zeros(shape), "v": zeros(shape)}
+        if cfg.use_mla:
+            c = {"lat_c": zeros((batch, max_seq, cfg.kv_lora_rank)),
+                 "lat_r": zeros((batch, max_seq, cfg.qk_rope_dim))}
+        else:
+            c = {"k": zeros(shape), "v": zeros(shape)}
         if cfg.decoder_cross_attn and context is not None:
             c["xk"], c["xv"] = attn.cross_kv(p["xattn"], cfg, context)
         layers.append(c)
@@ -272,6 +284,9 @@ def _decode_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
                                      decode=True)
     elif ltype in ssm.DECODE:
         mixed, _ = ssm.DECODE[ltype](p["mix"], cfg, h, cache)
+    elif cfg.use_mla:
+        mixed, _ = attn.mla_decode(p["mix"], cfg, h,
+                                   (cache["lat_c"], cache["lat_r"]), pos)
     else:
         mixed, _ = attn.attention_decode(p["mix"], cfg, h,
                                          (cache["k"], cache["v"]), pos,
@@ -287,9 +302,14 @@ def _decode_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
 def _full_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
                 x: torch.Tensor, window: Optional[int],
                 stats: Optional[Dict], context=None, q_offset=None,
-                cache=None, span=None):
+                cache=None, span=None, k_rows=None):
+    """One layer over the full sequence -> (x, rows, stats): ``rows`` maps
+    the names of the cache leaves a self-attention layer fills (``k`` /
+    ``v``, or MLA's ``lat_c`` / ``lat_r``) to its (B, S, ...) rows, or,
+    given the layer's ``cache`` dict (the warm prefill, at ``q_offset``),
+    to the cache leaves it wrote in place; None for other layers."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    kv = None
+    rows = None
     if ltype == "xattn":
         if context is None:
             raise ValueError(f"{cfg.name}: an xattn layer needs a context")
@@ -299,14 +319,23 @@ def _full_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
     elif ltype in ssm.MIX:
         mixed = ssm.MIX[ltype](p["mix"], cfg, h)
     else:
-        mixed, kv = attn.attention(p["mix"], cfg, h, q_offset=q_offset,
-                                   cache=cache, span=span, window=window)
+        names = ("lat_c", "lat_r") if cfg.use_mla else ("k", "v")
+        leaves = None if cache is None else tuple(cache[n] for n in names)
+        if cfg.use_mla:
+            mixed, out = attn.mla_attention(p["mix"], cfg, h,
+                                            q_offset=q_offset, cache=leaves,
+                                            span=span, k_rows=k_rows)
+        else:
+            mixed, out = attn.attention(p["mix"], cfg, h, q_offset=q_offset,
+                                        cache=leaves, span=span,
+                                        window=window)
+        rows = dict(zip(names, out))
     x = x + mixed
     if cfg.decoder_cross_attn and ltype in ("attn", "local") and \
             context is not None:
         x = _cross_attend(p, cfg, x, attn.cross_kv(p["xattn"], cfg, context))
     x, stats = _apply_ffn(p, cfg, ftype, x, stats)
-    return x, kv, stats
+    return x, rows, stats
 
 
 def _zero_stats(cfg: ModelConfig, device) -> Optional[Dict]:
@@ -342,9 +371,10 @@ def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
              cache_layers=None, prefix_len=None, context=None,
              remat: bool = False):
     """(final hidden states of (B, S) tokens, MoE stats or None); with
-    ``cache_layers``, each layer's (k, v) is written in place into rows
-    [0, S) of its cache, or, with ``prefix_len``, into rows [prefix_len,
-    prefix_len + S) after the cached prefix rows it attends to.  A
+    ``cache_layers``, the rows each layer caches (its (k, v), or MLA's
+    latent rows) are written in place into rows [0, S) of its cache, or,
+    with ``prefix_len``, into rows [prefix_len, prefix_len + S) after the
+    cached prefix rows it attends to.  A
     ``context`` is encoded first when the arch has an encoder, then every
     cross-attending layer attends to it.  ``remat`` (training) recomputes
     each layer in the backward (:func:`_remat_layer`)."""
@@ -353,8 +383,12 @@ def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     stats = _zero_stats(cfg, x.device)
     if cfg.encoder_layers > 0 and context is not None:
         context = encode(params, cfg, context)
+    span = k_rows = None
     if prefix_len is not None:      # every layer writes the same rows
-        span = attn.span_index(prefix_len, S, cache_layers[0]["k"].shape[1])
+        size = next(iter(cache_layers[0].values())).shape[1]
+        span = attn.span_index(prefix_len, S, size)
+        if cfg.use_mla:         # the cache rows the queries see, read once
+            k_rows = min(size, int(prefix_len.max()) + S)
     for i, p in enumerate(params["layers"]):
         ltype, window, ftype = cfg.block_type(i), layer_window(cfg, i), \
             cfg.ffn_type(i)
@@ -363,16 +397,15 @@ def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
                                     context)
             continue
         if prefix_len is not None:
-            c = cache_layers[i]
             x, _, stats = _full_layer(p, cfg, ltype, ftype, x, window, stats,
-                                      None, prefix_len, (c["k"], c["v"]),
-                                      span)
+                                      None, prefix_len, cache_layers[i],
+                                      span, k_rows)
             continue
-        x, kv, stats = _full_layer(p, cfg, ltype, ftype, x, window, stats,
-                                   context)
+        x, rows, stats = _full_layer(p, cfg, ltype, ftype, x, window, stats,
+                                     context)
         if cache_layers is not None:
-            cache_layers[i]["k"][:, :S] = kv[0]
-            cache_layers[i]["v"][:, :S] = kv[1]
+            for name, t in rows.items():
+                cache_layers[i][name][:, :S] = t
     return rms_norm(x, params["final_norm"], cfg.norm_eps), stats
 
 
@@ -432,8 +465,9 @@ def prefill(params: Pytree, cfg: ModelConfig, cache: Pytree,
     """A whole (B, S) bucket of prompts in one pass -> ((B, V) float32
     logits at each row's position ``lengths - 1``, the cache).
 
-    Writes K/V rows [0, S) of every layer, pad rows past a prompt's length
-    included, and sets ``pos`` to S: the cache the decode step run over the
+    Writes K/V rows (MLA: latent rows) [0, S) of every layer, pad rows
+    past a prompt's length included, and sets ``pos`` to S: the cache the
+    decode step run over the
     S tokens leaves, and the same logits at ``lengths - 1``.  The hidden
     rows are gathered before ``unembed``, so only B rows of logits exist.
 

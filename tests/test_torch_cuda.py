@@ -1094,3 +1094,131 @@ def test_cuda_train_smoke_matches_cpu(cuda_device):
     and batches; loss and grad_norm within 1e-4 at every step."""
     import argparse
     _chip_smoke().train_smoke_card_vs_cpu(argparse.Namespace(seed=0))
+
+
+# MLA (deepseek-v2-236b): chip_smoke.py's cases m1 (the engine's (4, 64)
+# bucket), m2 (S 4096) and m3 (the warm call at per-row offsets) at q / k
+# 192, v 128, 128 heads: (B, H, KV, Sq, Sk, d, dv, offsets)
+MLA_FLASH_CASES = {"m1": (4, 128, 128, 64, 64, 192, 128, None),
+                   "m2": (1, 128, 128, 4096, 4096, 192, 128, None),
+                   "m3": (4, 128, 128, 16, 96, 192, 128, (0, 20, 44, 80))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [
+    (torch.float32, 1e-4), (torch.bfloat16, 3e-2), (torch.float16, 4e-3)])
+@pytest.mark.parametrize("case", sorted(MLA_FLASH_CASES))
+def test_cuda_flash_attention_mla_shapes(cuda_device, case, dtype, atol):
+    """The kernel at dv != d (the (256, 128) column buckets) against its
+    plain version, one launch, a (B, H, Sq, dv) output; through the
+    model's (B, S, heads, d) views the output keeps the (B, S, H, dv)
+    layout and the same values."""
+    B, H, KV, Sq, Sk, d, dv, offsets = MLA_FLASH_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    q, k = _qkv(gen, cuda_device, B, H, KV, Sq, Sk, d, dtype)[:2]
+    v = torch.randn((B, KV, Sk, dv), generator=gen,
+                    device=cuda_device).to(dtype)
+    off = None if offsets is None else torch.tensor(
+        offsets, dtype=torch.int32, device=cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, Sq, dv)
+    want = flash_attention_plain(q, k, v, q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    strided = flash_attention(*views, q_offset=off)
+    assert strided.transpose(1, 2).is_contiguous()
+    assert torch.equal(strided, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("d,dv", [(96, 64), (96, 128), (192, 64),
+                                  (192, 128), (64, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_v_head_dims(cuda_device, d, dv, causal, dtype,
+                                          atol):
+    """dv in {64, 128} at d in {96, 192} (and dv > d), GQA 2:1, ragged
+    lengths (Sq 77, Sk 77 causal / 150 not), against the plain version."""
+    Sk = 77 if causal else 150
+    gen = torch.Generator(device=cuda_device).manual_seed(d + dv)
+    q, k = _qkv(gen, cuda_device, 2, 4, 2, 77, Sk, d, dtype)[:2]
+    v = torch.randn((2, 2, Sk, dv), generator=gen,
+                    device=cuda_device).to(dtype)
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.shape == (2, 4, 77, dv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+def test_cuda_mla_backward_pads_v_to_d(cuda_device, dtype, rtol):
+    """The backward at m1's shape (d 192, dv 128): the kernel runs on v, o
+    and do zero-padded to 192 columns (``mma_sync`` for bf16, the CUDA
+    cores for f32) and slices dV back; each gradient within ``rtol`` of
+    its max magnitude of the f32 plain backward at dv columns."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_plain, flash_attention_bwd)
+
+    B, H, KV, Sq, Sk, d, dv, _ = MLA_FLASH_CASES["m1"]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = [torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+               .requires_grad_() for s in
+               ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, dv))]
+    do = torch.randn((B, H, Sq, dv), generator=gen,
+                     device=cuda_device).to(dtype)
+    b0 = flash_attention_bwd.launches
+    o = flash_attention(q, k, v)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == b0 + 1
+    assert flash_attention_bwd.last_design == (
+        "cuda_cores" if dtype == torch.float32 else "mma_sync")
+    want = flash_attention_backward_plain(
+        q.detach().float(), k.detach().float(), v.detach().float(),
+        o.detach().float(), do.float())
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dtype
+        assert float((g.float() - w).abs().max()) <= \
+            rtol * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_smoke_model_equals_the_cpu(cuda_device):
+    """chip_smoke.py's phase 15(b): the float32 deepseek-v2 smoke model on
+    the card and the CPU: forward logits and ``loss_fn``'s loss and
+    gradient norm within 1e-4, engine tokens equal with the prefix cache
+    on and off, greedy and at 0.8 (it raises on any difference)."""
+    import argparse
+
+    _chip_smoke().deepseek_reference(argparse.Namespace(seed=0))
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_decode_step_replays_from_a_graph(cuda_device):
+    """The bf16 deepseek-v2 smoke decode step (8 slots; MLA's
+    weight-absorbed form and the MoE layers) writes its latent rows in
+    place and reads nothing back to the host: it captures in a CUDA
+    graph, one replay equals the eager step bit for bit, and it launches
+    no ``flash_attention``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+
+    chip_smoke = _chip_smoke()
+    cfg = get_config("deepseek-v2-236b", smoke=True)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(1), device=cuda_device)
+    cache = init_cache(params, cfg, 8, 32, pos_per_slot=True)
+    toks = torch.randint(1, cfg.vocab_size, (8, 5), dtype=torch.int32,
+                         device=cuda_device)
+    chip_smoke.feed_prompt(cfg, params, cache, toks[:, :4])
+    before = flash_attention.launches
+    _, _, equal = chip_smoke.step_eager_vs_graph(cfg, params, cache,
+                                                 toks[:, 4:], iters=2)
+    assert equal
+    assert flash_attention.launches == before

@@ -309,3 +309,110 @@ def test_window_contract_errors():
     for bad in (0, -3, 2.5, True):
         with pytest.raises(ValueError, match="window must be an integer"):
             flash_attention(q, k, v, window=bad)
+
+
+# v's head dim dv != d (MLA: q / k at 192, v at 128; its smoke config 24 /
+# 16): (B, H, KV, Sq, Sk, d, dv, causal, block).  The Pallas kernel takes
+# dv == d only, so it runs on v zero-padded to d and its output is sliced
+# to dv: the zero columns add nothing to the softmax and their output is
+# zero.
+DV_CASES = [(1, 4, 4, 64, 64, 24, 16, True, 32),       # MHA causal
+            (2, 4, 2, 64, 64, 40, 24, False, 32),      # GQA 2:1 non-causal
+            (1, 4, 1, 64, 64, 192, 128, True, 64),     # GQA 4:1 at MLA's
+            (1, 8, 2, 64, 128, 192, 128, False, 64)]   # Sq != Sk
+
+
+def _pallas_padded(q, k, v, causal, block, dtype=jnp.float32):
+    d, dv = q.shape[-1], v.shape[-1]
+    vpad = np.concatenate([v, np.zeros(v.shape[:-1] + (d - dv,), v.dtype)],
+                          axis=-1)
+    out = _pallas(q, k, vpad, causal=causal, bq=block, bk=block, dtype=dtype)
+    assert not out[..., dv:].any()
+    return out[..., :dv]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,d,dv,causal,block", DV_CASES)
+def test_v_head_dim_differs_matches_pallas_on_padded_v(B, H, KV, Sq, Sk, d,
+                                                       dv, causal, block):
+    """float32 at 1e-5: (B, H, Sq, dv) out, scale 1 / sqrt(d)."""
+    q, k, v = _qkv(d + dv + Sk, B, H, KV, Sq, Sk, d)
+    v = np.ascontiguousarray(v[..., :dv])
+    got = flash_attention(*_torch(q, k, v), causal=causal)
+    assert got.shape == (B, H, Sq, dv) and got.dtype == torch.float32
+    want = _pallas_padded(q, k, v, causal, block)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_v_head_dim_differs_bfloat16_matches_pallas(causal):
+    """bf16 at MLA's widths, the JAX test's bf16 tolerance (5e-2)."""
+    q, k, v = _qkv(77, 1, 4, 2, 64, 64, 192)
+    v = np.ascontiguousarray(v[..., :128])
+    got = flash_attention(*_torch(q, k, v, dtype=torch.bfloat16),
+                          causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 4, 64, 128)
+    want = _pallas_padded(q, k, v, causal, 64, dtype=jnp.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=5e-2,
+                               atol=5e-2)
+
+
+@pytest.mark.parametrize("offsets,Sq,Sk", [((0, 20, 44), 16, 96),
+                                           ((120, 0), 40, 200)])
+def test_v_head_dim_differs_with_query_offsets(offsets, Sq, Sk):
+    """The warm call at dv != d (GQA 4:2, d 24, dv 16): per row,
+    ``ref.flash_attention_ref`` on the keys [0, q_offset[b] + Sq) and v
+    zero-padded to d, sliced to dv, float32 at 1e-5."""
+    B = len(offsets)
+    q, k, v = _qkv(13 + Sk, B, 4, 2, Sq, Sk, 24)
+    vpad = v.copy()
+    vpad[..., 16:] = 0
+    off = torch.tensor(offsets, dtype=torch.int32)
+    got = flash_attention(*_torch(q, k, np.ascontiguousarray(v[..., :16])),
+                          q_offset=off).numpy()
+    assert got.shape == (B, 4, Sq, 16)
+    for b, o in enumerate(offsets):
+        n = min(o + Sq, Sk)
+        want = np.asarray(ref.flash_attention_ref(
+            *_jax(q[b:b + 1, :, :n - o], k[b:b + 1, :, :n],
+                  vpad[b:b + 1, :, :n]), causal=True))
+        assert not want[..., 16:].any()
+        np.testing.assert_allclose(got[b:b + 1, :, :n - o], want[..., :16],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_v_head_dim_wider_than_d_matches_the_oracle():
+    """dv > d is taken too (d 16, dv 48): float64 softmax attention at
+    1e-5, causal and not."""
+    q, k, v48 = _qkv(5, 1, 2, 2, 32, 32, 48)
+    q, k = np.ascontiguousarray(q[..., :16]), np.ascontiguousarray(k[..., :16])
+    for causal in (True, False):
+        got = flash_attention(*_torch(q, k, v48), causal=causal)
+        assert got.shape == (1, 2, 32, 48)
+        np.testing.assert_allclose(got.numpy(),
+                                   _topleft_oracle(q, k, v48, causal),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_v_head_dim_output_keeps_the_models_layout():
+    """The CUDA path's output at dv != d: for q a (B, S, H, d) buffer seen
+    as (B, H, S, d), a (B, S, H, dv) buffer seen likewise (the model's
+    transpose back is then free); contiguous (B, H, S, dv) otherwise; q's
+    own layout at dv == d."""
+    from repro_torch.kernels.flash_attention import _out_like
+
+    q = torch.empty((2, 5, 4, 24)).transpose(1, 2)
+    out = _out_like(q, 16)
+    assert out.shape == (2, 4, 5, 16) and out.transpose(1, 2).is_contiguous()
+    out = _out_like(torch.empty((2, 4, 5, 24)), 16)
+    assert out.shape == (2, 4, 5, 16) and out.is_contiguous()
+    assert _out_like(q, 24).stride() == q.stride()
+
+
+def test_v_head_dim_contract_errors():
+    q, k, v = _torch(*_qkv(3, 1, 4, 2, 8, 8, 32))
+    with pytest.raises(ValueError, match="alike"):
+        flash_attention(q, k, v[:, :, :4, :16])
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, k, torch.zeros((1, 2, 8, 272)))
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, k, torch.zeros((1, 2, 8, 0)))

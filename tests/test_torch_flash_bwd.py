@@ -203,3 +203,56 @@ def test_wgmma_schedule_visits_each_kept_pair_once(kernel, case):
     schedule = _dkdv_schedule if kernel == "dkdv" else _dq_schedule
     count = schedule(Sq, Sk, d, causal, window, keep)
     assert np.array_equal(count, keep.astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# the plain backward at v's head dim dv != d (MLA)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,d,dv,causal,window", [
+    (2, 4, 4, 37, 37, 24, 16, True, None),     # MLA's smoke widths
+    (1, 4, 2, 33, 33, 40, 8, True, 5),         # GQA, a window
+    (1, 2, 1, 20, 30, 12, 20, False, None),    # dv > d, Sq != Sk
+    (1, 2, 2, 16, 16, 192, 128, True, None)])  # MLA's full widths
+def test_backward_plain_at_dv_matches_autograd(B, H, KV, Sq, Sk, d, dv,
+                                               causal, window):
+    """``flash_attention_backward_plain`` with v, o, do at ``dv`` columns
+    against ``torch.autograd`` of plain float64 softmax attention (top-left
+    causal, window, GQA by repeated heads) at 1e-5."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_plain, flash_attention_plain)
+
+    gen = torch.Generator().manual_seed(Sq + d + dv)
+    q = torch.randn((B, H, Sq, d), generator=gen)
+    k = torch.randn((B, KV, Sk, d), generator=gen)
+    v = torch.randn((B, KV, Sk, dv), generator=gen)
+    do = torch.randn((B, H, Sq, dv), generator=gen)
+    o = flash_attention_plain(q, k, v, causal=causal, window=window)
+    got = flash_attention_backward_plain(q, k, v, o, do, causal=causal,
+                                         window=window)
+    assert [tuple(g.shape) for g in got] == [tuple(q.shape), tuple(k.shape),
+                                             tuple(v.shape)]
+    q2, k2, v2 = (t.double().requires_grad_() for t in (q, k, v))
+    kk, vv = k2.repeat_interleave(H // KV, 1), v2.repeat_interleave(H // KV,
+                                                                     1)
+    s = q2 @ kk.transpose(-1, -2) / np.sqrt(d)
+    if causal:
+        qp, kp = torch.arange(Sq)[:, None], torch.arange(Sk)[None]
+        keep = kp <= qp
+        if window is not None:
+            keep &= kp > qp - window
+        s = s.masked_fill(~keep, -np.inf)
+    out = torch.softmax(s, -1) @ vv
+    np.testing.assert_allclose(o.numpy(), out.detach().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    want = torch.autograd.grad(out, (q2, k2, v2), do.double())
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_design_of_the_padded_mla_backward():
+    """The card pads v, o and do of MLA's d 192 / dv 128 to 192 columns:
+    192 is no wgmma head dim, so the bf16 backward takes ``mma_sync``."""
+    q, k, _, do = _inputs(1, 4, 4, 64, 64, 192)
+    assert backward_design(q, k, torch.empty_like(k), do) == "mma_sync"

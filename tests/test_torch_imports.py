@@ -47,7 +47,10 @@ def test_scan_sees_the_whole_port():
                    "optim/compress.py", "checkpoint/__init__.py",
                    "checkpoint/store.py", "runtime/fault_tolerance.py",
                    "launch/steps.py", "launch/train.py",
-                   "examples/train_lm.py", "core/aggregation.py"):
+                   "examples/train_lm.py", "core/aggregation.py",
+                   # the MLA slice
+                   "configs/deepseek_v2_236b.py", "models/attention.py",
+                   "models/convert.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) >= 30
     assert _forbidden("jax.numpy") and _forbidden("repro.core.plan")

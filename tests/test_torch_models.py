@@ -161,17 +161,24 @@ def test_cache_update_clamps_like_dynamic_update_slice():
 
 
 def test_other_families_are_later_slices():
-    """The MLA arch is not ported: the registry refuses deepseek-v2, and a
-    ``use_mla`` config is refused at init.  The recurrent archs and blocks
-    are ported (``tests/test_torch_ssm.py``): xlstm and jamba come from the
-    registry, and a mamba / mlstm / slstm layer with a dense or no FFN
-    builds."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("deepseek-v2-236b")
+    """Every family is now ported.  The MLA arch (``tests/test_torch_mla.py``):
+    the registry gives deepseek-v2, and its smoke config and a ``use_mla``
+    variant of the dense smoke config build, cache latent rows and decode.
+    The recurrent archs and blocks (``tests/test_torch_ssm.py``): xlstm and
+    jamba come from the registry, and a mamba / mlstm / slstm layer with a
+    dense or no FFN builds."""
+    assert get_config("deepseek-v2-236b").use_mla
     dense_cfg = get_config("qwen3-0.6b", smoke=True)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        init_params(dataclasses.replace(dense_cfg, use_mla=True),
-                    torch.Generator(), device="cpu")
+    for cfg in (get_config("deepseek-v2-236b", smoke=True),
+                dataclasses.replace(dense_cfg, use_mla=True, q_lora_rank=16,
+                                    kv_lora_rank=16, qk_rope_dim=8,
+                                    qk_nope_dim=8, v_head_dim=8)):
+        params = init_params(cfg, torch.Generator(), device="cpu")
+        cache = init_cache(params, cfg, 1, 4)
+        assert set(cache["layers"][-1]) == {"lat_c", "lat_r"}
+        logits, _ = decode_step(params, cfg, cache,
+                                torch.ones((1, 1), dtype=torch.int32))
+        assert bool(torch.isfinite(logits).all())
     for arch in ("xlstm-1.3b", "jamba-v0.1-52b"):
         assert get_config(arch).subquadratic
     for block in ("mamba", "mlstm", "slstm"):
@@ -556,7 +563,7 @@ def test_window_mask_matches_jax():
                                   "starcoder2-15b", "gemma3-1b",
                                   "qwen2-moe-a2.7b", "whisper-small",
                                   "llama-3.2-vision-90b", "xlstm-1.3b",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "deepseek-v2-236b"])
 def test_registry_configs_are_the_references_field_for_field(arch, smoke):
     """Every arch the port registers: its config (full and smoke) is the
     JAX package's, field for field."""

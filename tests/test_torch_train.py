@@ -40,7 +40,8 @@ from repro_torch.models import (RunCtx, decode_step, forward, init_cache,
                                 loss_fn, params_from_jax, prefill)
 
 ARCHS = ["qwen3-0.6b", "gemma3-1b", "qwen2-moe-a2.7b", "xlstm-1.3b",
-         "jamba-v0.1-52b", "whisper-small", "llama-3.2-vision-90b"]
+         "jamba-v0.1-52b", "whisper-small", "llama-3.2-vision-90b",
+         "deepseek-v2-236b"]
 B, S = 2, 16
 
 
