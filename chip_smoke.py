@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
   python3 chip_smoke.py [--seed 0] [--requests 16] [--serve-only]
-                        [--train-only]
+                        [--train-only] [--mla-only] [--mesh-only]
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -179,6 +179,31 @@ Phases, each of which must pass or the script exits non-zero:
    replay and its byte bound, the latent cache's 1152 bytes per token
    per layer against an up-projected K / V cache's 81920, peak memory.
    ``--mla-only`` runs phases 1 and 15 alone.
+16. the mesh tier (``repro_torch.dist``, the monoid shuffle across ranks;
+   the kernels are built in this process before any rank starts, each rank
+   a ``torch.multiprocessing`` spawn meeting at a ``FileStore``): (a)
+   NCCL, a world of one, mesh (1,) 'data': ``run_sharded`` for phase 6's mean-by-key and
+   max-by-key (2**22 records, 65536 keys; Algorithm 4 on 2**12) for every
+   strategy, max exact against ``run_local`` and mean within 1e-5 of the
+   float64 oracle, ``segment_fold`` launched as each plan's tier says, and
+   a keyed and a flat ``execute_fold(mesh_axes=('data',))`` equal to the
+   local fold; (b) gloo, 4 ranks on cuda:0 (NCCL refuses two ranks on one
+   card), mesh (2, 2) ('pod', 'data'): which collectives gloo takes for
+   CUDA tensors of each dtype (the phase fails if one is refused),
+   ``run_sharded`` as in (a) over 'data', ``combine_keyed_table`` over
+   'data' then 'pod' with each shuffle algorithm forced, ``sync_stats``
+   over phase 5's 16 batches split 4 per host equal to the single-host
+   state bit for bit (one ``cms_update`` per batch), and
+   ``execute_fold(sum, mesh_axes=('data', 'pod'))`` over qwen3-0.6b's
+   gradient shapes (the embedding, the final norm and the first
+   ``--mesh-layers`` layers, f32, 2 microbatches) in scan and async,
+   dense, ``topk:0.01`` and ``int8``: output plus the pod-summed error
+   feedback within 1e-4 of the dense sum, the pod axis's bytes equal to
+   the plan's (lossy below dense); per rank the local and shuffle ms,
+   bytes per axis, the plan's ``predicted_us`` beside the measured time
+   and async's measured overlap (the median of 3 runs of each schedule
+   through ``async_microbatch_fold``) beside the modeled one.  A rank that fails or hangs fails the phase.
+   ``--mesh-only`` runs phases 1 and 16 alone.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  The exit code
@@ -713,16 +738,17 @@ def corpus_tokens(vocab: int, n: int, seed: int, dev) -> torch.Tensor:
     return corpus(0)["tokens"].reshape(-1)
 
 
-def stream_batches(seed: int, dev, count: int = 16):
+def stream_batches(seed: int, dev, count: int = 16, start: int = 0):
     """The stream-stats path's batches: ragged qwen3-0.6b training data
-    (vocab 151936, seq 4096, global batch 128), tokens and masks."""
+    (vocab 151936, seq 4096, global batch 128), tokens and masks, of steps
+    ``start`` to ``start + count``."""
     from repro_torch.data import DataConfig, SyntheticCorpus
 
     corpus = SyntheticCorpus(DataConfig(vocab_size=151936, seq_len=4096,
                                         global_batch=128, seed=seed,
                                         ragged=True), device=dev)
     return [(b["tokens"], b["valid_mask"])
-            for b in (corpus(step) for step in range(count))]
+            for b in (corpus(step) for step in range(start, start + count))]
 
 
 def _time_three(kernel, plain, library, iters):
@@ -3771,6 +3797,488 @@ def mla_phase(args, gen, dev, segment_fold, flash_attention) -> tuple:
     return rows, bwd
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the mesh tier — the monoid shuffle across ranks
+# ---------------------------------------------------------------------------
+
+# qwen3-0.6b's gradient tree for the gradient folds of 16(b): the embedding,
+# the final norm and the first layers.  The whole tree is 2.38 GB in f32 a
+# microbatch value for each of 4 ranks on one card, and gloo stages every
+# collective through the host; PERF.md section 4 gives the measured cut
+MESH_GRAD_LAYERS = 4
+MESH_OVERLAP_REPS = 3     # runs of each schedule behind a measured overlap
+MESH_KEYS = 65536
+GLOO_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.uint8,
+               torch.bool, torch.int8, torch.int32, torch.int64)
+
+
+def _timed_ms(fn):
+    """(fn(), wall ms) with the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _store(store_path, world):
+    return torch.distributed.FileStore(store_path, world)
+
+
+def _mesh_records(seed: int, dev):
+    keys_np, vals_np = mapreduce_records(seed)
+    return {"key": torch.from_numpy(keys_np).to(dev),
+            "value": torch.from_numpy(vals_np).to(dev)}
+
+
+def _mesh_jobs():
+    from repro_torch.core import MapReduceJob, average_by_key_job, monoids
+    return {"mean": average_by_key_job(MESH_KEYS),
+            "max": MapReduceJob(mapper=lambda r: (r["key"], r["value"]),
+                                monoid=monoids.max_, num_keys=MESH_KEYS)}
+
+
+def _mesh_run_sharded(records, mesh, axis: str) -> list:
+    """run_sharded for both jobs and every strategy (Algorithm 4 on the
+    first 2**12 records: the scan tier is a per-record loop, as phase 6
+    cuts it), with its segment_fold launches, per-axis bytes, the plan and
+    its local phase (run_local of this rank's block) timed apart."""
+    from repro_torch import dist
+    from repro_torch.core import STRATEGIES
+    from repro_torch.kernels.segment_fold import segment_fold
+
+    P = dist.mesh_axis_sizes(mesh)[axis]
+    rows = []
+    for name, job in _mesh_jobs().items():
+        for strategy in STRATEGIES:
+            count = 1 << 12 if strategy == "in_mapper" else \
+                records["key"].numel()
+            recs = {k: v[:count] for k, v in records.items()}
+            block = dist.local_block(recs, mesh, axis)
+            job.run_sharded(recs, mesh, axis_name=axis, strategy=strategy)
+            segment_fold.launches = 0
+            dist.reset_counts()
+            out, total_ms = _timed_ms(lambda: job.run_sharded(
+                recs, mesh, axis_name=axis, strategy=strategy))
+            launches, counts = segment_fold.launches, dist.counts()
+            job.run_local(block, strategy=strategy, num_shards=1)
+            _, local_ms = _timed_ms(lambda: job.run_local(
+                block, strategy=strategy, num_shards=1))
+            plan = job.plan(recs, strategy=strategy, num_shards=P,
+                            axis_name=axis)
+            rows.append(dict(
+                job=name, strategy=strategy, count=count, out=out.cpu(),
+                local=job.run_local(recs, strategy=strategy,
+                                    num_shards=P).cpu(),
+                launches=launches, tier=plan.local_tier.kind,
+                shuffle=plan.shuffle_algorithm or "",
+                plan_wire=plan.collective_wire_bytes,
+                predicted_us=plan.predicted_us, counts=counts,
+                total_ms=total_ms, local_ms=local_ms))
+    return rows
+
+
+def _mesh_nccl_rank(rank, world, store_path, seed, backend="nccl",
+                    device="cuda:0"):
+    """16(a): NCCL, a world of one on the card, mesh (1,) 'data'."""
+    from repro_torch.core import execute_fold, monoids
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    dev = torch.device(device)
+    init_distributed(backend, rank, world, _store(store_path, world),
+                     device=dev)
+    mesh = make_mesh((world,), ("data",), device=dev)
+    backend = torch.distributed.get_backend(mesh.get_group("data"))
+    records = _mesh_records(seed, dev)
+    rows = _mesh_run_sharded(records, mesh, "data")
+    keys, vals = records["key"], records["value"][:, None]
+    table, plan = execute_fold(monoids.max_, vals, segment_ids=keys,
+                               num_segments=MESH_KEYS, mesh_axes=("data",),
+                               mesh=mesh, with_plan=True)
+    keyed_ok = torch.equal(table, execute_fold(
+        monoids.max_, vals, segment_ids=keys, num_segments=MESH_KEYS))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randn((16, 4096), generator=gen, device=dev)
+    flat_ok = torch.equal(
+        execute_fold(monoids.sum_, flat, mesh_axes=("data",), mesh=mesh),
+        execute_fold(monoids.sum_, flat))
+    return dict(backend=backend, rows=rows, keyed_ok=keyed_ok,
+                keyed_plan=plan.describe(), flat_ok=flat_ok)
+
+
+def _gloo_caps(mesh, dev) -> dict:
+    """Which collectives gloo refuses for CUDA tensors, per dtype: the
+    port's collectives call each one directly (``repro_torch.dist``)."""
+    import torch.distributed as tdist
+
+    g = mesh.get_group("data")
+    n = tdist.get_world_size(g)
+    refused = {}
+    for dt in GLOO_DTYPES:
+        x = torch.ones(4 * n, dtype=dt, device=dev)
+        calls = {f"all_reduce[{op}]": (lambda op=op: tdist.all_reduce(
+            x.clone(), getattr(tdist.ReduceOp, op), group=g))
+            for op in ("SUM", "MAX", "MIN")}
+        calls["all_gather_into_tensor"] = lambda: \
+            tdist.all_gather_into_tensor(x.new_empty(4 * n * n), x, group=g)
+        calls["reduce_scatter_tensor"] = lambda: \
+            tdist.reduce_scatter_tensor(x.new_empty(4), x, group=g)
+        calls["all_to_all_single"] = lambda: \
+            tdist.all_to_all_single(torch.empty_like(x), x, group=g)
+        for what, call in calls.items():
+            try:
+                call()
+                torch.cuda.synchronize()
+            except Exception as e:      # reported: the phase then fails
+                refused[f"{what} {dt}"] = f"{type(e).__name__}: {e}"
+    return refused
+
+
+def _grad_shapes(layers: int):
+    """qwen3-0.6b's parameter tree on meta: the embedding, the final norm
+    and its first ``layers`` layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config("qwen3-0.6b")
+    params = init_params(cfg, torch.Generator(), device="meta")
+    return {"embed": params["embed"], "final_norm": params["final_norm"],
+            "layers": params["layers"][:layers]}
+
+
+def _grad_leaf(shape, seed, rank, leaf, dev, n=2):
+    """Rank ``rank``'s n microbatch gradients of one leaf, f32 on the card
+    (a generator per leaf, so the dense sum is built one leaf at a time)."""
+    gen = torch.Generator(device=dev).manual_seed(
+        (seed * 1000 + rank) * 1000 + leaf)
+    return torch.randn((n,) + tuple(shape), generator=gen, device=dev)
+
+
+def _grad_err(out, shapes, seed, world, dev) -> float:
+    """max |out - the dense sum over every rank and microbatch|, leaf by
+    leaf (the dense tree is never whole on the card)."""
+    err = 0.0
+    for i, (o, s) in enumerate(zip(pytree.tree_leaves(out),
+                                   pytree.tree_leaves(shapes))):
+        dense = torch.zeros(s.shape, device=dev)
+        for r in range(world):
+            dense += _grad_leaf(s.shape, seed, r, i, dev).sum(0)
+        err = max(err, float((o - dense).abs().max()))
+        del dense
+    return err
+
+
+def _median_ms(fn, reps=MESH_OVERLAP_REPS) -> float:
+    return float(np.median([_timed_ms(fn)[1] for _ in range(reps)]))
+
+
+def _mesh_grad_folds(mesh, seed, rank, world, layers, dev) -> list:
+    """execute_fold(sum) over the gradient tree across ('data', 'pod'),
+    scan and async, dense and lossy: output (+ the pod-summed error
+    feedback) against the dense sum, the bytes each axis moved against
+    the plan's, the plan's time beside the measured one, and for async
+    the measured overlap: the serial, double-buffered and DCN-free
+    schedules, each through async_microbatch_fold, each the median of
+    MESH_OVERLAP_REPS runs after execute_fold's warm-up and timed run."""
+    from repro_torch import dist
+    from repro_torch.core import execute_fold, fold_stats, monoids
+    from repro_torch.core.calibration import fit_overlap_frac
+    from repro_torch.dist.collectives import async_microbatch_fold
+    from repro_torch.optim.compress import LossySpec
+
+    shapes = _grad_shapes(layers)
+    leaves, spec_tree = pytree.tree_flatten(shapes)
+    xs = pytree.tree_unflatten(
+        [_grad_leaf(s.shape, seed, rank, i, dev)
+         for i, s in enumerate(leaves)], spec_tree)
+    value_bytes = sum(s.numel() * 4 for s in leaves)
+    _, local_ms = _timed_ms(lambda: execute_fold(monoids.sum_, xs,
+                                                 layout="scan"))
+    rows = []
+    for layout in ("scan", "async"):
+        for lossy in (None, "topk:0.01", "int8"):
+            def run():
+                return execute_fold(monoids.sum_, xs, mesh_axes=("data",
+                                                                 "pod"),
+                                    layout=layout, lossy=lossy, mesh=mesh,
+                                    with_plan=True)
+            run()                                         # warm-up
+            dist.reset_counts()
+            (res, plan), ms = _timed_ms(run)
+            counts = dist.counts()
+            out, ef = res if lossy else (res, None)
+            del res
+            if ef is not None:
+                with dist.use_mesh(mesh):
+                    out = pytree.tree_map(torch.add, out,
+                                          dist.psum(ef, "pod"))
+                del ef
+            err = _grad_err(out, shapes, seed, world, dev)
+            del out
+            stats = fold_stats(plan).with_measured(ms * 1e3)
+            overlap = times = None
+            if layout == "async":
+                spec = LossySpec.parse(lossy) if lossy else None
+
+                def amf(axes, overlap_on):
+                    ef0 = None if spec is None else pytree.tree_map(
+                        lambda t: torch.zeros_like(t[0]), xs)
+                    with dist.use_mesh(mesh):
+                        return async_microbatch_fold(
+                            monoids.sum_, xs, axes, lossy=spec, ef=ef0,
+                            overlap=overlap_on)
+                times = {
+                    "serial": _median_ms(lambda: amf(("data", "pod"), False)),
+                    "dbuf": _median_ms(lambda: amf(("data", "pod"), True)),
+                    "compute": _median_ms(lambda: amf(("data",), True))}
+                overlap = fit_overlap_frac(
+                    t_serial_us=times["serial"] * 1e3,
+                    t_dbuf_us=times["dbuf"] * 1e3,
+                    t_compute_us=times["compute"] * 1e3)
+                stats = stats.with_measured(ms * 1e3, overlap=overlap)
+            rows.append(dict(
+                layout=layout, lossy=lossy or "dense", ms=ms,
+                local_ms=local_ms, err=err, counts=counts,
+                kind=plan.local_tier.kind,
+                tier_wire=[(t.kind, t.wire_bytes) for t in plan.tiers],
+                plan_wire=plan.collective_wire_bytes,
+                dense_wire=plan.dense_wire_bytes,
+                lossy_wire=plan.lossy_wire_bytes,
+                predicted_us=plan.predicted_us, measured_us=ms * 1e3,
+                overlap_modeled=stats.overlap_modeled,
+                overlap_measured=stats.overlap_measured,
+                schedule_ms=times, value_bytes=value_bytes))
+    return rows
+
+
+def _mesh_gloo_rank(rank, world, store_path, seed, layers, device="cuda:0"):
+    """16(b): gloo, ``world`` ranks on cuda:0, mesh (2, 2) ('pod', 'data')."""
+    from repro_torch import dist
+    from repro_torch.core import execute_fold
+    from repro_torch.data import (init_stats, make_stream_stats, sync_stats,
+                                  update_stats)
+    from repro_torch.dist.collectives import combine_keyed_table
+    from repro_torch.kernels.cms import cms_counts
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    dev = torch.device(device)
+    init_distributed("gloo", rank, world, _store(store_path, world),
+                     device=dev)
+    mesh = make_mesh((2, world // 2), ("pod", "data"), device=dev)
+    backend = torch.distributed.get_backend(mesh.get_group("data"))
+    refused = _gloo_caps(mesh, dev)
+    records = _mesh_records(seed, dev)
+    rows = _mesh_run_sharded(records, mesh, "data")
+    # both shuffle algorithms, forced, over both axes: each rank's quarter
+    forced = {}
+    block = dist.local_block(records, mesh, ("pod", "data"))
+    for name, job in _mesh_jobs().items():
+        local = execute_fold(job.monoid, block["value"],
+                             segment_ids=block["key"].to(torch.int32),
+                             num_segments=MESH_KEYS, lifted=False)
+        for algo in ("allreduce", "reduce_scatter"):
+            with dist.use_mesh(mesh):
+                t = combine_keyed_table(job.monoid, local, "data",
+                                        algorithm=algo)
+                t = combine_keyed_table(job.monoid, t, "pod",
+                                        algorithm=algo)
+            forced[(name, algo)] = torch.func.vmap(job.monoid.extract)(
+                t).cpu()
+        forced[(name, "local")] = job.run_local(
+            records, strategy="combiner", num_shards=world).cpu()
+    # stream stats: this host's 4 of the 16 batches, then sync_stats
+    m = make_stream_stats()
+    cms_counts.launches = 0
+    state = init_stats(m, device=dev)
+    for toks, mask in stream_batches(seed, dev, count=16 // world,
+                                     start=rank * (16 // world)):
+        state = update_stats(state, toks, valid_mask=mask)
+    cms_launches = cms_counts.launches
+    dist.reset_counts()
+    synced, sync_ms = _timed_ms(lambda: sync_stats(
+        m, state, ("data", "pod"), mesh=mesh))
+    stats = dict(state={k: v.cpu() for k, v in synced.items()},
+                 counts=dist.counts(), ms=sync_ms, cms_launches=cms_launches)
+    del records, block
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grads = _mesh_grad_folds(mesh, seed, rank, world, layers, dev)
+    grads_s = time.perf_counter() - t0
+    return dict(backend=backend, refused=refused, rows=rows, forced=forced,
+                stats=stats, grads=grads, grads_s=grads_s,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _mean_oracle(keys_np, vals_np, count):
+    sums = np.zeros(MESH_KEYS, np.float64)
+    np.add.at(sums, keys_np[:count], vals_np[:count].astype(np.float64))
+    cnt = np.maximum(np.bincount(keys_np[:count], minlength=MESH_KEYS), 1)
+    return sums / cnt
+
+
+def _check_job_rows(rank, rows, keys_np, vals_np, on_card=True) -> None:
+    """Max exact against run_local(num_shards=world); mean within 1e-5 of
+    the float64 oracle (index_add_'s atomics sum in run-dependent order,
+    so a float sum is never bit-exact on the card); segment_fold launched
+    as the plan's tier says."""
+    for r in rows:
+        out = r["out"].numpy().astype(np.float64)
+        if r["job"] == "max":
+            if not torch.equal(r["out"], r["local"]):
+                raise RuntimeError(f"rank {rank} max {r['strategy']}: "
+                                   "run_sharded != run_local")
+            err = 0.0
+        else:
+            err = float(np.abs(out - _mean_oracle(keys_np, vals_np,
+                                                   r["count"])).max())
+            if not err <= 1e-5:
+                raise RuntimeError(f"rank {rank} mean {r['strategy']}: "
+                                   f"max |out - f64 oracle| = {err}")
+        want = 1 if r["tier"] == "kernel" else 0
+        if r["launches"] != want:
+            raise RuntimeError(
+                f"rank {rank} {r['job']} {r['strategy']}: segment_fold "
+                f"launched {r['launches']} times on the {r['tier']} tier")
+        if on_card and r["job"] == "max" and r["strategy"] != "in_mapper" \
+                and r["tier"] != "kernel":
+            raise RuntimeError(f"max {r['strategy']} left the kernel tier")
+        print(f"  rank {rank} {r['job']}_by_key {r['strategy']}: records="
+              f"{r['count']} tier={r['tier']} shuffle={r['shuffle']} "
+              f"segment_fold.launches={r['launches']} "
+              f"local_ms={r['local_ms']} shuffle_ms="
+              f"{r['total_ms'] - r['local_ms']} total_ms={r['total_ms']} "
+              f"predicted_us={r['predicted_us']} bytes={r['counts']} "
+              f"plan_shuffle_bytes_xla={r['plan_wire']} "
+              f"max_abs_err_vs_f64={err}", flush=True)
+
+
+def mesh_phase(args, dev) -> dict:
+    """Phase 16: (a) NCCL, a world of one: run_sharded for both jobs and every strategy, a keyed and a flat
+    execute_fold(mesh_axes=); (b) gloo, 4 ranks on cuda:0, mesh (2, 2)
+    (pod, data): run_sharded, both shuffle algorithms forced,
+    sync_stats over phase 5's 16 batches (== the single-host state bit
+    for bit) and the gradient folds.  -> launches on this path."""
+    from repro_torch.data import init_stats, make_stream_stats, update_stats
+    from repro_torch.launch.mesh import run_world
+
+    keys_np, vals_np = mapreduce_records(args.seed)
+    t0 = time.perf_counter()
+    (res_a,) = run_world(_mesh_nccl_rank, 1, args=(args.seed,),
+                         timeout_s=300)
+    print(f"mesh (a): backend={res_a['backend']} world=1 mesh=(1,) data; "
+          f"spawn + run {time.perf_counter() - t0:.1f}s", flush=True)
+    _check_job_rows(0, res_a["rows"], keys_np, vals_np)
+    if not (res_a["keyed_ok"] and res_a["flat_ok"]):
+        raise RuntimeError("mesh (a): execute_fold(mesh_axes=('data',)) != "
+                           "the local fold")
+    print(f"  execute_fold(mesh_axes=('data',)): keyed max-by-key == local "
+          f"(plan {res_a['keyed_plan']}), flat sum == local", flush=True)
+    launches = sum(r["launches"] for r in res_a["rows"])
+
+    world = 4
+    t0 = time.perf_counter()
+    ranks = run_world(_mesh_gloo_rank, world,
+                      args=(args.seed, args.mesh_layers), timeout_s=600)
+    print(f"mesh (b): backend={ranks[0]['backend']} world={world} on one "
+          f"card, mesh (2, 2) (pod, data); spawn + run "
+          f"{time.perf_counter() - t0:.1f}s (host loopback wires: no link "
+          "coefficient is fitted from these times)", flush=True)
+    for rank, res in enumerate(ranks):
+        if res["refused"]:
+            raise RuntimeError(f"gloo refused CUDA tensors: {res['refused']}"
+                               " (repro_torch.dist calls each directly)")
+    print(f"  gloo took all_reduce sum / max / min, all_gather_into_tensor, "
+          f"reduce_scatter_tensor and all_to_all_single on CUDA tensors of "
+          f"{', '.join(str(d).replace('torch.', '') for d in GLOO_DTYPES)}",
+          flush=True)
+    for rank, res in enumerate(ranks):
+        _check_job_rows(rank, res["rows"], keys_np, vals_np)
+        launches += sum(r["launches"] for r in res["rows"])
+        f = res["forced"]
+        for algo in ("allreduce", "reduce_scatter"):
+            if not torch.equal(f[("max", algo)], f[("max", "local")]):
+                raise RuntimeError(f"rank {rank}: forced {algo} max != "
+                                   "run_local(num_shards=4)")
+            err = float(np.abs(f[("mean", algo)].numpy().astype(np.float64)
+                               - _mean_oracle(keys_np, vals_np,
+                                              keys_np.size)).max())
+            if not err <= 1e-5:
+                raise RuntimeError(f"rank {rank}: forced {algo} mean err "
+                                   f"{err}")
+        print(f"  rank {rank} combine_keyed_table over data then pod, both "
+              "algorithms: max == run_local(num_shards=4), mean within "
+              "1e-5 of f64", flush=True)
+    # sync_stats == the single-host state of the 16 batches, bit for bit
+    m = make_stream_stats()
+    single = init_stats(m, device=dev)
+    for toks, mask in stream_batches(args.seed, dev):
+        single = update_stats(single, toks, valid_mask=mask)
+    for rank, res in enumerate(ranks):
+        st = res["stats"]
+        for k, v in single.items():
+            if not torch.equal(st["state"][k], v.cpu()):
+                raise RuntimeError(f"rank {rank}: sync_stats {k} != the "
+                                   "single-host state")
+        if st["cms_launches"] != 16 // world:
+            raise RuntimeError(f"rank {rank}: cms_update launched "
+                               f"{st['cms_launches']} times")
+        launches += st["cms_launches"]
+        print(f"  rank {rank} sync_stats over (data, pod) of its "
+              f"{16 // world} batches == the 16-batch single-host state "
+              f"(cms, hll, bloom, count bit for bit); cms_update.launches="
+              f"{st['cms_launches']} sync_ms={st['ms']} bytes={st['counts']}",
+              flush=True)
+    del single
+    # the gradient folds
+    for rank, res in enumerate(ranks):
+        for g in res["grads"]:
+            pod = g["counts"].get("pod", {})
+            data = g["counts"].get("data", {})
+            want = g["lossy_wire"] if g["lossy"] != "dense" else \
+                g["dense_wire"]
+            if not g["err"] <= 1e-4:
+                raise RuntimeError(f"rank {rank} grad fold {g['layout']} "
+                                   f"{g['lossy']}: |out (+ ef) - dense| = "
+                                   f"{g['err']}")
+            if pod.get("wire_bytes") != want:
+                raise RuntimeError(f"rank {rank} grad fold {g['layout']} "
+                                   f"{g['lossy']}: pod moved {pod} bytes, "
+                                   f"the plan {want}")
+            if g["lossy"] != "dense" and not want < g["dense_wire"]:
+                raise RuntimeError(f"lossy DCN bytes {want} not below "
+                                   f"dense {g['dense_wire']}")
+            if g["kind"] != g["layout"]:
+                raise RuntimeError(f"grad fold planned {g['kind']}")
+            print(f"  rank {rank} grad fold {g['layout']} {g['lossy']}: "
+                  f"value={g['value_bytes']}B x 2 microbatches "
+                  f"local_ms={g['local_ms']} ms={g['ms']} "
+                  f"predicted_us={g['predicted_us']} "
+                  f"measured_us={g['measured_us']} max_abs_err={g['err']} "
+                  f"pod_wire={pod.get('wire_bytes')} (plan lossy "
+                  f"{g['lossy_wire']} / dense {g['dense_wire']}) "
+                  f"data_wire={data.get('wire_bytes')} pod_calls="
+                  f"{pod.get('calls')} plan_tiers={g['tier_wire']} "
+                  f"overlap_modeled={g['overlap_modeled']} "
+                  f"overlap_measured={g['overlap_measured']} "
+                  f"schedule_median_ms={g['schedule_ms']}", flush=True)
+        print(f"  rank {rank} grad_folds_s={res['grads_s']} "
+              f"peak_mem_GiB={res['peak_gib']}", flush=True)
+    # the cut, with what this run measured: the whole tree scaled linearly
+    whole = sum(t.numel() * 4 for t in pytree.tree_leaves(_grad_shapes(28)))
+    value = ranks[0]["grads"][0]["value_bytes"]
+    scale = whole / value
+    print(f"mesh: reduced: qwen3-0.6b gradient tree cut to the embedding, the "
+          f"final norm and the first {args.mesh_layers} of 28 layers "
+          f"({value} of {whole} B a microbatch value); at this run's "
+          f"{max(r['grads_s'] for r in ranks):.1f} s and "
+          f"{max(r['peak_gib'] for r in ranks):.2f} GiB a rank, the whole "
+          f"tree would take ~{max(r['grads_s'] for r in ranks) * scale:.0f} "
+          f"s and ~{world * max(r['peak_gib'] for r in ranks) * scale:.0f} "
+          "GiB of the card for 4 ranks; Algorithm 4 on 2**12 records",
+          flush=True)
+    return {"segment_fold_and_cms_update": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3785,6 +4293,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mla-only", action="store_true",
                     help="run phases 1 and 15 (MLA, deepseek-v2-236b) only "
                          "and print no record")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run phases 1 and 16 (the mesh tier) only and "
+                         "print no record")
+    ap.add_argument("--mesh-layers", type=int, default=MESH_GRAD_LAYERS,
+                    help="qwen3-0.6b layers in phase 16's gradient tree")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3836,6 +4349,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mla_phase(args, gen, dev, segment_fold, flash_attention)
         print(f"phase 15 took {time.perf_counter() - t0:.1f}s", flush=True)
+        print(f"card: {card}")
+        return 0
+    if args.mesh_only:
+        t0 = time.perf_counter()
+        mesh_phase(args, dev)
+        print(f"phase 16 took {time.perf_counter() - t0:.1f}s", flush=True)
         print(f"card: {card}")
         return 0
     rows = []
@@ -3975,6 +4494,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mla_phase(args, gen, dev, segment_fold, flash_attention)
     print(f"phase 15 took {time.perf_counter() - t0:.1f}s", flush=True)
+    # phase 16: the mesh tier, the monoid shuffle across ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_phase(args, dev)
+    print(f"phase 16 took {time.perf_counter() - t0:.1f}s", flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

@@ -9,9 +9,13 @@ value.  ``layout='auto'`` in :func:`repro_torch.core.plan.plan_fold` is an
 argmin of this prediction over the FEASIBLE tiers.  Per collective link
 (ici / dcn), which prices the shuffle stages of a plan across a shard axis:
 
-    t(bytes) = launches * t0_us + per_device_wire_bytes * us_per_byte  Coefficients are keyed
-``"{monoid}|{dtype}"`` with a fallback chain down to the tier-wide ``"*"``
-entry.
+    t(bytes) = launches * t0_us + per_device_wire_bytes * us_per_byte
+
+and, for the async tier, the share of a link's in-flight time that a
+double-buffered schedule hides (``overlap_frac``, :func:`predict_overlap`).
+Coefficients are keyed ``"{monoid}|{dtype}"`` with a fallback chain down to
+the tier-wide ``"*"`` entry; the ``fit_*`` functions turn timings into
+coefficients.
 
 The table lives on disk as versioned JSON at ``$REPRO_TORCH_CALIB`` if set
 (the values ``none``/``off``/``default`` disable the disk cache and pin the
@@ -32,6 +36,7 @@ from typing import Dict, Mapping, Optional, Tuple
 CALIB_VERSION = 2
 
 TIER_KINDS = ("kernel", "segment_ops", "scan", "tree")
+LINK_DOMAINS = ("ici", "dcn")
 
 _ENV_VAR = "REPRO_TORCH_CALIB"
 _DISABLED = ("none", "off", "default", "")
@@ -45,11 +50,15 @@ class TierCoeff:
     us_per_byte: inverse throughput (for links: inverse wire bandwidth).
     us_per_record: serial per-record cost (dominant for the scan tier; 0
       for links).
+    overlap_frac: links only — the fraction of this link's in-flight time a
+      double-buffered schedule can hide under independent compute (0: the
+      crossings serialize with compute).
     """
 
     t0_us: float
     us_per_byte: float
     us_per_record: float = 0.0
+    overlap_frac: float = 0.0
 
     def local_us(self, num_records: int, record_bytes: int) -> float:
         return (self.t0_us + num_records * self.us_per_record
@@ -61,13 +70,15 @@ class TierCoeff:
 
 def _coeff_to_json(c: TierCoeff) -> Dict[str, float]:
     return {"t0_us": c.t0_us, "us_per_byte": c.us_per_byte,
-            "us_per_record": c.us_per_record}
+            "us_per_record": c.us_per_record,
+            "overlap_frac": c.overlap_frac}
 
 
 def _coeff_from_json(d: Mapping[str, float]) -> TierCoeff:
     return TierCoeff(t0_us=float(d.get("t0_us", 0.0)),
                      us_per_byte=float(d.get("us_per_byte", 0.0)),
-                     us_per_record=float(d.get("us_per_record", 0.0)))
+                     us_per_record=float(d.get("us_per_record", 0.0)),
+                     overlap_frac=float(d.get("overlap_frac", 0.0)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,12 +160,14 @@ _DEFAULT_TIERS: Dict[str, Dict[str, TierCoeff]] = {
 }
 
 # The link priors, the JAX package's defaults: ICI ~ tens of GB/s with a
-# ~10 us launch, DCN ~ sub-GB/s with ~100 us latency.  They are priors of the
-# cost model for a TPU pod's links, not times measured on any card; the
-# port's mesh tier (not yet ported) would measure NVLink / network links.
+# ~10 us launch, DCN ~ sub-GB/s with ~100 us latency, and the share of a
+# crossing a double-buffered schedule hides.  They are priors of the cost
+# model for a TPU pod's links, not times measured on any card; a table
+# fitted (``fit_link_coeff`` / ``fit_overlap_frac``) on NVLink or a network
+# replaces them.
 _DEFAULT_COLLECTIVES: Dict[str, TierCoeff] = {
-    "ici": TierCoeff(t0_us=10.0, us_per_byte=1e-4),
-    "dcn": TierCoeff(t0_us=100.0, us_per_byte=2e-3),
+    "ici": TierCoeff(t0_us=10.0, us_per_byte=1e-4, overlap_frac=0.25),
+    "dcn": TierCoeff(t0_us=100.0, us_per_byte=2e-3, overlap_frac=0.75),
 }
 
 _DEFAULT = Calibration(version=CALIB_VERSION, backend="any", source="default",
@@ -256,3 +269,87 @@ def get_calibration() -> Calibration:
     with _lock:
         _cache = (key, loaded)
     return loaded
+
+
+# ---------------------------------------------------------------------------
+# the double-buffered pipeline model (the async execution tier)
+# ---------------------------------------------------------------------------
+
+def pipeline_exposed_us(*, num_crossings: int, slot_us: float,
+                        cross_us: float) -> Tuple[float, float]:
+    """Exposed microseconds of ``num_crossings`` link crossings in a
+    double-buffered microbatch pipeline, BEFORE the link's ``overlap_frac``.
+
+    Crossing *i* is in flight while microbatch slot *i+1* computes, so each
+    of the first ``n - 1`` crossings can hide up to one compute slot; the
+    epilogue crossing has nothing left to hide under.  Returns
+    ``(exposed_us, hideable_us)`` with
+    ``exposed + hideable == num_crossings * cross_us``.
+    """
+    n = max(int(num_crossings), 0)
+    total = n * max(cross_us, 0.0)
+    if n <= 1 or total <= 0.0:
+        return total, 0.0
+    hideable = (n - 1) * min(max(slot_us, 0.0), cross_us)
+    return total - hideable, hideable
+
+
+def predict_overlap(calib: Calibration, domain: str, *, num_crossings: int,
+                    slot_us: float, wire_bytes: float) -> Tuple[float, float]:
+    """Predicted ``(exposed_us, overlap_fraction)`` for ``num_crossings``
+    double-buffered crossings of ``wire_bytes`` each over ``domain``: the
+    link's ``overlap_frac`` scales the structurally hideable time."""
+    coeff = calib.link_coeff(domain)
+    cross_us = coeff.link_us(wire_bytes)
+    exposed, hideable = pipeline_exposed_us(
+        num_crossings=num_crossings, slot_us=slot_us, cross_us=cross_us)
+    hidden = hideable * min(max(coeff.overlap_frac, 0.0), 1.0)
+    total = num_crossings * cross_us
+    if total <= 0.0:
+        return 0.0, 0.0
+    return total - hidden, hidden / total
+
+
+# ---------------------------------------------------------------------------
+# coefficient fitting
+# ---------------------------------------------------------------------------
+
+def fit_tier_coeff(*, n1: int, b1: int, t11_us: float, n2: int,
+                   t21_us: float, b2: int, t22_us: float) -> TierCoeff:
+    """Fit ``t(n, b) = t0 + n*us_per_record + n*b*us_per_byte`` from three
+    measurements: (n1, b1), (n2, b1), (n2, b2).  Negative slopes (timing
+    noise) clamp to 0, so a fitted table never predicts negative time."""
+    if n2 <= n1 or b2 <= b1:
+        raise ValueError(f"need n2 > n1 and b2 > b1; got n=({n1},{n2}) "
+                         f"b=({b1},{b2})")
+    us_per_byte = max((t22_us - t21_us) / (n2 * (b2 - b1)), 0.0)
+    slope_n = max((t21_us - t11_us) / (n2 - n1), 0.0)
+    us_per_record = max(slope_n - b1 * us_per_byte, 0.0)
+    t0 = max(t11_us - n1 * slope_n, 0.0)
+    return TierCoeff(t0_us=t0, us_per_byte=us_per_byte,
+                     us_per_record=us_per_record)
+
+
+def fit_link_coeff(*, bytes1: int, t1_us: float, bytes2: int, t2_us: float,
+                   overlap_frac: float = 0.0) -> TierCoeff:
+    """Fit ``t(bytes) = t0 + bytes*us_per_byte`` from two payload sizes."""
+    if bytes2 <= bytes1:
+        raise ValueError(f"need bytes2 > bytes1; got ({bytes1}, {bytes2})")
+    us_per_byte = max((t2_us - t1_us) / (bytes2 - bytes1), 0.0)
+    t0 = max(t1_us - bytes1 * us_per_byte, 0.0)
+    return TierCoeff(t0_us=t0, us_per_byte=us_per_byte,
+                     overlap_frac=overlap_frac)
+
+
+def fit_overlap_frac(*, t_serial_us: float, t_dbuf_us: float,
+                     t_compute_us: float) -> float:
+    """A link's measured overlap from three timings of one microbatch fold:
+    crossings waited after each compute slot (``t_serial``), crossings
+    double-buffered against the next slot (``t_dbuf``), and no crossings
+    (``t_compute``).  The crossings cost ``t_serial - t_compute``
+    un-overlapped; the double-buffered schedule recovered
+    ``t_serial - t_dbuf`` of it.  Clamped to [0, 1]."""
+    crossings_us = t_serial_us - t_compute_us
+    if crossings_us <= 0.0:
+        return 0.0
+    return min(max((t_serial_us - t_dbuf_us) / crossings_us, 0.0), 1.0)

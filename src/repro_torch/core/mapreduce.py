@@ -24,8 +24,9 @@ strategies mirror the paper's algorithms:
 Algorithm 2 (the combiner that changes the value type) is rejected by
 :func:`validate_combiner`.  Byte accounting (:meth:`MapReduceJob.stats`) is
 read off the planner's :class:`~repro_torch.core.plan.Plan` across a shard
-axis.  Running the shuffle across devices (``run_sharded``) is the mesh tier,
-a later slice of the port.
+axis.  :meth:`MapReduceJob.run_sharded` runs the job across the ranks of a
+mesh axis: each rank maps and combines its block of the records, then the
+monoid shuffle the plan chose combines the tables (``dist/collectives.py``).
 """
 from __future__ import annotations
 
@@ -37,8 +38,8 @@ import torch.utils._pytree as pytree
 from torch.func import vmap
 
 from .monoid import Monoid, MonoidTypeError, Pytree, tree_fold
-from .plan import (_MESH_TODO, Plan, _leading_dim, _static_valid_count,
-                   execute_fold, plan_fold)
+from .plan import (Plan, _leading_dim, _static_valid_count, execute_fold,
+                   plan_fold)
 
 STRATEGIES = ("naive", "combiner", "in_mapper")
 
@@ -57,9 +58,14 @@ class ShuffleStats:
       'allreduce'; '' when the plan has no table shuffle).
     predicted_us: the plan's modeled wall time under the active calibration.
     measured_us: an observed wall time attached with :meth:`with_measured`.
-
-    The JAX package's record also carries the async-overlap and lossy-wire
-    annotations; the port plans neither shape yet (ROADMAP's mesh tier).
+    overlap_modeled: the plan's modeled hidden fraction of DCN crossing time
+      (0 for sync plans: nothing is pipelined, nothing can hide).
+    overlap_measured: the observed hidden fraction, attached with
+      :meth:`with_measured` — a straggling host shows up here as collapsing
+      overlap before it shows up as a timeout (runtime/fault_tolerance.py).
+    dense_wire_bytes / lossy_wire_bytes: per-device DCN bytes of the dense
+      sync crossing vs what the plan moves (equal unless ``lossy``).
+    lossy: the compression annotation (``LossySpec.describe()``; '' = dense).
     """
 
     strategy: str
@@ -74,15 +80,24 @@ class ShuffleStats:
     shuffle_algorithm: str = ""
     predicted_us: float = 0.0
     measured_us: Optional[float] = None
+    overlap_modeled: float = 0.0
+    overlap_measured: Optional[float] = None
+    dense_wire_bytes: int = 0
+    lossy_wire_bytes: int = 0
+    lossy: str = ""
 
     def reduction_vs_naive(self) -> float:
         naive = self.num_records * self.value_bytes
         return naive / max(self.shuffle_bytes_mapreduce, 1)
 
-    def with_measured(self, us: float) -> "ShuffleStats":
-        """Attach an observed wall time (microseconds) to compare with the
-        model."""
-        return dataclasses.replace(self, measured_us=float(us))
+    def with_measured(self, us: float, *,
+                      overlap: Optional[float] = None) -> "ShuffleStats":
+        """Attach an observed wall time (microseconds) — and optionally the
+        observed hidden-overlap fraction — to compare with the model."""
+        return dataclasses.replace(
+            self, measured_us=float(us),
+            overlap_measured=(self.overlap_measured if overlap is None
+                              else float(overlap)))
 
     def model_error(self) -> Optional[float]:
         """measured/predicted ratio (None until both sides exist)."""
@@ -90,18 +105,39 @@ class ShuffleStats:
             return None
         return self.measured_us / self.predicted_us
 
+    def compression_ratio(self) -> float:
+        """dense/actual DCN bytes (1.0 when the crossing is dense)."""
+        if self.lossy_wire_bytes <= 0:
+            return 1.0
+        return self.dense_wire_bytes / self.lossy_wire_bytes
+
+    def overlap_collapse(self) -> Optional[float]:
+        """modeled - measured overlap fraction: how much of the promised
+        hiding did NOT happen (None until a measurement is attached; only
+        meaningful for async plans, where overlap_modeled > 0)."""
+        if self.overlap_measured is None:
+            return None
+        return self.overlap_modeled - self.overlap_measured
+
 
 def fold_stats(plan: Plan, *, strategy: str = "fold") -> ShuffleStats:
     """:class:`ShuffleStats` for a planner-lowered FLAT fold (a gradient or
-    metrics fold), every figure read off the :class:`Plan`."""
+    metrics fold), every figure read off the :class:`Plan`, the overlap and
+    compression annotations included: the per-step record the training
+    loop hands to ``runtime.fault_tolerance``."""
+    crossings = plan.num_records if plan.local_tier.kind == "async" else 1
     return ShuffleStats(
         strategy=strategy, num_records=plan.num_records,
         num_keys=plan.num_segments or 0, value_bytes=plan.value_bytes,
-        intermediate_values=plan.num_records, shuffle_values=1,
-        shuffle_bytes_mapreduce=plan.value_bytes,
+        intermediate_values=plan.num_records, shuffle_values=crossings,
+        shuffle_bytes_mapreduce=crossings * plan.value_bytes,
         shuffle_bytes_xla=plan.collective_wire_bytes,
         plan=plan.describe(), shuffle_algorithm=plan.shuffle_algorithm or "",
-        predicted_us=plan.predicted_us)
+        predicted_us=plan.predicted_us,
+        overlap_modeled=plan.overlap_modeled,
+        dense_wire_bytes=plan.dense_wire_bytes,
+        lossy_wire_bytes=plan.lossy_wire_bytes,
+        lossy=plan.lossy or "")
 
 
 def _to_meta(tree: Pytree) -> Pytree:
@@ -200,9 +236,50 @@ class MapReduceJob:
             table = tree_fold(self.monoid, stacked, axis=0)
         return self._finish(table, extract)
 
-    def run_sharded(self, *args, **kwargs) -> Pytree:
-        """Mesh execution (a shuffle across devices) is not ported yet."""
-        raise NotImplementedError(f"MapReduceJob.run_sharded: {_MESH_TODO}")
+    # -- mesh execution ---------------------------------------------------------
+    def run_sharded(self, records: Pytree, mesh, *, axis_name: str = "data",
+                    strategy: str = "in_mapper",
+                    extract: bool = True) -> Pytree:
+        """Execution across the ranks of ``mesh``'s ``axis_name`` axis.
+
+        records: globally-batched pytree (the same on every rank), leading
+        axis divisible by the axis size; each rank runs the map+combine
+        phase on its block (``dist.local_block``), then the dense key table
+        is combined across ranks with whatever shuffle the PLAN chose
+        (``Plan.shuffle_algorithm`` — reduce-scatter + all-gather when the
+        cost model prefers it, allreduce otherwise):
+
+          naive     -> all pairs cross the wire (all-gather), receivers fold
+          combiner / in_mapper -> the plan's shuffle of the dense table
+
+        The result is the full (num_keys, ...) extracted table, replicated
+        on every rank.  ``mesh=None`` runs on the mesh bound by
+        ``dist.use_mesh``.
+        """
+        from .. import dist
+        from ..dist.collectives import combine_keyed_table
+
+        if strategy not in STRATEGIES:
+            raise ValueError(f"strategy must be one of {STRATEGIES}")
+        with dist.maybe_mesh(mesh):
+            P = dist.axis_size(axis_name)      # an unbound axis raises here
+            plan = self.plan(records, strategy=strategy, num_shards=P,
+                             axis_name=axis_name)
+            shuffle = plan.shuffle_algorithm or "allreduce"
+            recs = dist.local_block(records, dist.current_mesh(), axis_name)
+            if strategy == "naive":
+                keys, raws = self._map_records(recs)
+                lifted = vmap(self.monoid.lift)(raws)
+                table = execute_fold(
+                    self.monoid, dist.all_gather(lifted, axis_name,
+                                                 tiled=True),
+                    segment_ids=dist.all_gather(keys, axis_name, tiled=True),
+                    num_segments=self.num_keys)
+            else:
+                table = combine_keyed_table(
+                    self.monoid, self._local_table(recs, strategy),
+                    axis_name, algorithm=shuffle)
+        return self._finish(table, extract)
 
     def _finish(self, table: Pytree, extract: bool) -> Pytree:
         if not extract:

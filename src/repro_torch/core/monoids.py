@@ -479,6 +479,10 @@ def hll_update_batch(regs: torch.Tensor, items: torch.Tensor,
 # the dense representation.
 stripes = sum_
 
+# Gradients under element-wise sum (the weight-vector monoid of §3): the
+# gradient sync collectives fold with it.
+grad_sum = sum_
+
 
 def stripe_of_window(window: torch.Tensor, vocab: int,
                      center: int) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""The monoid execution planner, local tiers: ONE lowering path for every fold.
+"""The monoid execution planner: ONE lowering path for every fold.
 
-The port of ``repro/core/plan.py`` without the mesh.  :func:`execute_fold`
-lowers a flat or keyed fold to one local tier:
+The port of ``repro/core/plan.py``.  :func:`execute_fold` lowers a flat or
+keyed fold to a local tier:
 
   kernel      the registered lowering onto the hand-written CUDA segment-fold
               kernel (``kernels/segment_fold.py``) when the monoid has one,
@@ -19,13 +19,14 @@ kernel takes, and the float32 accumulator is exact for the inputs.  Forcing
 ``layout='kernel'`` on CPU tensors runs the kernel's plain version.
 Planning works on concrete tensors or ``meta``-device tensors alike.
 
-Planning across a shard axis is ported: ``plan_fold(mesh_axes=...,
-axis_sizes=...)`` adds the collective stages (reduce-scatter or allreduce,
-ICI axes before DCN, priced by the link model), and ``pre_combine=False``
-the un-combined pair shuffle of Algorithm 1 — what ``MapReduceJob.plan`` /
-``stats`` report.  Executing across devices (``execute_fold(mesh_axes=)``),
-``lossy=`` compression and ``layout='async'`` are a later slice of the port
-(ROADMAP: "mesh tier").
+followed, with ``mesh_axes=``, by the collective tier: the combine across
+the named axes of the mesh bound by ``repro_torch.dist.use_mesh`` (or passed
+as ``mesh=``), ICI axes before the DCN ``pod`` axis, each axis's shuffle
+(reduce-scatter + all-gather or allreduce) chosen by the link model
+(``dist/collectives.py``).  ``lossy=`` crosses DCN compressed with error
+feedback; ``layout='async'`` pipelines each microbatch's DCN crossing
+against the next one's compute.  ``plan_fold`` prices both shapes, and
+``pre_combine=False`` the un-combined pair shuffle of Algorithm 1.
 """
 from __future__ import annotations
 
@@ -36,15 +37,17 @@ import torch
 import torch.utils._pytree as pytree
 from torch.func import vmap
 
-from .aggregation import (_PMAX_LIKE, _PMIN_LIKE, _PSUM_LIKE,
-                          split_axis_names, tree_bytes)
-from .calibration import Calibration, get_calibration
+from ..dist import maybe_mesh, mesh_axis_sizes
+from .aggregation import _PMAX_LIKE, _PMIN_LIKE, _PSUM_LIKE, tree_bytes
+from .calibration import Calibration, get_calibration, pipeline_exposed_us
 from .monoid import (KernelLowering, Monoid, Pytree, register_kernel_lowering,
                      scan_fold, tree_fold)
 
 LAYOUTS = ("auto", "kernel", "segment", "scan", "tree", "async")
 
-# layout spelling (user-facing) -> calibration tier kind (TierPlan.kind)
+# layout spelling (user-facing) -> calibration tier kind (TierPlan.kind).
+# 'async' is absent on purpose: it is a whole-plan shape (fused local +
+# pipelined crossings), not a local tier the per-record model prices.
 _LAYOUT_TIER_KIND = {"kernel": "kernel", "segment": "segment_ops",
                      "scan": "scan", "tree": "tree"}
 
@@ -62,14 +65,6 @@ _SEGMENT_OPS = {
 }
 _SEGMENT_OP_NAMES = {"sum": "index_add_", "amax": "scatter_reduce_[amax]",
                      "amin": "scatter_reduce_[amin]"}
-
-_MESH_TODO = ("the mesh tier is not ported yet (ROADMAP: 'mesh tier'); "
-              "fold locally and combine across devices yourself")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {_MESH_TODO}")
-
 
 # ---------------------------------------------------------------------------
 # kernel lowerings for the zoo
@@ -174,6 +169,16 @@ class Plan:
     value_bytes: int          # bytes of ONE lifted monoid value
     out_bytes: int            # bytes of the final local result (table/value)
     num_valid: Optional[int] = None
+    # -- overlap / compression annotations (flat mesh folds) ----------------
+    lossy: Optional[str] = None        # LossySpec.describe() when annotated
+    overlap_modeled: float = 0.0       # modeled hidden fraction of DCN time
+    dense_wire_bytes: int = 0          # per-device DCN bytes of a dense sync
+                                       #   crossing (0: no DCN axis planned)
+    lossy_wire_bytes: int = 0          # per-device DCN bytes actually planned
+                                       #   (== dense_wire_bytes when not lossy)
+    plan_candidate_us: Tuple[Tuple[str, float], ...] = ()
+                                       # whole-plan (sync vs async) argmin
+                                       #   table when both shapes were priced
 
     @property
     def local_tier(self) -> TierPlan:
@@ -196,18 +201,34 @@ class Plan:
     @property
     def shuffle_algorithm(self) -> Optional[str]:
         """'reduce_scatter' | 'allreduce' for the first collective stage
-        (None when the plan has no collective stage)."""
+        (None when the plan has no collective stage) — what
+        ``MapReduceJob.run_sharded`` executes."""
         for t in self.tiers:
             if t.kind in ("allreduce", "reduce_scatter"):
                 return t.kind
         return None
+
+    @property
+    def shuffle_candidate_us(self) -> dict:
+        """Predicted microseconds per shuffle algorithm on the first
+        collective axis (empty when there is none or its size is unknown)."""
+        for t in self.tiers:
+            if t.kind in ("allreduce", "reduce_scatter"):
+                return dict(t.candidate_us)
+        return {}
 
     def describe(self) -> str:
         parts = []
         for t in self.tiers:
             us = f" ~{t.predicted_us:.1f}us" if t.predicted_us > 0 else ""
             parts.append(f"{t.kind}[{t.detail}{us}]")
-        return " -> ".join(parts)
+        s = " -> ".join(parts)
+        if self.lossy:
+            s += (f" [lossy={self.lossy}: dcn {self.lossy_wire_bytes}B"
+                  f" vs {self.dense_wire_bytes}B dense]")
+        if self.overlap_modeled > 0.0:
+            s += f" [overlap modeled {self.overlap_modeled:.0%}]"
+        return s
 
 
 def collective_algorithm(m: Monoid) -> str:
@@ -246,9 +267,15 @@ def _per_device_shuffle_bytes(nbytes: int, axis_size: int, shuffle_kind: str,
     return float(nbytes) * (axis_size - 1)
 
 
+def _split_ici_dcn(mesh_axes: Sequence[Any]) -> Tuple[Tuple, Tuple]:
+    # delegate to dist: planning order must match execution order exactly
+    from ..dist.collectives import split_axis_names
+    return split_axis_names(mesh_axes)
+
+
 def _link_domain(ax: Any) -> str:
     """'dcn' for axes wired over DCN, 'ici' otherwise."""
-    return "dcn" if split_axis_names((ax,))[1] else "ici"
+    return "dcn" if _split_ici_dcn((ax,))[1] else "ici"
 
 
 def _plan_collective_tier(calib: Calibration, label: str, ax: Any,
@@ -282,6 +309,74 @@ def _plan_collective_tier(calib: Calibration, label: str, ax: Any,
     return TierPlan("allreduce", f"{label}:{ax} {allreduce_algo}",
                     nbytes, collective_wire_bytes(nbytes, P, allreduce_algo),
                     predicted_us=costs[kind], candidate_us=cand_us)
+
+
+def _plan_lossy_dcn_tier(calib: Calibration, ax: Any, P: Optional[int],
+                         comp_bytes: int, dense_bytes: int,
+                         spec) -> TierPlan:
+    """The DCN crossing of a ``lossy=`` fold: compressed messages gathered
+    and combined on-device (concat + scatter-add / dequant-sum — the lossy
+    monoid's exact regime), priced at the COMPRESSED bytes."""
+    detail = f"dcn:{ax} lossy[{spec.describe()}] {comp_bytes}B/{dense_bytes}B"
+    if not P or P <= 1:
+        return TierPlan("allreduce", detail + ("" if P else " (size unknown)"),
+                        comp_bytes, 0)
+    per_dev = float(comp_bytes) * (P - 1)    # gather: each message replicated
+    return TierPlan("allreduce", detail, comp_bytes,
+                    int(comp_bytes * (P - 1) * P),
+                    predicted_us=calib.predict_link_us("dcn", per_dev))
+
+
+def _plan_async_tier(calib: Calibration, *, n: int, value_bytes: int,
+                     out_bytes: int, local_us_total: float,
+                     ici: Sequence[Any], dcn: Sequence[Any],
+                     sizes: Mapping[Any, int], spec, comp_bytes: int,
+                     algo: str) -> Tuple[TierPlan, float, float]:
+    """Price the double-buffered shape: n ICI-combined partials, the DCN
+    crossing of partial i pipelined against the compute of partial i+1.
+
+    The per-microbatch ICI combines and the compute slot hide nothing (they
+    ARE the foreground work); of the n DCN crossings, n-1 are pipelined and
+    the epilogue is exposed.  How much of the pipelined time is hidden is
+    the DCN link's calibrated ``overlap_frac``.
+
+    Returns (tier, total_us, modeled hidden fraction of DCN time).
+    """
+    ici_us, ici_wire = 0.0, 0
+    for ax in ici:
+        P = sizes.get(ax)
+        if P and P > 1:
+            ici_us += calib.predict_link_us(
+                "ici", _per_device_shuffle_bytes(value_bytes, P,
+                                                 "allreduce", algo))
+            ici_wire += collective_wire_bytes(value_bytes, P, algo)
+    cross_us, dcn_wire = 0.0, 0
+    for ax in dcn:
+        P = sizes.get(ax)
+        if P and P > 1:
+            if spec is not None:
+                cross_us += calib.predict_link_us(
+                    "dcn", float(comp_bytes) * (P - 1))
+                dcn_wire += comp_bytes * (P - 1) * P
+            else:
+                cross_us += calib.predict_link_us(
+                    "dcn", _per_device_shuffle_bytes(value_bytes, P,
+                                                     "allreduce", algo))
+                dcn_wire += collective_wire_bytes(value_bytes, P, algo)
+    slot_us = local_us_total / n + ici_us
+    exposed, hideable = pipeline_exposed_us(
+        num_crossings=n, slot_us=slot_us, cross_us=cross_us)
+    ofrac = min(max(calib.link_coeff("dcn").overlap_frac, 0.0), 1.0)
+    hidden = hideable * ofrac
+    total_cross = n * cross_us
+    total = local_us_total + n * ici_us + total_cross - hidden
+    modeled = hidden / total_cross if total_cross > 0.0 else 0.0
+    detail = (f"double-buffered x{n} microbatch crossings"
+              + (f" lossy[{spec.describe()}]" if spec is not None else "")
+              + f", modeled overlap {modeled:.0%}")
+    tier = TierPlan("async", detail, out_bytes,
+                    n * (ici_wire + dcn_wire), predicted_us=total)
+    return tier, total, modeled
 
 
 def _leading_dim(values: Pytree) -> int:
@@ -362,7 +457,7 @@ def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
               num_segments: Optional[int] = None, valid_mask=None,
               mesh_axes: Optional[Sequence[Any]] = None, layout: str = "auto",
               lifted: bool = True, map_fn: Optional[Callable] = None,
-              axis_sizes: Optional[Mapping[Any, int]] = None,
+              mesh=None, axis_sizes: Optional[Mapping[Any, int]] = None,
               pre_combine: bool = True, lossy=None,
               calibration: Optional[Calibration] = None,
               value_shape: Optional[Pytree] = None) -> Plan:
@@ -374,28 +469,60 @@ def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
     offending leaf named.  ``valid_mask`` (one bool per record) makes the
     fold ragged; a concrete mask is counted into ``Plan.num_valid``.
 
-    ``mesh_axes`` (with their sizes in ``axis_sizes``; an unknown size
-    predicts 0 wire bytes) adds the collective stages that combine the
-    local result across those axes, ICI axes first, each stage's shuffle
-    algorithm chosen by the link model.  ``pre_combine=False`` models the
-    paper's Algorithm 1 (no combiner: every valid lifted pair crosses the
-    wire, receivers fold) for byte accounting.
+    ``mesh_axes`` (with their sizes from ``mesh`` — a DeviceMesh — or
+    ``axis_sizes``; an unknown size predicts 0 wire bytes) adds the
+    collective stages that combine the local result across those axes, ICI
+    axes first, each stage's shuffle algorithm chosen by the link model.
+    ``pre_combine=False`` models the paper's Algorithm 1 (no combiner:
+    every valid lifted pair crosses the wire, receivers fold) for byte
+    accounting.
+
+    ``layout='async'`` plans the double-buffered shape of
+    :func:`repro_torch.dist.collectives.async_microbatch_fold` — the DCN
+    crossing of record *i*'s ICI-combined partial pipelined against record
+    *i+1*'s compute.  It is a flat-fold layout and needs ``mesh_axes=``;
+    under ``layout='auto'`` the shape joins the argmin (priced with the
+    DCN link's calibrated ``overlap_frac``), a predicted tie going to the
+    sync shape.
+
+    ``lossy=`` (a :class:`repro_torch.optim.compress.LossySpec` or its
+    string spelling, e.g. ``"topk:0.01"``) annotates a flat additive fold:
+    the DCN crossing moves the compressed representation, and the byte and
+    time model prices the compressed bytes (``Plan.lossy_wire_bytes`` vs
+    ``Plan.dense_wire_bytes``).
 
     ``value_shape`` is one lifted value's shape when the caller already
     has it; ``map_fn`` is then not run on ``meta`` tensors.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}")
-    if lossy is not None:
-        raise _not_ported("lossy= compression")
-    if layout == "async":
-        raise _not_ported("layout='async'")
     keyed = segment_ids is not None
     if keyed and num_segments is None:
         raise ValueError(
             "segment_ids= was passed without num_segments=: a keyed fold "
             "returns a static (num_segments, ...) table, so pass the key-"
             "space size as num_segments=")
+    spec = None
+    if lossy is not None:
+        from ..optim.compress import LossySpec  # lazy: optim imports core
+        spec = LossySpec.parse(lossy)
+        if keyed:
+            raise ValueError(
+                "lossy= compression applies to flat (gradient) folds; keyed "
+                "tables cross the wire dense")
+        if m.name != "sum":
+            raise ValueError(
+                f"lossy= compression needs an additive fold; got monoid "
+                f"{m.name!r}")
+    if layout == "async":
+        if keyed:
+            raise ValueError(
+                "layout='async' overlaps the DCN crossing of a flat "
+                "microbatch fold; keyed folds use kernel/segment/scan")
+        if not mesh_axes:
+            raise ValueError(
+                "layout='async' needs mesh_axes= — without a mesh there is "
+                "no crossing to overlap")
 
     n = _leading_dim(values)
     if valid_mask is not None:
@@ -474,11 +601,17 @@ def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
                 "num_segments=, or use layout='tree'/'scan' for a flat fold")
         # with map_fn the point is O(1) live values: auto keeps the fused scan
         candidates = ["scan"] if map_fn is not None else ["tree", "scan"]
-        shown = candidates + ([layout] if layout not in ("auto", *candidates)
+        # 'async' fuses an in-mapper scan with pipelined crossings: its
+        # local work is the scan tier's, chosen here; the whole-plan shape
+        # is decided after the sync collectives are priced below
+        eff_layout = "auto" if layout == "async" else layout
+        shown = candidates + ([eff_layout]
+                              if eff_layout not in ("auto", *candidates)
                               else [])
         candidate_us = tuple((c, local_us(c)) for c in shown)
         costs = dict(candidate_us)
-        kind = min(candidates, key=costs.get) if layout == "auto" else layout
+        kind = (min(candidates, key=costs.get) if eff_layout == "auto"
+                else eff_layout)
         if kind == "tree":
             local = TierPlan("tree",
                              f"log-depth tree fold (Alg 3 combiner){masked}",
@@ -492,9 +625,13 @@ def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
 
     # -- collective tiers: ICI first, then DCN ------------------------------
     sizes = dict(axis_sizes or {})
+    if mesh is not None:
+        for ax, sz in mesh_axis_sizes(mesh).items():
+            sizes.setdefault(ax, sz)
     algo = collective_algorithm(m)
     mesh_axes = tuple(mesh_axes or ())
-    ici, dcn = split_axis_names(mesh_axes)
+    ici, dcn = _split_ici_dcn(mesh_axes)
+    comp_bytes = spec.wire_bytes(value_shape) if spec is not None else 0
     if not pre_combine:
         # Algorithm 1: every VALID lifted pair crosses the wire un-combined
         pair_bytes = n_model * vbytes
@@ -508,12 +645,56 @@ def plan_fold(m: Monoid, values: Pytree, *, segment_ids=None,
                           pair_bytes, wire, predicted_us=float(pred)), local]
     else:
         tiers = [local] + [
-            _plan_collective_tier(calib, label, ax, sizes.get(ax), out_bytes,
+            _plan_collective_tier(calib, "ici", ax, sizes.get(ax), out_bytes,
                                   num_segments if keyed else None, algo)
-            for label, axes in (("ici", ici), ("dcn", dcn)) for ax in axes]
+            for ax in ici]
+        for ax in dcn:
+            if spec is not None:
+                tiers.append(_plan_lossy_dcn_tier(
+                    calib, ax, sizes.get(ax), comp_bytes, out_bytes, spec))
+            else:
+                tiers.append(_plan_collective_tier(
+                    calib, "dcn", ax, sizes.get(ax), out_bytes,
+                    num_segments if keyed else None, algo))
+
+    # -- overlap / compression annotations + the sync-vs-async argmin --------
+    overlap_modeled = 0.0
+    dense_wire = lossy_wire = 0
+    plan_cand: Tuple[Tuple[str, float], ...] = ()
+    if not keyed and mesh_axes and pre_combine:
+        for ax in dcn:
+            P = sizes.get(ax)
+            if P and P > 1:
+                dense = int(_per_device_shuffle_bytes(out_bytes, P,
+                                                      "allreduce", algo))
+                dense_wire += dense
+                lossy_wire += (comp_bytes * (P - 1) if spec is not None
+                               else dense)
+        if n > 1 and layout in ("auto", "async"):
+            async_tier, async_total, modeled = _plan_async_tier(
+                calib, n=n, value_bytes=vbytes, out_bytes=out_bytes,
+                local_us_total=local.predicted_us, ici=ici, dcn=dcn,
+                sizes=sizes, spec=spec, comp_bytes=comp_bytes, algo=algo)
+            sync_total = float(sum(t.predicted_us for t in tiers))
+            plan_cand = (("sync", sync_total), ("async", async_total))
+            # a predicted tie goes to sync: one crossing beats n crossings
+            # whenever the model cannot prove the extra n-1 are hidden
+            if layout == "async" or async_total < sync_total:
+                tiers = [dataclasses.replace(async_tier,
+                                             candidate_us=plan_cand)]
+                overlap_modeled = modeled
+                lossy_wire = (comp_bytes * sum(
+                    sizes[ax] - 1 for ax in dcn
+                    if sizes.get(ax) and sizes[ax] > 1) * n
+                    if spec is not None else dense_wire * n)
+                dense_wire *= n
     return Plan(monoid=m, tiers=tuple(tiers), num_records=n,
                 num_segments=num_segments, value_bytes=vbytes,
-                out_bytes=out_bytes, num_valid=num_valid)
+                out_bytes=out_bytes, num_valid=num_valid,
+                lossy=spec.describe() if spec is not None else None,
+                overlap_modeled=overlap_modeled,
+                dense_wire_bytes=dense_wire, lossy_wire_bytes=lossy_wire,
+                plan_candidate_us=plan_cand)
 
 
 # ---------------------------------------------------------------------------
@@ -641,10 +822,12 @@ def execute_fold(m: Monoid, values: Pytree, *, segment_ids=None,
                  num_segments: Optional[int] = None, valid_mask=None,
                  mesh_axes=None, layout: str = "auto", lifted: bool = True,
                  map_fn: Optional[Callable] = None,
-                 init: Optional[Pytree] = None, axis: int = 0, lossy=None,
+                 init: Optional[Pytree] = None, axis: int = 0, mesh=None,
+                 axis_sizes: Optional[Mapping[Any, int]] = None, lossy=None,
+                 ef: Optional[Pytree] = None,
                  calibration: Optional[Calibration] = None,
                  with_plan: bool = False) -> Any:
-    """Fold monoid values through the planner-chosen local tier.
+    """Fold monoid values through the planner-chosen tiers.
 
     values: pytree with a leading (or ``axis``) batch dim.  With
     ``segment_ids`` (and ``num_segments``) the fold is keyed — a MapReduce
@@ -659,17 +842,23 @@ def execute_fold(m: Monoid, values: Pytree, *, segment_ids=None,
     materializing them on the scan tiers; ``lifted=False`` applies
     ``m.lift`` to each element first.
 
+    With ``mesh_axes`` each rank's local result is combined across the named
+    axes of the bound mesh (``repro_torch.dist.use_mesh``, or ``mesh=``,
+    which also gives the planner the axis sizes; ``axis_sizes=`` gives them
+    alone), fast ICI axes before the slow DCN ``pod`` axis, each axis's
+    shuffle executed as the plan chose it.  ``lossy=`` (flat additive
+    folds) crosses DCN compressed with error feedback: the result becomes
+    ``(folded, new_ef)``, ``new_ef`` the residual to pass back as ``ef=``
+    (``None`` starts from zeros; with no DCN axis it stays zero).
+    ``layout='async'`` runs the double-buffered microbatch fold of
+    :func:`repro_torch.dist.collectives.async_microbatch_fold`.
+
     Returns the folded value — or ``(value, plan)`` with ``with_plan=True``.
     A flat fold forced onto the scan with a ``map_fn`` runs before it is
     planned, and is planned from the folded value's shape: the scan needs
     no shape to be chosen, and a map that runs a model (a forward and
     backward) cannot be sized on ``meta`` tensors.
-    Folding across devices (``mesh_axes=``) is not ported yet.
     """
-    if mesh_axes:
-        raise _not_ported("execute_fold(mesh_axes=)")
-    if lossy is not None:
-        raise _not_ported("lossy= compression")
     if valid_mask is not None and axis != 0:
         raise ValueError("valid_mask requires the batch axis at 0")
     plan_mask = valid_mask
@@ -687,12 +876,80 @@ def execute_fold(m: Monoid, values: Pytree, *, segment_ids=None,
             lambda t: torch.empty_like(t, device="meta"), out)
     plan = plan_fold(m, values, segment_ids=segment_ids,
                      num_segments=num_segments, valid_mask=plan_mask,
-                     layout=layout, lifted=lifted, map_fn=map_fn,
-                     calibration=calibration, value_shape=value_shape)
-    if out is not None:
-        return (out, plan) if with_plan else out
+                     mesh_axes=mesh_axes, layout=layout, lifted=lifted,
+                     map_fn=map_fn, mesh=mesh, axis_sizes=axis_sizes,
+                     lossy=lossy, calibration=calibration,
+                     value_shape=value_shape)
     kind = plan.local_tier.kind
+    keyed = segment_ids is not None
+    spec = None
+    if lossy is not None:
+        from ..optim.compress import LossySpec
+        spec = LossySpec.parse(lossy)
 
+    def result(value, new_ef=None):
+        if spec is not None:
+            if new_ef is None:   # lossy annotation but no mesh crossing
+                new_ef = ef if ef is not None else pytree.tree_map(
+                    lambda l: torch.zeros(l.shape, dtype=torch.float32,
+                                          device=l.device), value)
+            value = (value, new_ef)
+        return (value, plan) if with_plan else value
+
+    with maybe_mesh(mesh):
+        if kind == "async":
+            if valid_mask is not None:
+                raise ValueError("layout='async' does not support "
+                                 "valid_mask; mask rows to the identity "
+                                 "before the fold")
+            if axis != 0:
+                raise ValueError("async folds require the batch axis at 0")
+            if init is not None:
+                raise ValueError("init is only supported for keyed folds")
+            from ..dist.collectives import async_microbatch_fold
+            if spec is not None and ef is None:
+                one = _lifted_value_shape(m, values, lifted, map_fn)
+                dev = pytree.tree_leaves(values)[0].device
+                ef = pytree.tree_map(
+                    lambda l: torch.zeros(l.shape, dtype=torch.float32,
+                                          device=dev), one)
+            out, new_ef = async_microbatch_fold(m, values, mesh_axes,
+                                                map_fn=map_fn, lifted=lifted,
+                                                lossy=spec, ef=ef)
+            return result(out, new_ef if spec is not None else None)
+        if out is None:
+            out = _local_fold(m, values, kind, segment_ids, num_segments,
+                              valid_mask, lifted, map_fn, init, axis)
+        if not mesh_axes:
+            return result(out)
+        from ..dist.collectives import (combine_keyed_table,
+                                        cross_axes_allreduce,
+                                        lossy_cross_axes)
+        if spec is not None:
+            if ef is None:
+                ef = pytree.tree_map(
+                    lambda l: torch.zeros(l.shape, dtype=torch.float32,
+                                          device=l.device), out)
+            out, ef = lossy_cross_axes(spec, out, mesh_axes, ef=ef)
+            return result(out, ef)
+        coll = [t for t in plan.tiers
+                if t.kind in ("allreduce", "reduce_scatter")]
+        if keyed and any(t.kind == "reduce_scatter" for t in coll):
+            # execute the plan's per-axis shuffle choice: the axis order
+            # here (ICI then DCN) is the planner's tier order by construction
+            ici, dcn = _split_ici_dcn(mesh_axes)
+            for ax, tier in zip(ici + dcn, coll):
+                out = combine_keyed_table(m, out, ax, algorithm=tier.kind)
+        else:
+            out = cross_axes_allreduce(m, out, mesh_axes)
+        return result(out)
+
+
+def _local_fold(m: Monoid, values: Pytree, kind: str, segment_ids,
+                num_segments: Optional[int], valid_mask, lifted: bool,
+                map_fn: Optional[Callable], init: Optional[Pytree],
+                axis: int) -> Pytree:
+    """Run the plan's local tier."""
     if segment_ids is not None:
         if axis != 0:
             raise ValueError("keyed folds require the batch axis at 0")
@@ -700,8 +957,8 @@ def execute_fold(m: Monoid, values: Pytree, *, segment_ids=None,
             mat = _materialize_lifted(m, values, lifted, map_fn)
             folded = m.kernel_lowering().fn(mat, segment_ids, num_segments,
                                             valid_mask=valid_mask)
-            out = _seg_add_init(m, folded, init)
-        elif kind == "segment_ops":
+            return _seg_add_init(m, folded, init)
+        if kind == "segment_ops":
             mat = _materialize_lifted(m, values, lifted, map_fn)
             keep = (segment_ids >= 0) & (segment_ids < num_segments)
             if valid_mask is not None:
@@ -710,28 +967,23 @@ def execute_fold(m: Monoid, values: Pytree, *, segment_ids=None,
             op = _SEGMENT_OPS[m.name]
             folded = pytree.tree_map(
                 lambda v: _segment_reduce(v, ids, num_segments, op), mat)
-            out = _seg_add_init(m, folded, init)
-        else:
-            out = _segment_fold_generic(m, values, segment_ids, num_segments,
-                                        init, lifted=lifted, map_fn=map_fn,
-                                        valid_mask=valid_mask)
-    else:
-        if init is not None:
-            raise ValueError("init is only supported for keyed folds")
-        if kind == "tree":
-            mat = _materialize_lifted(m, values, lifted, map_fn)
-            if valid_mask is not None:
-                mat = _mask_rows_to_identity(m, mat, valid_mask)
-            out = tree_fold(m, mat, axis=axis)
-        elif map_fn is not None:
-            out = _scan_fold_map(m, values, map_fn, axis,
-                                 valid_mask=valid_mask)
-        else:
-            mat = _materialize_lifted(m, values, lifted, map_fn)
-            if valid_mask is not None:
-                mat = _mask_rows_to_identity(m, mat, valid_mask)
-            out = scan_fold(m, mat, axis=axis)
-    return (out, plan) if with_plan else out
+            return _seg_add_init(m, folded, init)
+        return _segment_fold_generic(m, values, segment_ids, num_segments,
+                                     init, lifted=lifted, map_fn=map_fn,
+                                     valid_mask=valid_mask)
+    if init is not None:
+        raise ValueError("init is only supported for keyed folds")
+    if kind == "tree":
+        mat = _materialize_lifted(m, values, lifted, map_fn)
+        if valid_mask is not None:
+            mat = _mask_rows_to_identity(m, mat, valid_mask)
+        return tree_fold(m, mat, axis=axis)
+    if map_fn is not None:
+        return _scan_fold_map(m, values, map_fn, axis, valid_mask=valid_mask)
+    mat = _materialize_lifted(m, values, lifted, map_fn)
+    if valid_mask is not None:
+        mat = _mask_rows_to_identity(m, mat, valid_mask)
+    return scan_fold(m, mat, axis=axis)
 
 
 # ---------------------------------------------------------------------------

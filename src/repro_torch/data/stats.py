@@ -12,8 +12,8 @@ vector-lifted into ONE monoid value, then folded into the carried state by
 the execution planner).  The same monoid serves the streaming path and any
 batch job (the Summingbird observation, paper §4).  The state is a dict of
 tensors, the JAX package's state leaf for leaf; :func:`state_from_numpy`
-carries a JAX state across.  Combining per-host states across devices
-(:func:`sync_stats`) is the mesh tier, a later slice of the port.
+carries a JAX state across.  :func:`sync_stats` combines per-host states
+across the axes of a mesh.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch.utils._pytree as pytree
 
 from ..core import monoids
 from ..core.monoid import Monoid
-from ..core.plan import _MESH_TODO, execute_fold
+from ..core.plan import execute_fold
 from ..device import resolve_device
 
 
@@ -116,9 +116,14 @@ def update_stats(state: Dict[str, torch.Tensor], tokens: torch.Tensor,
 
 
 def sync_stats(m: Monoid, state: Dict[str, torch.Tensor],
-               mesh_axes: Sequence[Any]) -> Dict[str, torch.Tensor]:
-    """Combining per-host stats across devices is not ported yet."""
-    raise NotImplementedError(f"sync_stats: {_MESH_TODO}")
+               mesh_axes: Sequence[Any], *, mesh=None
+               ) -> Dict[str, torch.Tensor]:
+    """Combine per-host stats across mesh axes (inside
+    ``dist.use_mesh``, or pass ``mesh=``) — ONE planner fold for the whole
+    product monoid, ICI first then DCN; every host gets the combined
+    state."""
+    return execute_fold(m, pytree.tree_map(lambda v: v[None], state),
+                        mesh_axes=mesh_axes, mesh=mesh)
 
 
 def summarize(m: Monoid, state: Dict[str, torch.Tensor]) -> Dict[str, Any]:

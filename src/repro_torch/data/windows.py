@@ -241,8 +241,8 @@ def tumbling_fold(m: Monoid, values: Pytree, timestamps, *, width: float,
     table on the values' device.  Events outside ``[t0, t0 +
     num_windows * width)`` are masked to the identity (the planner's
     ``valid_mask`` ragged path), composed with any caller mask.  Extra
-    ``kwargs`` (``layout=``, ``with_plan=``, ...) pass straight through to
-    :func:`repro_torch.core.plan.execute_fold`.
+    ``kwargs`` (``mesh_axes=``, ``layout=``, ``with_plan=``, ...) pass
+    straight through to :func:`repro_torch.core.plan.execute_fold`.
     """
     dev = _device_of(values)
     ids = tumbling_ids(timestamps, width=width, t0=t0, device=dev)
@@ -297,9 +297,10 @@ def session_fold(m: Monoid, values: Pytree, session_ids, num_sessions: int, *,
     """Per-session aggregation: ONE planner-lowered keyed fold, a
     ``(num_sessions, ...)`` table on the values' device.  ``session_ids``
     come from :func:`sessionize`.  A session table is itself a monoid value
-    under the element-wise combine, so per-host tables merge exactly; that
-    merge (``data.stats.sync_stats``, ``mesh_axes=``) is the mesh tier, a
-    later slice of the port."""
+    under the element-wise combine, so per-host tables merge exactly:
+    ``mesh_axes=`` (and the other ``kwargs``) pass through to
+    :func:`repro_torch.core.plan.execute_fold`, which combines the hosts'
+    tables across the bound mesh."""
     dev = _device_of(values)
     ids = torch.as_tensor(np.asarray(session_ids), dtype=torch.int32,
                           device=dev)

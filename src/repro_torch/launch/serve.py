@@ -89,8 +89,8 @@ def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
     _refuse_context(cfg)
     if config.model_parallel != 1:
         raise NotImplementedError(
-            "model_parallel > 1 needs the mesh tier, a later slice of the "
-            "port (ROADMAP: mesh tier)")
+            "model_parallel > 1 needs the mesh tier's model half, the next "
+            "slice of the port (ROADMAP §1 item 4)")
 
     def decode(p, cache, cur):
         logits, cache = decode_step(p, cfg, cache, cur)
@@ -162,8 +162,8 @@ def build_serve_step(config: ServeConfig, *, device="cuda"):
     device = resolve_device(device)
     if config.model_parallel != 1:
         raise NotImplementedError(
-            "model_parallel > 1 needs the mesh tier, a later slice of the "
-            "port (ROADMAP: mesh tier)")
+            "model_parallel > 1 needs the mesh tier's model half, the next "
+            "slice of the port (ROADMAP §1 item 4)")
     cfg = get_config(config.arch, smoke=not config.full)
     gen = torch.Generator(device=device)
     gen.manual_seed(config.seed)

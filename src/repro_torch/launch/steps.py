@@ -3,8 +3,8 @@ package's ``launch/steps.py``.
 
 The JAX package jit-compiles its steps with explicit shardings for a mesh;
 the port runs eagerly on one device, so the step is a plain function.  A
-mesh, ``model_parallel > 1`` and the dry run wait for the mesh tier
-(ROADMAP §1 item 4).  The prefill and decode steps of that file are not
+mesh, ``model_parallel > 1`` and the dry run wait for the mesh tier's model
+half (ROADMAP §1 item 4).  The prefill and decode steps of that file are not
 ported: the port's engine (``runtime/engine.py``) runs them.
 """
 from __future__ import annotations
@@ -21,8 +21,8 @@ from ..optim import OptConfig, adamw_update
 from ..optim.compress import LossySpec
 
 Pytree = Any
-_MESH_TODO = ("needs the mesh tier, a later slice of the port (ROADMAP §1 "
-              "item 4: the mesh tier)")
+_MESH_TODO = ("needs the mesh tier's model half, the next slice of the port "
+              "(ROADMAP §1 item 4)")
 
 
 def _grad_fn(cfg: ModelConfig, ctx: RunCtx) -> Callable:

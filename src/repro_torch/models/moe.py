@@ -21,7 +21,8 @@ which the reference's scatter over the expert-sorted buffer meets them) and
 adds them in that order in the activation dtype.  Nothing in the layer reads
 a device value on the host, so a decode step through it can be captured in a
 CUDA graph.  The expert-parallel strategies (``moe_ffn_replicated``,
-``moe_ffn_a2a``) need the mesh tier, a later slice of the port.
+``moe_ffn_a2a``) need the mesh tier's model half, the next slice of
+the port.
 """
 from __future__ import annotations
 
@@ -219,6 +220,6 @@ def moe_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     if mesh is not None:
         raise NotImplementedError(
             "moe_ffn(mesh=): the expert-parallel strategies (replicated, "
-            "a2a) need the mesh tier, a later slice of the port (ROADMAP: "
-            "mesh tier)")
+            "a2a) need the mesh tier's model half, the next slice of the "
+            "port (ROADMAP §1 item 4)")
     return moe_ffn_local(p, cfg, x)

@@ -514,7 +514,7 @@ def unembed(params: Pytree, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
     """Execution-context knobs of the training forward (the JAX package's
-    ``RunCtx``).  ``mesh`` must be None: the mesh tier is a later slice.
+    ``RunCtx``).  ``mesh`` must be None: the mesh tier's model half is the next slice.
     ``moe_impl`` is accepted and, on one device, runs ``moe_ffn_local`` as
     the JAX package does there.  ``attn_chunk`` is accepted for the JAX
     package's chunked attention; the kernel's own KV tiles take its place.
@@ -529,8 +529,8 @@ class RunCtx:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                "RunCtx(mesh=) needs the mesh tier, a later slice of the port "
-                "(ROADMAP: mesh tier)")
+                "RunCtx(mesh=) needs the mesh tier's model half, the next "
+                "slice of the port (ROADMAP §1 item 4)")
         if self.remat not in ("full", "none"):
             raise ValueError(f"remat must be 'full' or 'none'; got "
                              f"{self.remat!r}")

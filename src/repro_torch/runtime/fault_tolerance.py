@@ -218,13 +218,6 @@ class StragglerMonitor:
     def observe_stats(self, per_host_stats: Sequence) -> StragglerReport:
         """Feed one ``core.mapreduce.ShuffleStats`` per host for this step.
 
-        The port's ``ShuffleStats`` has no ``overlap_modeled`` /
-        ``overlap_measured`` fields: it plans only sync folds, and a sync
-        plan's modeled overlap is 0 in the JAX package.  A record without
-        them is read as such a sync plan (no overlap data: it never flags
-        a collapse); a record that carries them (the JAX package's) is read
-        as it is.
-
         Step times come from ``measured_us`` (falling back to the model when
         a host reported none) and flow through the EWMA/patience machinery
         of :meth:`observe`.  Additionally, hosts running an overlapped
@@ -242,11 +235,9 @@ class StragglerMonitor:
         collapsing = []
         overlaps = []
         for i, s in enumerate(per_host_stats):
-            modeled = getattr(s, "overlap_modeled", 0.0)
-            measured = getattr(s, "overlap_measured", None)
-            if modeled > 0.0 and measured is not None:
-                overlaps.append(measured)
-                if measured < self.collapse_ratio * modeled:
+            if s.overlap_modeled > 0.0 and s.overlap_measured is not None:
+                overlaps.append(s.overlap_measured)
+                if s.overlap_measured < self.collapse_ratio * s.overlap_modeled:
                     collapsing.append(i)
         report.collapsing_hosts = collapsing
         if overlaps:

@@ -1222,3 +1222,51 @@ def test_cuda_deepseek_decode_step_replays_from_a_graph(cuda_device):
                                                  toks[:, 4:], iters=2)
     assert equal
     assert flash_attention.launches == before
+
+
+def _sharded_max_by_key_rank(rank, world, store_path):
+    """One rank of a gloo world on cuda:0: max-by-key through run_sharded,
+    each strategy, against run_local(num_shards=world)."""
+    from repro_torch.core import MapReduceJob, monoids
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    dev = torch.device("cuda", 0)
+    init_distributed("gloo", rank, world,
+                     torch.distributed.FileStore(store_path, world),
+                     device=dev)
+    mesh = make_mesh((world,), ("data",))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    recs = {"key": torch.randint(0, 4096, (1 << 16,), generator=gen,
+                                 device=dev, dtype=torch.int32),
+            "value": torch.randn((1 << 16,), generator=gen, device=dev)}
+    job = MapReduceJob(mapper=lambda r: (r["key"], r["value"]),
+                       monoid=monoids.max_, num_keys=4096)
+    out = {}
+    for strategy in ("naive", "combiner"):
+        segment_fold.launches = 0
+        got = job.run_sharded(recs, mesh, strategy=strategy)
+        torch.cuda.synchronize()
+        launches = segment_fold.launches
+        want = job.run_local(recs, strategy=strategy, num_shards=world)
+        plan = job.plan(recs, strategy=strategy, num_shards=world,
+                        axis_name="data")
+        out[strategy] = (torch.equal(got, want), launches,
+                         plan.local_tier.kind)
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_run_sharded_max_by_key_on_two_gloo_ranks(cuda_device,
+                                                       tmp_path):
+    """Two gloo ranks share the one card (NCCL refuses two ranks on one
+    device): run_sharded's max-by-key table equals run_local(num_shards=2)
+    exactly, each rank's fold one segment_fold launch."""
+    from repro_torch.launch.mesh import run_world
+
+    for rank, res in enumerate(run_world(_sharded_max_by_key_rank, 2,
+                                         timeout_s=240,
+                                         store_dir=str(tmp_path))):
+        for strategy, (equal, launches, tier) in res.items():
+            assert equal, (rank, strategy)
+            assert tier == "kernel" and launches == 1, (rank, strategy,
+                                                        launches)

@@ -152,7 +152,9 @@ def test_entry_points_default_to_the_card():
         SyntheticCorpus(DataConfig(**CFG))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_stats(make_stream_stats())
-    with pytest.raises(NotImplementedError, match="mesh tier"):
+    # sync_stats runs on a bound mesh (tests/test_torch_dist.py); an
+    # unbound axis is refused by name, never run as a world of one
+    with pytest.raises(ValueError, match="'data' is not bound"):
         sync_stats(make_stream_stats(), init_stats(make_stream_stats(),
                                                    device="cpu"), ("data",))
     with pytest.raises(ValueError, match="hosts"):

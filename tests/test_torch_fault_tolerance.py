@@ -3,8 +3,8 @@ fault_tolerance``, host Python) against the JAX package's on the same
 inputs: twins of ``tests/test_fault_tolerance.py``'s straggler, escalation,
 remesh and cadence tests, fed the JAX package's per-host ``ShuffleStats``
 (async plans carry the overlap fields), and ``observe_stats`` on the
-port's own sync ``ShuffleStats``, which has no overlap fields (a sync
-plan's modeled overlap is 0 in the JAX package)."""
+port's own ``ShuffleStats``, sync (modeled overlap 0) and async (the JAX
+plan's modeled overlap)."""
 import dataclasses
 
 import jax
@@ -91,14 +91,14 @@ def test_sync_stats_never_flag_collapse():
 
 
 def test_observe_stats_reads_the_ports_sync_stats():
-    """The port's ShuffleStats has no overlap fields: it is read as a sync
-    plan (modeled overlap 0), so it flags no collapse and reports no
-    median overlap, and its step times drive the EWMA as the JAX
-    package's sync record does."""
+    """The port's sync ShuffleStats models no overlap (0, as the JAX
+    package's sync record), so it flags no collapse and reports no median
+    overlap, and its step times drive the EWMA as the JAX package's sync
+    record does."""
     plan = plan_fold(tm.sum_, torch.empty((4, 1024), device="meta"),
                      layout="scan")
     base = fold_stats(plan)
-    assert not hasattr(base, "overlap_modeled")
+    assert base.overlap_modeled == 0.0 and base.overlap_measured is None
     jbase = _jax_stats("scan")
     times = [[1e6, 1e6, 5e6], [1e6, 1.2e6, 6e6], [1e6, 1e6, 7e6]]
     tmon, jmon = _both(3, patience=2)
@@ -110,6 +110,25 @@ def test_observe_stats_reads_the_ports_sync_stats():
     assert t.median_overlap is None
     silent = StragglerMonitor(2).observe_stats([base, base])
     assert silent.median_s == pytest.approx(base.predicted_us / 1e6)
+
+
+def test_observe_stats_reads_the_ports_async_stats():
+    """The port's async plan models the JAX plan's overlap, and its
+    per-host records flag the same collapsing hosts and median overlap."""
+    plan = plan_fold(tm.sum_, torch.empty((4, 1024), device="meta"),
+                     mesh_axes=("x", "pod"), layout="async",
+                     axis_sizes=_SIZES)
+    base, jbase = fold_stats(plan), _jax_stats("async")
+    mod = jbase.overlap_modeled
+    assert mod > 0 and base.overlap_modeled == pytest.approx(mod, rel=1e-9)
+    tmon, jmon = _both(4, patience=2)
+    for overlap in ([mod] * 4, [mod, mod, 0.1 * mod, mod],
+                    [0.2 * mod, mod, mod, mod]):
+        t = tmon.observe_stats([base.with_measured(1e6, overlap=ov)
+                                for ov in overlap])
+        j = jmon.observe_stats(_host_stats(jbase, [1e6] * 4, overlap))
+        _same_report(t, j)
+    assert t.collapsing_hosts == [0]
 
 
 def test_ingest_records_suspects_without_remesh():

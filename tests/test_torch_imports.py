@@ -50,8 +50,31 @@ def test_scan_sees_the_whole_port():
                    "examples/train_lm.py", "core/aggregation.py",
                    # the MLA slice
                    "configs/deepseek_v2_236b.py", "models/attention.py",
-                   "models/convert.py"):
+                   "models/convert.py",
+                   # the mesh tier
+                   "dist/__init__.py", "dist/collectives.py",
+                   "launch/mesh.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) >= 30
     assert _forbidden("jax.numpy") and _forbidden("repro.core.plan")
     assert not _forbidden("repro_torch.core") and not _forbidden("numpy")
+
+
+def test_mesh_tier_loads_neither_jax_nor_repro():
+    """Importing the mesh tier (and the planner and jobs that call it) in a
+    fresh interpreter loads no JAX and no module of the JAX package."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import repro_torch.dist, repro_torch.dist.collectives\n"
+            "import repro_torch.launch.mesh, repro_torch.core.plan\n"
+            "import repro_torch.core.mapreduce, repro_torch.data.stats\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

@@ -50,15 +50,15 @@ def _both(keys, vals):
 
 
 def _assert_stats_equal(got, want):
-    """Every field the port computes, against the JAX record's field of the
-    same name (the port leaves out the async and lossy annotations)."""
+    """Every field, against the JAX record's field of the same name (the
+    async and lossy annotations included)."""
     names = [f.name for f in dataclasses.fields(got)]
-    assert names == [f.name for f in dataclasses.fields(want)][:len(names)]
+    assert names == [f.name for f in dataclasses.fields(want)]
     for name in names:
         a, b = getattr(got, name), getattr(want, name)
         if name == "plan":
             continue
-        if name == "predicted_us":
+        if name in ("predicted_us", "overlap_modeled"):
             assert a == pytest.approx(b, rel=1e-6), name
         else:
             assert a == b, (name, a, b)
@@ -193,7 +193,9 @@ def test_run_local_contract():
         job.run_local(torch.arange(4), strategy="bogus")
     with pytest.raises(ValueError, match="shards"):
         job.run_local(torch.arange(5), num_shards=2)
-    with pytest.raises(NotImplementedError, match="mesh tier"):
+    # across ranks it runs on a bound mesh (tests/test_torch_dist.py); an
+    # unbound axis raises, naming it
+    with pytest.raises(ValueError, match="'data' is not bound"):
         job.run_sharded(torch.arange(4), None)
 
 
@@ -224,3 +226,33 @@ def test_collective_plans_match(axes, sizes):
         assert got.collective_wire_bytes == want.collective_wire_bytes
         if not keyed:
             _assert_stats_equal(fold_stats(got), j_fold_stats(want))
+
+
+@pytest.mark.parametrize("layout,lossy", [
+    ("async", None), ("async", "int8"), ("scan", "topk:0.01"),
+    ("auto", None)])
+def test_fold_stats_carry_overlap_and_wire_fields(layout, lossy):
+    """fold_stats of an async / lossy plan: the overlap and DCN wire-byte
+    fields, crossings and bytes as the JAX record's, and with_measured /
+    compression_ratio / overlap_collapse read them alike."""
+    vals = np.zeros((6, 512), np.float32)
+    sizes = {"x": 4, "pod": 2}
+    got = fold_stats(plan_fold(monoids.sum_, torch.from_numpy(vals),
+                               mesh_axes=("x", "pod"), axis_sizes=sizes,
+                               layout=layout, lossy=lossy))
+    want = j_fold_stats(j_plan_fold(jm.sum_, jnp.asarray(vals),
+                                    mesh_axes=("x", "pod"), axis_sizes=sizes,
+                                    layout=layout, lossy=lossy))
+    _assert_stats_equal(got, want)
+    assert got.lossy == (lossy or "")
+    for us, ov in ((1500.0, None), (900.0, 0.3)):
+        g, w = got.with_measured(us, overlap=ov), want.with_measured(
+            us, overlap=ov)
+        _assert_stats_equal(g, w)
+        assert g.model_error() == pytest.approx(w.model_error(), rel=1e-6)
+        assert g.compression_ratio() == pytest.approx(w.compression_ratio())
+        if w.overlap_collapse() is None:
+            assert g.overlap_collapse() is None
+        else:
+            assert g.overlap_collapse() == pytest.approx(
+                w.overlap_collapse(), rel=1e-6)

@@ -212,8 +212,25 @@ def test_infeasible_layouts_raise_actionable_errors():
                                 dict(lossy="topk:0.01"),
                                 dict(layout="async")])
 def test_mesh_tier_is_a_later_slice(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        execute_fold(tm.sum_, torch.ones((4, 2)), **kw)
+    """The mesh tier's contract with no mesh bound (the mesh runs in
+    tests/test_torch_dist.py): ``mesh_axes=`` raises ValueError naming the
+    axis; ``lossy=`` returns ``(out, zero ef)`` as the JAX package does;
+    ``layout='async'`` raises the JAX package's ValueError."""
+    vals = torch.ones((4, 2))
+    if "mesh_axes" in kw:
+        with pytest.raises(ValueError, match="'data' is not bound"):
+            execute_fold(tm.sum_, vals, **kw)
+    elif "lossy" in kw:
+        out, ef = execute_fold(tm.sum_, vals, **kw)
+        jout, jef = jax_execute_fold(jm.sum_, jnp.ones((4, 2)), **kw)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+        np.testing.assert_array_equal(ef.numpy(), np.asarray(jef))
+        assert ef.dtype == torch.float32 and not ef.any()
+    else:
+        with pytest.raises(ValueError, match="needs mesh_axes="):
+            execute_fold(tm.sum_, vals, **kw)
+        with pytest.raises(ValueError, match="needs mesh_axes="):
+            jax_execute_fold(jm.sum_, jnp.ones((4, 2)), **kw)
 
 
 def test_calibration_has_its_own_cache(tmp_path, monkeypatch):
@@ -244,3 +261,139 @@ def test_calibration_has_its_own_cache(tmp_path, monkeypatch):
     assert cal.calibration_path() is None
     monkeypatch.delenv("REPRO_TORCH_CALIB")
     assert cal.calibration_path().endswith("repro_torch/calib.json")
+
+
+_ASYNC_LOSSY_CASES = [
+    ("async", None, ("x", "pod"), {"x": 4, "pod": 2}),
+    ("auto", None, ("x", "pod"), {"x": 4, "pod": 2}),
+    ("scan", None, ("x", "pod"), {"x": 4, "pod": 2}),
+    ("scan", "topk:0.01", ("x", "pod"), {"x": 4, "pod": 2}),
+    ("async", "int8", ("x", "pod"), {"x": 4, "pod": 2}),
+    ("auto", "blocktopk:0.001", ("data", "pod"), {"data": 2, "pod": 3}),
+    ("tree", "int8", ("x",), {"x": 4}),
+    ("async", None, ("x", "pod"), {}),
+    ("async", "topk:0.25", ("pod",), {"pod": 8}),
+]
+
+
+@pytest.mark.parametrize("layout,lossy,axes,sizes", _ASYNC_LOSSY_CASES)
+def test_async_and_lossy_plans_match_jax(layout, lossy, axes, sizes):
+    """plan_fold(layout='async' | lossy=, mesh_axes=, axis_sizes=): the JAX
+    plan's tiers and their wire bytes and predicted times, the sync-vs-
+    async table, the modeled overlap and the dense / lossy DCN bytes."""
+    rng = np.random.default_rng(3)
+    vals = {"w": rng.normal(size=(5, 64, 48)).astype(np.float32),
+            "b": rng.normal(size=(5, 7)).astype(np.float32)}
+    got = plan_fold(tm.sum_, _t(vals), mesh_axes=axes, axis_sizes=sizes,
+                    layout=layout, lossy=lossy)
+    from repro.core import plan_fold as jax_plan_fold
+    want = jax_plan_fold(jm.sum_, _j(vals), mesh_axes=axes,
+                         axis_sizes=sizes, layout=layout, lossy=lossy)
+    assert [t.kind for t in got.tiers] == [t.kind for t in want.tiers]
+    assert [t.wire_bytes for t in got.tiers] == \
+        [t.wire_bytes for t in want.tiers]
+    for g, w in zip(got.tiers, want.tiers):
+        assert g.predicted_us == pytest.approx(w.predicted_us, rel=1e-9)
+        if g.kind not in ("tree", "scan"):     # the local tiers name ops
+            assert g.detail == w.detail
+    assert got.lossy == want.lossy
+    assert got.overlap_modeled == pytest.approx(want.overlap_modeled,
+                                                rel=1e-9)
+    assert (got.dense_wire_bytes, got.lossy_wire_bytes) == \
+        (want.dense_wire_bytes, want.lossy_wire_bytes)
+    assert [c for c, _ in got.plan_candidate_us] == \
+        [c for c, _ in want.plan_candidate_us]
+    for (_, g), (_, w) in zip(got.plan_candidate_us, want.plan_candidate_us):
+        assert g == pytest.approx(w, rel=1e-9)
+    assert got.predicted_us == pytest.approx(want.predicted_us, rel=1e-9)
+    assert got.shuffle_candidate_us.keys() == want.shuffle_candidate_us.keys()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(lossy="int8", segment_ids=True), dict(lossy="topk:0.1", monoid="max"),
+    dict(layout="async", segment_ids=True), dict(lossy="zip")])
+def test_async_and_lossy_refusals_match_jax(kw):
+    kw = dict(kw)
+    name = kw.pop("monoid", "sum_")
+    name = name if name.endswith("_") else name + "_"
+    keyed = kw.pop("segment_ids", False)
+    vals = np.ones((4, 3), np.float32)
+    ids = np.arange(4, dtype=np.int32) % 2
+    t_seg = dict(segment_ids=torch.from_numpy(ids), num_segments=2) \
+        if keyed else {}
+    j_seg = dict(segment_ids=jnp.asarray(ids), num_segments=2) \
+        if keyed else {}
+    with pytest.raises(ValueError) as t_err:
+        plan_fold(getattr(tm, name), torch.from_numpy(vals),
+                  mesh_axes=("pod",), **t_seg, **kw)
+    from repro.core import plan_fold as jax_plan_fold
+    with pytest.raises(ValueError) as j_err:
+        jax_plan_fold(getattr(jm, name), jnp.asarray(vals),
+                      mesh_axes=("pod",), **j_seg, **kw)
+    assert str(t_err.value) == str(j_err.value)
+
+
+def test_calibration_overlap_model_and_fits_match_jax():
+    """pipeline_exposed_us, predict_overlap, fit_tier_coeff, fit_link_coeff
+    and fit_overlap_frac: the JAX package's numbers on the same inputs,
+    and the shipped link priors (with their overlap_frac) equal."""
+    import dataclasses
+
+    from repro.core import calibration as jcal
+    from repro_torch.core import calibration as tcal
+
+    for name in ("ici", "dcn"):
+        assert dataclasses.asdict(tcal.default_calibration().link_coeff(
+            name)) == dataclasses.asdict(
+                jcal.default_calibration().link_coeff(name))
+    for n, slot, cross in ((0, 5.0, 3.0), (1, 5.0, 3.0), (4, 5.0, 3.0),
+                           (4, 1.0, 3.0), (7, -1.0, 2.5), (3, 2.0, 0.0)):
+        assert tcal.pipeline_exposed_us(
+            num_crossings=n, slot_us=slot, cross_us=cross) == \
+            jcal.pipeline_exposed_us(num_crossings=n, slot_us=slot,
+                                     cross_us=cross)
+    for dom in ("ici", "dcn"):
+        for n, slot, wire in ((1, 10.0, 1e5), (4, 50.0, 2e6),
+                              (8, 1e4, 3e5), (2, 0.0, 0.0)):
+            assert tcal.predict_overlap(
+                tcal.default_calibration(), dom, num_crossings=n,
+                slot_us=slot, wire_bytes=wire) == pytest.approx(
+                jcal.predict_overlap(jcal.default_calibration(), dom,
+                                     num_crossings=n, slot_us=slot,
+                                     wire_bytes=wire), rel=1e-12)
+    kw = dict(n1=100, b1=8, t11_us=12.0, n2=1000, t21_us=40.0, b2=64,
+              t22_us=90.0)
+    assert dataclasses.asdict(tcal.fit_tier_coeff(**kw)) == \
+        dataclasses.asdict(jcal.fit_tier_coeff(**kw))
+    kw = dict(bytes1=1 << 10, t1_us=20.0, bytes2=1 << 20, t2_us=900.0,
+              overlap_frac=0.4)
+    assert dataclasses.asdict(tcal.fit_link_coeff(**kw)) == \
+        dataclasses.asdict(jcal.fit_link_coeff(**kw))
+    for t in ((100.0, 60.0, 20.0), (100.0, 120.0, 20.0), (10.0, 5.0, 30.0),
+              (100.0, 10.0, 20.0)):
+        kw = dict(zip(("t_serial_us", "t_dbuf_us", "t_compute_us"), t))
+        assert tcal.fit_overlap_frac(**kw) == jcal.fit_overlap_frac(**kw)
+    for mod in (tcal, jcal):
+        with pytest.raises(ValueError):
+            mod.fit_tier_coeff(n1=5, b1=1, t11_us=1.0, n2=5, t21_us=1.0,
+                               b2=2, t22_us=1.0)
+        with pytest.raises(ValueError):
+            mod.fit_link_coeff(bytes1=5, t1_us=1.0, bytes2=5, t2_us=1.0)
+    # the overlap coefficient round-trips through the JSON table
+    table = tcal.Calibration.from_json(tcal.default_calibration().to_json())
+    assert table.link_coeff("dcn").overlap_frac == 0.75
+
+
+def test_async_refuses_a_valid_mask_as_jax_does():
+    """execute_fold(layout='async', valid_mask=) raises before any
+    collective, with the reference's message."""
+    vals = np.ones((4, 3), np.float32)
+    mask = np.array([True, False, True, True])
+    with pytest.raises(ValueError) as t_err:
+        execute_fold(tm.sum_, torch.from_numpy(vals), mesh_axes=("pod",),
+                     layout="async", valid_mask=torch.from_numpy(mask))
+    with pytest.raises(ValueError) as j_err:
+        jax_execute_fold(jm.sum_, jnp.asarray(vals), mesh_axes=("pod",),
+                         layout="async", valid_mask=jnp.asarray(mask))
+    assert str(t_err.value) == str(j_err.value)
+    assert "valid_mask" in str(t_err.value)

@@ -289,8 +289,11 @@ def test_session_fold_matches_jax_bit_for_bit(seed):
 
 
 def test_session_fold_across_hosts_is_the_mesh_tier():
+    """``mesh_axes=`` passes through to the planner's mesh tier (held on an
+    8-rank world in tests/test_torch_dist.py); with no mesh bound the axis
+    is refused by name."""
     sids, n = sessionize([0, 1, 0], [0.0, 1.0, 2.0], gap=5.0)
-    with pytest.raises(NotImplementedError, match="mesh tier"):
+    with pytest.raises(ValueError, match="'data' is not bound"):
         session_fold(tm.sum_, torch.ones(3), sids, n, mesh_axes=("data",))
 
 
