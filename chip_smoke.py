@@ -2,6 +2,7 @@
 
   python3 chip_smoke.py [--seed 0] [--requests 16] [--serve-only]
                         [--train-only] [--mla-only] [--mesh-only]
+                        [--tp-only] [--tp-layers 24]
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -204,6 +205,30 @@ Phases, each of which must pass or the script exits non-zero:
    and async's measured overlap (the median of 3 runs of each schedule
    through ``async_microbatch_fold``) beside the modeled one.  A rank that fails or hangs fails the phase.
    ``--mesh-only`` runs phases 1 and 16 alone.
+17. the mesh tier's serve half (tensor and expert parallel serving on
+   per-rank shards; gloo, 4 ranks on cuda:0, spawned as in phase 16): (a)
+   the f32 smoke qwen3-0.6b and qwen2-moe-a2.7b at model_parallel 2 (mesh
+   (2, 2)) and 4 (mesh (1, 4); qwen3's 2 KV heads then stay whole) against
+   one rank on the card: a prefill's logits within 1e-4 with
+   ``flash_attention`` launched once per layer on every rank, ``expert_load``
+   exact, ``moe_ffn_replicated`` == ``moe_ffn_a2a`` == ``moe_ffn_local``
+   within 2e-3 with nothing dropped (capacity factor 8), and
+   ``build_engine(model_parallel=)``'s greedy tokens == the one-rank
+   engine's (``segment_fold`` once per step); (c) ``flash_decode_shardmap``
+   at qwen3-0.6b's attention (16 / 8 x 128, bf16) over a 32768-row cache
+   cut over 4 ranks against ``attention_decode`` on one rank, and
+   ``ring_attention_shardmap`` at B 1, S 8192, 16 x 128 against
+   ``flash_attention`` on one rank (each within 2e-2 of the largest output,
+   timed beside the one-rank call, collectives counted); (b)
+   qwen2-moe-a2.7b at full width and ``--tp-layers`` (24, the whole model)
+   through ``build_engine`` at model_parallel 4 with phase 3's traffic,
+   after the one-rank engine served the same traffic and was freed: on
+   every rank ``flash_attention`` == layers x prefill calls and
+   ``segment_fold`` == decode steps, every rank's tokens == rank 0's, the
+   first request's first greedy token == one rank's; tokens/s, TTFT p50 /
+   p99, step ms, peak memory a rank, collective calls and wire bytes per
+   step and axis, the first prefill's logits against one rank's.
+   ``--tp-only`` runs phases 1 and 17 alone.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  The exit code
@@ -4279,6 +4304,442 @@ def mesh_phase(args, dev) -> dict:
     return {"segment_fold_and_cms_update": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh tier's serve half — tensor and expert parallel serving
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 4
+TP_SMOKE_ARCHS = ("qwen3-0.6b", MOE_ARCH)
+# 17(b): qwen2-moe-a2.7b's depth served at model_parallel 4 (24: the whole
+# model); a smaller --tp-layers is printed as a cut
+TP_FULL_LAYERS = 24
+# 17(c): flash decoding over qwen3-0.6b's attention and a 32768-row cache;
+# ring attention at B 1, S 8192, 16 heads x 128
+TP_DECODE_ROWS, TP_DECODE_SLOTS, TP_DECODE_POS = 32768, 8, 20000
+TP_RING = (1, 8192, 16, 128)
+TP_TIMED = 5               # timed calls behind each 17(c) median
+
+
+def _tp_trace(vocab: int, seed: int, n: int = 8):
+    """A fixed greedy trace for 17(a): (arrival step, prompt, max new)."""
+    rng = np.random.default_rng(seed)
+    return [(int(i // 3), rng.integers(1, vocab, int(rng.integers(3, 30))
+                                       ).tolist(), 8) for i in range(n)]
+
+
+def _tp_serve(engine, trace):
+    uids, step, pending = [], 0, list(trace)
+    while pending or engine.pending or engine.num_active:
+        while pending and pending[0][0] <= step:
+            _, prompt, max_new = pending.pop(0)
+            uids.append(engine.submit(prompt, max_new_tokens=max_new))
+        engine.step()
+        step += 1
+    return [engine.result(u).tokens for u in uids]
+
+
+def _median_wall_ms(fn, reps: int = TP_TIMED) -> float:
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def _qwen3_attention(gen, dev):
+    """qwen3-0.6b's attention weights (16 / 8 x 128, qk-norm), bf16, and its
+    config."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import _init_attn
+
+    cfg = get_config("qwen3-0.6b")
+
+    def normal(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=dev) /
+                math.sqrt(fan_in)).to(cfg.dtype)
+    return cfg, _init_attn(cfg, normal,
+                           lambda n: torch.ones(n, dtype=cfg.dtype,
+                                                device=dev),
+                           lambda s: torch.zeros(s, dtype=cfg.dtype,
+                                                 device=dev))
+
+
+def _tp_decode_inputs(seed: int, dev):
+    cfg, p = _qwen3_attention(torch.Generator(device=dev).manual_seed(seed),
+                              dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    B, S = TP_DECODE_SLOTS, TP_DECODE_ROWS
+    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device=dev
+                    ).to(cfg.dtype)
+    k = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    v = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    return cfg, p, x, k, v
+
+
+def _tp_ring_inputs(seed: int, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    return [torch.randn(TP_RING, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(3)]
+
+
+def _tp_smoke_rank(rank, world, store_path, seed, device="cuda:0"):
+    """17(a) and (c): gloo, ``world`` ranks on cuda:0.  (a) the f32 smoke
+    qwen3-0.6b and qwen2-moe-a2.7b at model_parallel 2 and 4 against one
+    rank (this rank, no mesh); (c) flash decoding and ring attention over
+    model = 4."""
+    import dataclasses as dc
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.segment_fold import segment_fold
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.serve import ServeConfig, build_engine
+    from repro_torch.models import (RunCtx, forward_with_stats, init_cache,
+                                    init_params, prefill)
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import param_axes
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("gloo", rank, world, _store(store_path, world),
+                     device=dev)
+    rows = []
+    for mp in (2, 4):
+        mesh = make_mesh((world // mp, mp), ("data", "model"), device=dev)
+        ctx = RunCtx(mesh=mesh)
+        for arch in TP_SMOKE_ARCHS:
+            cfg = dc.replace(get_config(arch, smoke=True),
+                             dtype=torch.float32)
+            params = init_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(seed), device=dev)
+            local = shd.shard_params(params, param_axes(cfg), mesh,
+                                     shd.SERVE_RULES)
+            toks = torch.from_numpy(np.random.default_rng(seed).integers(
+                1, cfg.vocab_size, (4, 64)).astype(np.int32)).to(dev)
+            lengths = torch.tensor([64, 50, 33, 9], device=dev)
+            want, _ = prefill(params, cfg, init_cache(params, cfg, 4, 96),
+                              toks, lengths)
+            # the expert capacity the engine serves with: every routed pair
+            # (the reference's 1.25 drops pairs of a (4, 64) bucket)
+            cfg_tp = dc.replace(cfg, moe_capacity_factor=float(mp))
+            flash_attention.launches = 0
+            got, _ = prefill(local, cfg_tp, init_cache(local, cfg, 4, 96,
+                                                       ctx=ctx), toks,
+                             lengths, ctx=ctx)
+            flash = flash_attention.launches
+            _, st1 = forward_with_stats(params, cfg, toks)
+            _, stp = forward_with_stats(local, cfg_tp, toks, ctx=ctx)
+            row = dict(mp=mp, arch=arch, flash=flash, layers=cfg.num_layers,
+                       prefill_err=max_err(got, want))
+            if st1 is not None:
+                row["load_equal"] = torch.equal(st1["expert_load"],
+                                                stp["expert_load"])
+                ffn, lffn = params["layers"][0]["ffn"], \
+                    local["layers"][0]["ffn"]
+                x = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+                    size=(4, 16, cfg.d_model)).astype(np.float32)).to(dev)
+                loc, sl = M.moe_ffn_local(ffn, cfg, x)
+                cfg8 = dc.replace(cfg, moe_capacity_factor=8.0)
+                with shd.use_rules(mesh, shd.SERVE_RULES):
+                    rep, sr = M.moe_ffn_replicated(lffn, cfg8, x)
+                    a2a, sa = M.moe_ffn_a2a(lffn, cfg8, x)
+                row.update(rep_err=max_err(rep, loc), a2a_err=max_err(a2a, loc),
+                           rep_a2a_err=max_err(rep, a2a),
+                           loads_equal=torch.equal(sr["expert_load"],
+                                                   sl["expert_load"])
+                           and torch.equal(sa["expert_load"],
+                                           sl["expert_load"]),
+                           dropped=int(sr["dropped"]) + int(sa["dropped"]))
+            trace = _tp_trace(cfg.vocab_size, seed)
+            toks_by = {}
+            for m in (1, mp):
+                config = ServeConfig(arch=arch, num_slots=4,
+                                     prefill_buckets=(16, 32),
+                                     max_new_tokens=8, prefill_batch=2,
+                                     temperature=0.0, eos_id=-1,
+                                     model_parallel=m, seed=seed)
+                eng = build_engine(config, device=dev, params=params,
+                                   model_config=cfg)
+                segment_fold.launches = 0
+                toks_by[m] = _tp_serve(eng, trace)
+                row[f"fold_launches_{m}"] = segment_fold.launches
+                row[f"steps_{m}"] = eng.stats.steps
+            row["tokens_equal"] = toks_by[1] == toks_by[mp]
+            rows.append(row)
+    # (c) over model = 4
+    mesh = make_mesh((1, world), ("data", "model"), device=dev)
+    r = mesh.get_local_rank("model")
+    cfg, p, x, k, v = _tp_decode_inputs(seed, dev)
+    n = TP_DECODE_ROWS // world
+    kb, vb = k[:, r * n:(r + 1) * n].clone(), v[:, r * n:(r + 1) * n].clone()
+    del k, v
+    pos = torch.tensor(TP_DECODE_POS, dtype=torch.int32, device=dev)
+    dist.reset_counts()
+    with dist.use_mesh(mesh):
+        fd, _ = A.flash_decode_shardmap(p, cfg, x, (kb, vb), pos)
+        fd_counts = dist.counts()
+        fd_ms = _median_wall_ms(lambda: A.flash_decode_shardmap(
+            p, cfg, x, (kb, vb), pos))
+    del kb, vb
+    q, k, v = _tp_ring_inputs(seed, dev)
+    S_l = TP_RING[1] // world
+    blk = [t[:, r * S_l:(r + 1) * S_l].contiguous() for t in (q, k, v)]
+    del q, k, v
+    dist.reset_counts()
+    with dist.use_mesh(mesh):
+        ring = A.ring_attention_shardmap(*blk)
+        ring_counts = dist.counts()
+        ring_ms = _median_wall_ms(lambda: A.ring_attention_shardmap(*blk))
+    return dict(rows=rows, fd=fd.cpu(), fd_ms=fd_ms, fd_counts=fd_counts,
+                ring=ring.cpu(), ring_ms=ring_ms, ring_counts=ring_counts,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _tp_full_config(layers: int):
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    return cfg if layers == cfg.num_layers else \
+        dc.replace(cfg, num_layers=layers)
+
+
+def _tp_full_serve(engine, args) -> dict:
+    """A warm-up request, then phase 3's traffic (``--requests`` of 8-64
+    tokens at once, 32 new tokens, greedy) through ``engine``, with the
+    counters set to 0 just before it: -> what the run measured, and the
+    first prefill call's logits on the CPU."""
+    from repro_torch import dist
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.segment_fold import segment_fold
+    from repro_torch.models import moe
+    from repro_torch.serving import poisson_trace, serve_trace
+
+    be = engine.backend
+    engine.submit(list(range(1, 9)), max_new_tokens=2)
+    for _ in engine.run(max_steps=64):
+        pass
+    torch.cuda.synchronize()
+    first, orig = {}, be.prefill
+
+    def recording(*a, **kw):
+        out = orig(*a, **kw)
+        first.setdefault("logits", out[0].float().cpu())
+        return out
+    trace = poisson_trace(np.random.default_rng(args.seed), args.requests,
+                          0.0, 8, 64, be.vocab_size, 32)
+    steps0, prefills0 = engine.stats.steps, engine.stats.prefill_calls
+    torch.cuda.reset_peak_memory_stats()
+    dist.reset_counts()
+    segment_fold.launches = flash_attention.launches = 0
+    moe.expert_compute.calls = 0
+    be.prefill = recording
+    results, wall = serve_trace(engine, trace, clock=engine.clock)
+    torch.cuda.synchronize()
+    be.prefill = orig
+    return dict(wall=wall, logits=first["logits"],
+                tokens=[r.tokens for r in results],
+                ttft=[r.ttft_s for r in results],
+                steps=engine.stats.steps - steps0,
+                prefills=engine.stats.prefill_calls - prefills0,
+                flash=flash_attention.launches, fold=segment_fold.launches,
+                grouped=moe.expert_compute.calls, counts=dist.counts(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _tp_full_engine(args, layers: int, model_parallel: int, dev):
+    from repro_torch.serving import ServeConfig, build_engine
+
+    config = ServeConfig(arch=MOE_ARCH, full=True, num_slots=8,
+                         prefill_buckets=(16, 32, 64), max_new_tokens=32,
+                         prefill_batch=4, seed=args.seed,
+                         model_parallel=model_parallel)
+    t0 = time.perf_counter()
+    engine = build_engine(config, device=dev,
+                          model_config=_tp_full_config(layers))
+    torch.cuda.synchronize()
+    return engine, time.perf_counter() - t0
+
+
+def _tp_full_rank(rank, world, store_path, args, layers, device="cuda:0"):
+    """17(b): qwen2-moe-a2.7b at full width, model_parallel ``world``:
+    every rank builds the engine from the seed, keeping its blocks."""
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.models import num_params
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("gloo", rank, world, _store(store_path, world),
+                     device=dev)
+    engine, init_s = _tp_full_engine(args, layers, world, dev)
+    out = _tp_full_serve(engine, args)
+    out.update(init_s=init_s, params_local=num_params(engine.backend.params))
+    return out
+
+
+def tp_phase(args, dev) -> None:
+    """Phase 17: (a) the f32 smoke models at model_parallel 2 and 4 against
+    one rank, the MoE strategies against the local layer; (c) flash
+    decoding and ring attention on 4 ranks against one rank; (b)
+    qwen2-moe-a2.7b at full width on 4 ranks through ``build_engine``
+    against the one-rank engine run first (and freed: the two do not fit
+    80 GB together).  Every rank is gloo on cuda:0 (NCCL refuses two ranks
+    on one card): the wires are host loopback, so no time here is a speed
+    claim."""
+    import gc
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models import num_params
+    from repro_torch.models.attention import attention_decode
+
+    # the one-rank references of (c), on the card in this process
+    cfg, p, x, k, v = _tp_decode_inputs(args.seed, dev)
+    pos = torch.tensor(TP_DECODE_POS, dtype=torch.int32, device=dev)
+    want_fd, _ = attention_decode(p, cfg, x, (k, v), pos)
+    fd1_ms = _median_wall_ms(lambda: attention_decode(p, cfg, x, (k, v),
+                                                      pos))
+    del k, v
+    q, k, v = _tp_ring_inputs(args.seed, dev)
+    qkv = [t.transpose(1, 2) for t in (q, k, v)]
+    want_ring = flash_attention(*qkv, causal=True).transpose(1, 2)
+    ring1_ms = _median_wall_ms(lambda: flash_attention(*qkv, causal=True))
+    del q, k, v, qkv
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_world(_tp_smoke_rank, TP_WORLD, args=(args.seed,),
+                      timeout_s=600)
+    print(f"tp (a), (c): gloo world of {TP_WORLD} on one card; spawn + run "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for rank, res in enumerate(ranks):
+        for row in res["rows"]:
+            what = f"rank {rank} {row['arch']} smoke f32 mp={row['mp']}"
+            bad = []
+            if not row["prefill_err"] <= 1e-4:
+                bad.append(f"prefill logits err {row['prefill_err']}")
+            if row["flash"] != row["layers"]:
+                bad.append(f"flash_attention {row['flash']} launches in one "
+                           f"prefill of {row['layers']} layers")
+            if not row["tokens_equal"]:
+                bad.append("greedy tokens differ from one rank's")
+            for m in (1, row["mp"]):
+                if row[f"fold_launches_{m}"] != row[f"steps_{m}"]:
+                    bad.append(f"segment_fold {row[f'fold_launches_{m}']} "
+                               f"over {row[f'steps_{m}']} steps (mp={m})")
+            if "load_equal" in row:
+                if not (row["load_equal"] and row["loads_equal"]):
+                    bad.append("expert_load differs")
+                if row["dropped"]:
+                    bad.append(f"{row['dropped']} pairs dropped")
+                for key in ("rep_err", "a2a_err", "rep_a2a_err"):
+                    if not row[key] <= 2e-3:
+                        bad.append(f"{key} {row[key]}")
+            if bad:
+                raise RuntimeError(f"{what}: {'; '.join(bad)}")
+            print(f"  {what}: prefill logits max_abs_err="
+                  f"{row['prefill_err']} (<= 1e-4) greedy tokens == one "
+                  f"rank's flash_attention.launches={row['flash']} a "
+                  f"prefill segment_fold == steps ({row['steps_1']}, "
+                  f"{row['steps_' + str(row['mp'])]})"
+                  + (f" replicated/a2a/local max_abs_err={row['rep_err']} / "
+                     f"{row['a2a_err']} / {row['rep_a2a_err']} (<= 2e-3) "
+                     f"expert_load exact" if "rep_err" in row else ""),
+                  flush=True)
+    # (c)
+    fd_tol = 2e-2 * float(want_fd.float().abs().max())
+    ring_tol = 2e-2 * float(want_ring.float().abs().max())
+    S_l = TP_RING[1] // TP_WORLD
+    for rank, res in enumerate(ranks):
+        fd_err = max_err(res["fd"], want_fd.cpu())
+        ring_err = max_err(res["ring"],
+                           want_ring[:, rank * S_l:(rank + 1) * S_l].cpu())
+        if not (fd_err <= fd_tol and ring_err <= ring_tol):
+            raise RuntimeError(f"rank {rank}: flash decode err {fd_err} "
+                               f"(tol {fd_tol}), ring err {ring_err} (tol "
+                               f"{ring_tol})")
+        print(f"  rank {rank} flash_decode_shardmap (B {TP_DECODE_SLOTS}, "
+              f"{TP_DECODE_ROWS} rows / 4, 16 / 8 x 128 bf16, pos "
+              f"{TP_DECODE_POS}): max_abs_err={fd_err} (tol {fd_tol}) "
+              f"ms={res['fd_ms']} one_rank_attention_decode_ms={fd1_ms} "
+              f"collectives={res['fd_counts']}; ring_attention_shardmap "
+              f"{TP_RING} bf16 causal: max_abs_err={ring_err} (tol "
+              f"{ring_tol}) ms={res['ring_ms']} one_rank_flash_attention_ms="
+              f"{ring1_ms} collectives={res['ring_counts']} peak_mem_GiB="
+              f"{res['peak_gib']}", flush=True)
+    del ranks, want_ring
+    torch.cuda.empty_cache()
+
+    # (b): the one-rank engine first, then the world
+    layers = args.tp_layers
+    full = _tp_full_config(layers)
+    engine, init_s = _tp_full_engine(args, layers, 1, dev)
+    n_params = num_params(engine.backend.params)
+    ref = _tp_full_serve(engine, args)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tp (b) one rank: {MOE_ARCH} {layers} layers params={n_params} "
+          f"init_s={init_s} tokens_per_s="
+          f"{sum(map(len, ref['tokens'])) / ref['wall']} steps="
+          f"{ref['steps']} prefill_calls={ref['prefills']} peak_mem_GiB="
+          f"{ref['peak_gib']}", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_world(_tp_full_rank, TP_WORLD, args=(args, layers),
+                      timeout_s=900)
+    world_s = time.perf_counter() - t0
+    for rank, res in enumerate(ranks):
+        if res["flash"] != full.num_layers * res["prefills"]:
+            raise RuntimeError(f"rank {rank}: flash_attention launched "
+                               f"{res['flash']} times over {res['prefills']} "
+                               f"prefill calls of {full.num_layers} layers")
+        if res["fold"] <= 0 or res["fold"] != res["steps"]:
+            raise RuntimeError(f"rank {rank}: segment_fold launched "
+                               f"{res['fold']} times over {res['steps']} "
+                               "decode steps")
+        if res["tokens"] != ranks[0]["tokens"]:
+            raise RuntimeError(f"rank {rank} sampled other tokens than "
+                               "rank 0")
+    r0 = ranks[0]
+    if r0["tokens"][0][0] != ref["tokens"][0][0]:
+        raise RuntimeError(f"the first greedy token {r0['tokens'][0][0]} != "
+                           f"one rank's {ref['tokens'][0][0]}")
+    firsts = sum(a[0] == b[0] for a, b in zip(r0["tokens"], ref["tokens"]))
+    whole = sum(a == b for a, b in zip(r0["tokens"], ref["tokens"]))
+    gen = sum(map(len, r0["tokens"]))
+    ttft = np.array(r0["ttft"])
+    per_step = {ax: {k: c[k] / r0["steps"] for k in ("calls", "wire_bytes")}
+                for ax, c in r0["counts"].items()}
+    print(f"tp (b) model_parallel={TP_WORLD}: {MOE_ARCH} {layers} layers "
+          f"params_a_rank={[r['params_local'] for r in ranks]} init_s="
+          f"{[r['init_s'] for r in ranks]} world_s={world_s} "
+          f"generated_tokens={gen} wall_s={r0['wall']} tokens_per_s="
+          f"{gen / r0['wall']} ttft_p50_ms={np.percentile(ttft, 50) * 1e3} "
+          f"ttft_p99_ms={np.percentile(ttft, 99) * 1e3} step_ms="
+          f"{1e3 * r0['wall'] / r0['steps']} (wall / decode steps) "
+          f"decode_steps={r0['steps']} prefill_calls={r0['prefills']} "
+          f"flash_attention.launches={r0['flash']} (== {full.num_layers} x "
+          f"prefill calls on every rank) segment_fold.launches={r0['fold']} "
+          f"(== steps) expert_compute.calls={r0['grouped']} peak_mem_GiB="
+          f"{[r['peak_gib'] for r in ranks]} collectives_per_step="
+          f"{per_step} (all: {r0['counts']})", flush=True)
+    print(f"tp (b) against one rank: first greedy token equal in "
+          f"{firsts}/{len(ref['tokens'])} requests (request 0 checked), "
+          f"whole sequences equal in {whole}/{len(ref['tokens'])}; the "
+          f"first prefill call's last-position logits max_abs_diff="
+          f"{max_err(r0['logits'], ref['logits'])}", flush=True)
+    if layers != TP_FULL_LAYERS:
+        print(f"tp (b): reduced: num_layers {TP_FULL_LAYERS} -> {layers} "
+              f"(--tp-layers)", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4298,6 +4759,11 @@ def main(argv=None) -> int:
                          "print no record")
     ap.add_argument("--mesh-layers", type=int, default=MESH_GRAD_LAYERS,
                     help="qwen3-0.6b layers in phase 16's gradient tree")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="run phases 1 and 17 (the mesh tier's serve half) "
+                         "only and print no record")
+    ap.add_argument("--tp-layers", type=int, default=TP_FULL_LAYERS,
+                    help="qwen2-moe-a2.7b layers served in phase 17(b)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4355,6 +4821,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mesh_phase(args, dev)
         print(f"phase 16 took {time.perf_counter() - t0:.1f}s", flush=True)
+        print(f"card: {card}")
+        return 0
+    if args.tp_only:
+        t0 = time.perf_counter()
+        tp_phase(args, dev)
+        print(f"phase 17 took {time.perf_counter() - t0:.1f}s", flush=True)
         print(f"card: {card}")
         return 0
     rows = []
@@ -4499,6 +4971,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mesh_phase(args, dev)
     print(f"phase 16 took {time.perf_counter() - t0:.1f}s", flush=True)
+    # phase 17: the mesh tier's serve half, tensor and expert parallel
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_phase(args, dev)
+    print(f"phase 17 took {time.perf_counter() - t0:.1f}s", flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

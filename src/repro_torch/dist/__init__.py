@@ -25,14 +25,15 @@ Each collective is one ``torch.distributed`` call on the tensors' own
 device: NCCL and gloo take all of them, for every dtype the port folds, on
 CUDA tensors (``chip_smoke.py`` phase 16 checks gloo's, and fails if one
 is refused).  A refused call is never caught and retried another way, and
-no tensor is moved to another device.  ``bool`` tensors cross as
+no tensor is moved to another device, but for :func:`ppermute` on gloo,
+whose send / recv take host memory only.  ``bool`` tensors cross as
 ``uint8`` (the JAX package's sketch bitmaps are uint8).
 
 Every collective adds to the counters of its axis (:func:`counts`): calls,
 payload bytes (this rank's input) and per-device wire bytes (ring
 all-reduce 2(P-1)/P x bytes, all-gather (P-1) x bytes, reduce-scatter and
-all-to-all (P-1)/P x bytes), the quantities the planner's byte model
-predicts.
+all-to-all (P-1)/P x bytes, ``ppermute`` the bytes it sends), the
+quantities the planner's byte model predicts.
 """
 from __future__ import annotations
 
@@ -336,6 +337,47 @@ def psum_scatter(x: Pytree, axis, *, async_op: bool = False):
     return p if async_op else p.wait()
 
 
+def _ppermute_leaf(x, name, perm) -> Pending:
+    g = group(name)
+    me = axis_index(name)
+    y, back = _wire(x)
+    # gloo's send / recv take host memory only (every other gloo call takes
+    # the card's): the one place a tensor crosses through the host
+    host = tdist.get_backend(g) == "gloo" and y.device.type != "cpu"
+    send = y.to("cpu") if host else y.clone()
+    out = torch.zeros_like(send)
+    ops = []
+    for src, dst in perm:
+        if src == me:
+            ops.append(tdist.P2POp(tdist.isend, send,
+                                   tdist.get_global_rank(g, dst), g))
+        if dst == me:
+            ops.append(tdist.P2POp(tdist.irecv, out,
+                                   tdist.get_global_rank(g, src), g))
+    sends = sum(1 for s, _ in perm if s == me)
+    _count(name, _nbytes(y) * sends, float(_nbytes(y)) * sends)
+    works = tdist.batch_isend_irecv(ops) if ops else []
+    return Pending(works, lambda: back(out.to(y.device) if host else out))
+
+
+def ppermute(x: Pytree, axis, perm: Sequence[Tuple[int, int]], *,
+             async_op: bool = False):
+    """Send this rank's value to the coordinates ``perm`` maps it to
+    (``(source, destination)`` pairs of coordinates along one bound axis)
+    and return what arrives (``jax.lax.ppermute``): zeros where no pair
+    names this rank as a destination.  One ``batch_isend_irecv`` within the
+    axis's group; counted like the other collectives (its payload and wire
+    bytes are what this rank sends)."""
+    (name,) = axis_names(axis)
+    perm = [(int(s), int(d)) for s, d in perm]
+    for pos in (0, 1):
+        ends = [p[pos] for p in perm]
+        if len(set(ends)) != len(ends):
+            raise ValueError(f"ppermute over {name!r}: {perm} repeats a "
+                             f"{('source', 'destination')[pos]}")
+    return _over_tree(x, lambda t: _ppermute_leaf(t, name, perm), async_op)
+
+
 def all_to_all(x: Pytree, axis, *, async_op: bool = False):
     """Block j of dim 0 to rank j; block i of the result from rank i
     (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``), one axis."""
@@ -346,6 +388,7 @@ def all_to_all(x: Pytree, axis, *, async_op: bool = False):
 __all__ = [
     "Pending", "all_gather", "all_to_all", "axis_index",
     "axis_names", "axis_size", "counts", "current_mesh", "group",
-    "local_block", "maybe_mesh", "mesh_axis_sizes", "pmax", "pmin", "psum",
+    "local_block", "maybe_mesh", "mesh_axis_sizes", "pmax", "pmin",
+    "ppermute", "psum",
     "psum_scatter", "reset_counts", "use_mesh",
 ]

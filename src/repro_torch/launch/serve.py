@@ -45,25 +45,41 @@ holding the projected K/V of a random context, while the engine and the
 CLI refuse them as the JAX package's do.
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu``); there is no silent fallback.
+
+``model_parallel > 1`` serves tensor and expert parallel across the ranks
+of a bound ``torch.distributed`` world (``launch.mesh``): every rank builds
+the same engine from the same seed, holding its blocks of the weights and
+its KV heads (mesh ``(world / model_parallel, model_parallel)`` over
+``('data', 'model')``, ``SERVE_RULES``), and runs the same schedule: the
+logits are gathered whole on every rank, so every rank samples the same
+tokens, and the engine's clock is rank 0's, broadcast at every reading,
+so admissions and prefix-cache evictions agree.  Rank 0 reports.  The CLI's
+``--model-parallel N`` starts that world itself (``launch.mesh.run_world``:
+NCCL with one card a rank, gloo when ranks share a card or run on the
+CPU).  Outside a bound world ``model_parallel > 1`` raises.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 import warnings
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from ..configs import context_spec, get_config
 from ..data.windows import WindowedMetrics
 from ..device import resolve_device
+from ..dist import sharding as shd
 from ..kernels.flash_attention import flash_attention
-from ..models import (context_conditioned, decode_step, init_cache,
+from ..models import (RunCtx, context_conditioned, decode_step, init_cache,
                       init_params, positional_cache, prefill, recurrent)
 from ..models.common import ModelConfig
+from ..models.transformer import param_axes
 from ..runtime.batcher import DecodeBatch
 from ..runtime.engine import (ContinuousEngine, EngineBackend, ServeConfig,
                               decode_metrics_plan)
@@ -76,8 +92,48 @@ def _refuse_context(cfg: ModelConfig) -> None:
             f"supported by the continuous engine yet")
 
 
+def serve_mesh(config: ServeConfig, device):
+    """The mesh ``model_parallel > 1`` serves on: ``(world / mp, mp)`` over
+    ``('data', 'model')`` of the bound world; None at ``model_parallel``
+    1.  Raises ``ValueError`` outside a bound world."""
+    mp = config.model_parallel
+    if mp == 1:
+        return None
+    if not tdist.is_initialized():
+        raise ValueError(
+            f"model_parallel={mp} cuts the weights over the mesh axis "
+            f"'model', which is not bound: start a torch.distributed world "
+            f"(repro_torch.launch.mesh.init_distributed, or the CLI's "
+            f"--model-parallel) and build the engine on every rank")
+    from .mesh import make_host_mesh
+    return make_host_mesh(model=mp, device=device)
+
+
+def shard_for(cfg: ModelConfig, mesh):
+    """``init_params``' ``shard=`` hook that keeps this rank's blocks under
+    ``SERVE_RULES`` (None without a mesh)."""
+    if mesh is None:
+        return None
+    return lambda tree, axes: shd.shard_params(tree, axes, mesh,
+                                               shd.SERVE_RULES)
+
+
+def agreed_clock(clock: Callable[[], float]) -> Callable[[], float]:
+    """``clock`` as rank 0 reads it: one broadcast over the world per
+    reading (a host tensor on gloo, the card's on NCCL), so every rank's
+    engine takes the same time-dependent decisions."""
+    dev = torch.device("cpu") if tdist.get_backend() == "gloo" else \
+        torch.device("cuda", torch.cuda.current_device())
+
+    def read() -> float:
+        t = torch.tensor([clock()], dtype=torch.float64, device=dev)
+        tdist.broadcast(t, src=0)
+        return float(t.item())
+    return read
+
+
 def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
-                 device) -> EngineBackend:
+                 device, mesh=None) -> EngineBackend:
     """An :class:`EngineBackend` over the model substrate: a one-token
     decode, a one-pass prefill of a padded bucket (after each row's cached
     prefix, given ``prefix_len``) and a cache constructor with per-slot
@@ -85,23 +141,33 @@ def make_backend(cfg: ModelConfig, params: Any, config: ServeConfig,
     position (``positional_cache``).  An arch with a recurrent layer gets
     ``prefill=None``: the engine runs the decode step over the bucket.
     Context-conditioned archs raise the JAX package's
-    NotImplementedError."""
+    NotImplementedError.  With a ``mesh`` (``model_parallel > 1``)
+    ``params`` are this rank's blocks and every call runs on the mesh; an
+    MoE model's expert capacity then holds every routed pair."""
     _refuse_context(cfg)
-    if config.model_parallel != 1:
-        raise NotImplementedError(
-            "model_parallel > 1 needs the mesh tier's model half, the next "
-            "slice of the port (ROADMAP §1 item 4)")
+    if (mesh is None) != (config.model_parallel == 1):
+        raise ValueError(f"model_parallel={config.model_parallel} with mesh "
+                         f"{mesh}: see serve_mesh")
+    ctx = RunCtx(mesh=mesh)
+    if mesh is not None and cfg.num_experts:
+        # the one-pass prefill routes a whole bucket at once, where the JAX
+        # package's engine scans the decode step: an expert capacity of
+        # every routed pair (capacity factor = the axis size) drops none,
+        # so cutting the model changes no token
+        P = shd.mesh_sizes(mesh).get("model", 1)
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=max(
+            cfg.moe_capacity_factor, float(P)))
 
     def decode(p, cache, cur):
-        logits, cache = decode_step(p, cfg, cache, cur)
+        logits, cache = decode_step(p, cfg, cache, cur, ctx=ctx)
         return logits[:, -1].to(torch.float32), cache
 
     def prefill_bucket(p, cache, toks, lengths, prefix_len=None):
-        return prefill(p, cfg, cache, toks, lengths, prefix_len)
+        return prefill(p, cfg, cache, toks, lengths, prefix_len, ctx=ctx)
 
     def make_cache(batch: int, pos_per_slot: bool):
         return init_cache(params, cfg, batch, config.max_seq,
-                          pos_per_slot=pos_per_slot)
+                          pos_per_slot=pos_per_slot, ctx=ctx)
 
     return EngineBackend(decode=decode, init_cache=make_cache, params=params,
                          vocab_size=cfg.vocab_size, device=torch.device(device),
@@ -122,16 +188,28 @@ def build_engine(config: ServeConfig, *, device="cuda",
     serves that config in place of the registry's for ``config.arch`` (a
     model cut in depth to fit one card, as ``chip_smoke.py`` serves
     deepseek-v2-236b's first 4 layers).
+
+    ``config.model_parallel > 1`` needs a bound world (see the module
+    docstring): the random weights are drawn whole leaf by leaf and each
+    rank keeps its blocks; given ``params`` (the whole weights) are cut
+    the same way.
     """
     device = resolve_device(device)
     cfg = model_config if model_config is not None else \
         get_config(config.arch, smoke=not config.full)
     _refuse_context(cfg)
+    mesh = serve_mesh(config, device)
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(config.seed)
-        params = init_params(cfg, gen, device=device)
-    backend = make_backend(cfg, params, config, device)
+        params = init_params(cfg, gen, device=device,
+                             shard=shard_for(cfg, mesh))
+    elif mesh is not None:
+        params = shd.shard_params(params, param_axes(cfg), mesh,
+                                  shd.SERVE_RULES)
+    backend = make_backend(cfg, params, config, device, mesh)
+    if mesh is not None:
+        clock = agreed_clock(clock)
     return ContinuousEngine(backend, config, clock=clock)
 
 
@@ -157,19 +235,19 @@ def build_serve_step(config: ServeConfig, *, device="cuda"):
     context-conditioned arch's ``make_cache`` encodes (whisper) and
     projects a context of ``context_spec(cfg, num_slots)``, standard
     normal in ``cfg.dtype`` from a ``torch.Generator`` seeded with
-    ``config.seed`` (drawn once, the same for every cache).
+    ``config.seed`` (drawn once, the same for every cache).  With
+    ``model_parallel > 1`` (in a bound world) ``params`` and the cache are
+    this rank's blocks and the step gathers the logits whole.
     """
     device = resolve_device(device)
-    if config.model_parallel != 1:
-        raise NotImplementedError(
-            "model_parallel > 1 needs the mesh tier's model half, the next "
-            "slice of the port (ROADMAP §1 item 4)")
     cfg = get_config(config.arch, smoke=not config.full)
+    mesh = serve_mesh(config, device)
+    ctx = RunCtx(mesh=mesh)
     gen = torch.Generator(device=device)
     gen.manual_seed(config.seed)
-    params = init_params(cfg, gen, device=device)
+    params = init_params(cfg, gen, device=device, shard=shard_for(cfg, mesh))
     built = ServeStep(fn=lambda p, cache, tok: decode_step(p, cfg, cache,
-                                                           tok),
+                                                           tok, ctx=ctx),
                       num_slots=config.num_slots, max_seq=config.max_seq)
     spec = context_spec(cfg, config.num_slots)
     context = None
@@ -181,7 +259,7 @@ def build_serve_step(config: ServeConfig, *, device="cuda"):
 
     def make_cache():
         return init_cache(params, cfg, config.num_slots, config.max_seq,
-                          context=context)
+                          context=context, ctx=ctx)
 
     return cfg, built, params, make_cache
 
@@ -341,8 +419,45 @@ def run_cli(argv=None) -> Dict[str, Any]:
                     help="fraction of requests opening with a shared prefix")
     ap.add_argument("--shared-len", type=int, default=0,
                     help="token length of the shared prefix")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks the weights are cut over (tensor and expert "
+                         "parallel); > 1 starts a world of that many ranks")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
+    if args.model_parallel > 1 and not tdist.is_initialized():
+        from .mesh import run_world
+        return run_world(_cli_rank, args.model_parallel,
+                         args=(argv, args.device), timeout_s=3600.0)[0]
+    return _serve_cli(args)
 
+
+def _cli_rank(rank: int, world: int, store_path: str, argv, device):
+    """One rank of the CLI's ``--model-parallel`` world: NCCL with a card
+    a rank, gloo when ranks share a card or run on the CPU; only rank 0
+    prints.  Returns what a caller reads (no engine: it stays here)."""
+    import contextlib
+    import io
+    from .mesh import init_distributed
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        n = torch.cuda.device_count()
+        dev = torch.device("cuda", rank % n)
+        backend = "nccl" if n >= world else "gloo"
+    else:
+        backend = "gloo"
+    init_distributed(backend, rank, world,
+                     tdist.FileStore(store_path, world),
+                     device=dev if dev.type == "cuda" else None)
+    argv = list(argv) + ["--device", str(dev)]
+    quiet = contextlib.nullcontext() if rank == 0 else \
+        contextlib.redirect_stdout(io.StringIO())
+    with quiet:
+        out = run_cli(argv)
+    return {k: out[k] for k in ("trace", "results", "wall_s")}
+
+
+def _serve_cli(args) -> Dict[str, Any]:
     buckets = tuple(int(b) for b in args.buckets.split(","))
     if args.max_prompt > buckets[-1]:
         raise SystemExit(f"--max-prompt {args.max_prompt} exceeds the "
@@ -352,7 +467,8 @@ def run_cli(argv=None) -> Dict[str, Any]:
                          temperature=args.temperature, seed=args.seed,
                          full=args.full, prefill_batch=args.prefill_batch,
                          prefix_cache=not args.no_prefix_cache,
-                         prefix_block=args.prefix_block)
+                         prefix_block=args.prefix_block,
+                         model_parallel=args.model_parallel)
     engine = build_engine(config, device=args.device)
     metrics = WindowedMetrics(window=32, half_life_s=60.0,
                               device=engine.backend.device)
@@ -362,7 +478,9 @@ def run_cli(argv=None) -> Dict[str, Any]:
                                device=engine.backend.device)
     print(f"arch={args.arch} device={engine.backend.device} "
           f"slots={config.num_slots} buckets={buckets} gen<={args.gen} "
-          f"requests={args.requests} rate={args.rate}/s")
+          f"requests={args.requests} rate={args.rate}/s"
+          + (f" model_parallel={args.model_parallel}"
+             if args.model_parallel > 1 else ""))
     print(f"per-step aggregation plan: {plan.describe()}")
 
     rng = np.random.default_rng(args.seed)
@@ -372,7 +490,8 @@ def run_cli(argv=None) -> Dict[str, Any]:
                           shared_frac=args.shared_frac,
                           shared_len=args.shared_len)
     launches0 = flash_attention.launches
-    results, wall = serve_trace(engine, trace, quiet=False)
+    results, wall = serve_trace(engine, trace, quiet=False,
+                                clock=engine.clock)
 
     ttfts = np.array([r.ttft_s for r in results])
     new_tokens = sum(len(r.tokens) for r in results)

@@ -1,28 +1,130 @@
-"""The train step on one device: the port of ``make_train_step`` of the JAX
-package's ``launch/steps.py``.
+"""Step builders: the port of the JAX package's ``launch/steps.py``.
 
-The JAX package jit-compiles its steps with explicit shardings for a mesh;
-the port runs eagerly on one device, so the step is a plain function.  A
-mesh, ``model_parallel > 1`` and the dry run wait for the mesh tier's model
-half (ROADMAP §1 item 4).  The prefill and decode steps of that file are not
-ported: the port's engine (``runtime/engine.py``) runs them.
+The JAX package jit-compiles its steps with explicit shardings for a mesh.
+The port's steps are eager functions: the train step runs on one device
+(a mesh and ``model_parallel > 1`` wait for the mesh tier's train half,
+slice 17 of the port), and the prefill and decode steps run on a mesh's
+ranks, each on its own blocks.  The sharding helpers give the same specs
+as the reference's ``NamedSharding``s, as tuples (``dist/sharding.py``):
+a :class:`BuiltStep` carries them, the step's global argument shapes on
+the meta device (the dry run's) and :meth:`BuiltStep.local`, which cuts
+global arguments to this rank's blocks.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
 
+from ..configs import ShapeCell, input_specs
 from ..core.aggregation import grad_accum_fold
-from ..models import ModelConfig, RunCtx, loss_fn
+from ..dist import sharding as shd
+from ..models import (ModelConfig, RunCtx, decode_step, forward, init_cache,
+                      loss_fn, unembed)
 from ..models.convert import from_jax_layout, to_jax_layout
+from ..models.moe import _divisible_batch_axes
+from ..models.transformer import param_shapes
 from ..optim import OptConfig, adamw_update
 from ..optim.compress import LossySpec
 
 Pytree = Any
-_MESH_TODO = ("needs the mesh tier's model half, the next slice of the port "
+_MESH_TODO = ("needs the mesh tier's train half, slice 17 of the port "
               "(ROADMAP §1 item 4)")
+
+trim_rules = shd.trim_rules  # canonical definition lives in dist.sharding
+
+
+# ---------------------------------------------------------------------------
+# sharding helpers (specs as tuples: dist.sharding.spec_for's)
+# ---------------------------------------------------------------------------
+
+def batch_sharding(mesh, rules, dim0: Optional[int] = None) -> Tuple:
+    """Batch-dim spec, dropping axes that don't divide dim0 (e.g. B=1)."""
+    ax = rules.get("batch")
+    axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
+    if dim0 is not None:
+        axes = _divisible_batch_axes(mesh, axes, dim0)
+    return (axes if len(axes) > 1 else axes[0],) if axes else ()
+
+
+def data_shardings(cfg: ModelConfig, mesh, rules, specs: Dict) -> Dict:
+    """Specs of the data inputs (tokens / labels / context): batch-cut."""
+    return {k: batch_sharding(mesh, rules, v.shape[0])
+            for k, v in specs.items()}
+
+
+_CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", None),
+    "v": ("batch", "kv_seq", "kv_heads", None),
+    "xk": ("batch", None, "kv_heads", None),
+    "xv": ("batch", None, "kv_heads", None),
+    "lat_c": ("batch", "kv_seq", None),
+    "lat_r": ("batch", "kv_seq", None),
+    "ssm_h": ("batch", "mlp", None),
+    "ssm_conv": ("batch", None, "mlp"),
+    "ml_C": ("batch", "heads", None, None),
+    "ml_n": ("batch", "heads", None),
+    "sl_h": ("batch", "heads", None),
+    "sl_c": ("batch", "heads", None),
+    "pos": (),
+}
+
+
+def cache_shardings(cache_shapes: Pytree, mesh, rules) -> Pytree:
+    """The spec of every leaf of a decode cache, by leaf name (see
+    ``_CACHE_AXES``; the port's cache is per layer, so no leaf carries the
+    reference's stacked period dim).  A per-slot ``pos`` follows the
+    batch."""
+    def one(name, leaf):
+        names = _CACHE_AXES.get(name, ())
+        if name == "pos" and leaf.dim() == 1:
+            names = ("batch",)
+        return shd.spec_for(names, rules, mesh, shape=tuple(leaf.shape))
+
+    return {"pos": one("pos", cache_shapes["pos"]),
+            "layers": [{n: one(n, t) for n, t in layer.items()}
+                       for layer in cache_shapes["layers"]]}
+
+
+def replicated(mesh) -> Tuple:
+    """The spec of a replicated value."""
+    return ()
+
+
+@dataclasses.dataclass(frozen=True)
+class BuiltStep:
+    """A step on this rank's blocks + everything needed to call it: the
+    global argument trees on the meta device (``abstract_args``), their
+    specs (``in_shardings``; tuple leaves) and the output's, the mesh, the
+    trimmed rules and the ``RunCtx`` the step runs with."""
+    fn: Any
+    abstract_args: Tuple
+    in_shardings: Tuple
+    out_shardings: Any
+    mesh: Any
+    rules: Dict[str, Any]
+    ctx: Any = None
+
+    def local(self, *args) -> Tuple:
+        """Global arguments -> this rank's blocks, per ``in_shardings``."""
+        def cut(tree, specs):
+            if isinstance(tree, dict):
+                return {k: cut(v, specs[k]) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [cut(v, sp) for v, sp in zip(tree, specs)]
+            return shd.block_of(tree, specs, self.mesh)
+        return tuple(cut(a, sp) for a, sp in zip(args, self.in_shardings))
+
+
+def _step_ctx(cfg, mesh, rules, ctx, B: int) -> RunCtx:
+    ctx = ctx or RunCtx(mesh=mesh)
+    if ctx.mesh is None:
+        ctx = dataclasses.replace(ctx, mesh=mesh)
+    batch = batch_sharding(mesh, rules, B)
+    axes = shd._axes_tuple(batch[0]) if batch else ()
+    return dataclasses.replace(ctx, batch_axes=axes)
 
 
 def _grad_fn(cfg: ModelConfig, ctx: RunCtx) -> Callable:
@@ -75,7 +177,7 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
     """
     if mesh is not None or model_parallel != 1:
         raise NotImplementedError(f"make_train_step(mesh=, model_parallel>1) "
-                                  f"{_MESH_TODO}")
+                                  f"on the mesh tier {_MESH_TODO}")
     if num_microbatches < 1:
         raise ValueError(f"num_microbatches must be >= 1; got "
                          f"{num_microbatches}")
@@ -118,3 +220,93 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
         return new_params, new_opt, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode steps
+# ---------------------------------------------------------------------------
+
+def _param_specs(cfg, mesh, rules):
+    from ..models.transformer import param_axes
+    pshapes = param_shapes(cfg)
+    return pshapes, shd.param_shardings(pshapes, param_axes(cfg), mesh, rules)
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeCell, *,
+                      ctx: Optional[RunCtx] = None,
+                      rules: Optional[Dict[str, Any]] = None) -> BuiltStep:
+    """Inference prefill: full-sequence forward + last-token logits.
+    ``fn(params, batch)`` takes this rank's blocks (the batch cut over the
+    ``batch`` rule's axes) and returns its rows' (B, 1, V) float32
+    logits."""
+    rules = trim_rules(rules or shd.SERVE_RULES, mesh)
+    ctx = _step_ctx(cfg, mesh, rules, ctx, shape.global_batch)
+
+    def prefill_step(params, batch):
+        with shd.use_rules(mesh, rules):
+            h = forward(params, cfg, batch["tokens"],
+                        context=batch.get("context"), ctx=ctx)
+            return unembed(params, cfg, h[:, -1:])
+
+    pshapes, pshard = _param_specs(cfg, mesh, rules)
+    specs = input_specs(cfg, shape)
+    bshard = data_shardings(cfg, mesh, rules, specs)
+    oshard = batch_sharding(mesh, rules, shape.global_batch)
+    return BuiltStep(fn=prefill_step, abstract_args=(pshapes, specs),
+                     in_shardings=(pshard, bshard), out_shardings=oshard,
+                     mesh=mesh, rules=rules, ctx=ctx)
+
+
+def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeCell, *,
+                     ctx: Optional[RunCtx] = None,
+                     rules: Optional[Dict[str, Any]] = None) -> BuiltStep:
+    """One-token decode against a ``seq_len`` KV cache (the serve step):
+    ``fn(params, cache, tokens)`` takes this rank's blocks and returns its
+    rows' ((B, 1, V) float32 logits, cache), the cache written in place.
+
+    ``ctx.decode_impl='flash'`` runs the sequence-sharded flash decode
+    (the ``attn_state`` monoid over ``model``): the cache's rows are cut
+    over ``model`` and the attention weights stay whole there (the rules'
+    ``kv_seq`` is set to ``model``, ``heads`` / ``kv_heads`` to None),
+    where the JAX package reshards its cache inside ``shard_map``."""
+    rules = dict(rules or shd.SERVE_RULES)
+    if ctx is not None and ctx.decode_impl == "flash":
+        rules.update(kv_seq="model", heads=None, kv_heads=None)
+    rules = trim_rules(rules, mesh)
+    B, S = shape.global_batch, shape.seq_len
+    ctx = _step_ctx(cfg, mesh, rules, ctx, B)
+
+    def serve_step(params, cache, tokens):
+        with shd.use_rules(mesh, rules):
+            return decode_step(params, cfg, cache, tokens, ctx=ctx)
+
+    pshapes, pshard = _param_specs(cfg, mesh, rules)
+    cache_shapes = init_cache(pshapes, cfg, B, S)
+    cshard = cache_shardings(cache_shapes, mesh, rules)
+    tok_spec = torch.empty((B, 1), dtype=torch.int32, device="meta")
+    tshard = batch_sharding(mesh, rules, B)
+    return BuiltStep(fn=serve_step,
+                     abstract_args=(pshapes, cache_shapes, tok_spec),
+                     in_shardings=(pshard, cshard, tshard),
+                     out_shardings=(tshard, cshard), mesh=mesh, rules=rules,
+                     ctx=ctx)
+
+
+def make_cache(built: BuiltStep, cfg: ModelConfig, params: Pytree,
+               batch: int, max_seq: int) -> Pytree:
+    """This rank's decode cache for a :func:`make_decode_step` step:
+    ``batch`` is this rank's block of the global batch, ``max_seq`` the
+    global length (the step's rules cut the rows for the flash decode)."""
+    with shd.use_rules(built.mesh, built.rules):
+        return init_cache(params, cfg, batch, max_seq, ctx=built.ctx)
+
+
+def build_step(cfg: ModelConfig, mesh, shape: ShapeCell, **kw) -> BuiltStep:
+    """Dispatch on the cell kind (``train`` refuses a mesh: slice 17)."""
+    if shape.kind == "train":
+        return make_train_step(cfg, mesh, **kw)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, mesh, shape, **kw)
+    if shape.kind == "decode":
+        return make_decode_step(cfg, mesh, shape, **kw)
+    raise ValueError(shape.kind)

@@ -43,17 +43,22 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import dist
+from ..core import monoids
+from ..core.aggregation import monoid_allreduce
+from ..dist import sharding as shd
 from ..kernels.flash_attention import flash_attention
-from .common import ModelConfig, dense, rms_norm, rotary_embed
+from .common import ModelConfig, dense, rms_norm, row_parallel, rotary_embed
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 
 def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: Optional[torch.Tensor]):
-    """q, k, v of ``x``; RoPE at ``positions``, none when they are None."""
+    """q, k, v of ``x``; RoPE at ``positions``, none when they are None.
+    The head counts are the weights' (this rank's block under a mesh)."""
     B, S, D = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, KV, hd = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
     q = (x @ p["wq"].to(x.dtype).reshape(D, H * hd)).reshape(B, S, H, hd)
     k = (x @ p["wk"].to(x.dtype).reshape(D, KV * hd)).reshape(B, S, KV, hd)
     v = (x @ p["wv"].to(x.dtype).reshape(D, KV * hd)).reshape(B, S, KV, hd)
@@ -139,6 +144,53 @@ def write_span(cache: torch.Tensor, new: torch.Tensor, span) -> None:
                      .index_select(0, src).to(cache.dtype))
 
 
+def _head_cuts(cfg: ModelConfig):
+    """(the mesh axes the query heads are cut over, those the KV heads are
+    cut over) in the active rules scope; ((), ()) outside one."""
+    D, hd = cfg.d_model, cfg.head_dim
+    return (shd.cut(("embed", "heads", "head_dim"),
+                    (D, cfg.num_heads, hd), 1),
+            shd.cut(("embed", "kv_heads", "head_dim"),
+                    (D, cfg.num_kv_heads, hd), 1))
+
+
+def group_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
+    """The KV heads (dim 2) this rank's query heads read, so that query
+    head ``j`` of the block reads head ``j // (Hl / KVl)`` of the result.
+
+    Under a mesh the query heads are this rank's block of ``H / P``; when
+    the KV heads are cut the same way every GQA group stays whole and k, v
+    come back as they are; when the axis does not divide the KV heads
+    (``spec_for`` replicates them) the block's groups are sliced out, or
+    gathered one per query head where no slice lines them up."""
+    hcut, kcut = _head_cuts(cfg)
+    if not hcut and not kcut:
+        return k, v
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    G = H // KV
+    Hl = H // dist.axis_size(hcut) if hcut else H
+    h0, k0 = shd.block_start(hcut, H), shd.block_start(kcut, KV)
+    need = [(h0 + j) // G - k0 for j in range(Hl)]
+    lo, n = need[0], need[-1] - need[0] + 1
+    if Hl % n == 0 and need == [lo + j // (Hl // n) for j in range(Hl)]:
+        if lo == 0 and n == k.shape[2]:
+            return k, v
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = torch.tensor(need, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def out_proj(p: Dict, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
+    """(B, S, Hl, dv) head outputs -> (B, S, D) through ``wo``: summed over
+    the mesh axes the heads are cut over (:func:`row_parallel`)."""
+    B, S, Hl, dv = o.shape
+    w = p["wo"]
+    cut = shd.cut(("heads", "head_dim", "embed"),
+                  (cfg.num_heads,) + tuple(w.shape[1:]), 0)
+    return row_parallel(o.reshape(B, S, Hl * dv), w.reshape(Hl * dv, -1),
+                        cut)
+
+
 def attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               positions: Optional[torch.Tensor] = None, *,
               q_offset: Optional[torch.Tensor] = None,
@@ -169,7 +221,6 @@ def attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     below ``q_pos - window``, with or without a cache.
     """
     B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
     derived = query_positions(B, S, q_offset, x.device)
     if positions is not None and not torch.equal(
             positions.to(torch.int32).expand(B, S), derived):
@@ -187,14 +238,14 @@ def attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         write_span(kc, k, span)
         write_span(vc, v, span)
         k, v = kc, vc
+    ka, va = group_kv(cfg, k, v)
     # (B, S, heads, hd) viewed as (B, heads, S, hd): the kernel reads the
     # strides (the cache's too: no copy), and its output keeps q's
     # (B, S, H, hd) memory layout
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True,
+    o = flash_attention(q.transpose(1, 2), ka.transpose(1, 2),
+                        va.transpose(1, 2), causal=True,
                         q_offset=q_offset, window=window).transpose(1, 2)
-    out = o.reshape(B, S, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd, -1)
-    return out, (k, v)
+    return out_proj(p, cfg, o), (k, v)
 
 
 def _flash_out(p: Dict, q: torch.Tensor, k: torch.Tensor,
@@ -312,16 +363,116 @@ def attention_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
     kcache = cache_row_update(kcache, k_new, pos)
     vcache = cache_row_update(vcache, v_new, pos)
+    ka, va = group_kv(cfg, kcache, vcache)
     k_pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    scores = _gqa_scores(q, kcache, scale)                      # (B,H,1,S)
+    scores = _gqa_scores(q, ka, scale)                          # (B,H,1,S)
     keep = _causal_mask(positions, k_pos, window)[:, None]
     scores = torch.where(keep, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = _gqa_values(w, vcache)                                  # (B,1,H,hd)
-    H, hd = o.shape[2], o.shape[3]
-    out = o.reshape(B, 1, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd, -1)
-    return out, (kcache, vcache)
+    o = _gqa_values(w, va)                                      # (B,1,H,hd)
+    return out_proj(p, cfg, o), (kcache, vcache)
+
+
+def _partial_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   keep: Optional[torch.Tensor], scale: float):
+    """The ``attn_state`` (m, l, o) of queries q (B, Sq, H, hd) over one
+    block of keys k, v (B, Sk, KV, hd): float32 scores, masked keys at
+    -inf (a row with none kept gives m = -inf, l = 0, o = 0), the weights
+    cast to v's dtype for the value product, as the JAX package's."""
+    scores = _gqa_scores(q, k, scale)                           # (B,H,Sq,Sk)
+    if keep is not None:
+        scores = scores.masked_fill(~keep, -math.inf)
+    m = scores.amax(dim=-1)
+    msafe = torch.where(torch.isneginf(m), 0.0, m)
+    e = torch.exp(scores - msafe[..., None])
+    e = torch.where(torch.isneginf(scores), 0.0, e)
+    o = _gqa_values(e.to(v.dtype), v).transpose(1, 2).to(torch.float32)
+    return m, e.sum(dim=-1), o
+
+
+def flash_decode_shardmap(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                          cache: Tuple[torch.Tensor, torch.Tensor],
+                          pos: torch.Tensor, mesh=None, *,
+                          axis_name: str = "model",
+                          window: Optional[int] = None):
+    """Flash-decoding over a sequence-sharded KV cache: ``cache`` (k, v),
+    each (B, S / P, KV, hd), is this rank's contiguous slice of the rows
+    (rank ``r`` holds rows ``[r S / P, (r + 1) S / P)``).
+
+    Each rank projects the new token (the attention weights whole), writes
+    its (k, v) row IN PLACE only where ``pos`` falls in its slice, computes
+    the partial (m, l, o) ``attn_state`` over its rows, and one
+    ``monoid_allreduce`` merges the states -- the distributed combiner.
+    ``pos`` must be a scalar: per-slot (B,) positions raise
+    ``NotImplementedError``, as the JAX package's.  Returns the (B, 1, D)
+    output and the cache.  ``mesh`` is bound for the collectives (None:
+    the bound mesh)."""
+    if pos.dim() == 1:
+        raise NotImplementedError(
+            "flash decode requires a scalar cache position; per-slot (B,) "
+            "positions (continuous batching) run the dense decode path")
+    kc, vc = cache
+    B, S_l = kc.shape[0], kc.shape[1]
+    with dist.maybe_mesh(mesh):
+        hcut, _ = _head_cuts(cfg)
+        if axis_name in hcut:
+            raise ValueError(f"flash decode over {axis_name!r} needs the "
+                             f"attention heads whole on it; they are cut "
+                             f"over {hcut}")
+        start = dist.axis_index(axis_name) * S_l
+        positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
+        q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+        off = pos.to(torch.long) - start
+        mine = (off >= 0) & (off < S_l)
+        row = off.clamp(0, S_l - 1)
+        # the owner writes its row; the others write back what they hold
+        kc[:, row] = torch.where(mine, k_new[:, 0].to(kc.dtype), kc[:, row])
+        vc[:, row] = torch.where(mine, v_new[:, 0].to(vc.dtype), vc[:, row])
+        ka, va = group_kv(cfg, kc, vc)
+        k_pos = start + torch.arange(S_l, dtype=torch.int32,
+                                     device=x.device).expand(B, S_l)
+        keep = _causal_mask(positions, k_pos, window)[:, None]
+        state = _partial_state(q, ka, va, keep, 1.0 / math.sqrt(cfg.head_dim))
+        state = monoid_allreduce(monoids.attn_state, state, axis_name)
+        o = monoids.attn_state.extract(state)                   # (B,H,1,hd)
+    return out_proj(p, cfg, o.transpose(1, 2).to(x.dtype)), (kc, vc)
+
+
+def ring_attention_shardmap(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mesh=None, *,
+                            axis_name: str = "model", causal: bool = True,
+                            head_dim_scale: Optional[float] = None
+                            ) -> torch.Tensor:
+    """Ring attention: q, k, v (B, S / P, H or KV, hd) are this rank's
+    block of a sequence cut over ``axis_name`` (rank ``r`` holds positions
+    ``[r S / P, (r + 1) S / P)``); the K / V blocks travel around the ring
+    on :func:`repro_torch.dist.ppermute` while each rank folds the partial
+    ``attn_state`` of every block into its queries' -- each hop one
+    combine, legal in any arrival order because the combine is
+    associative.  Returns this rank's (B, S / P, H, hd) output block."""
+    B, S_l, H, hd = q.shape
+    scale = head_dim_scale or (1.0 / math.sqrt(hd))
+    with dist.maybe_mesh(mesh):
+        P = dist.axis_size(axis_name)
+        idx = dist.axis_index(axis_name)
+        perm = [(j, (j + 1) % P) for j in range(P)]
+        ar = torch.arange(S_l, dtype=torch.int32, device=q.device)
+        q_pos = (idx * S_l + ar).expand(B, S_l)
+        acc = None
+        for i in range(P):
+            src = (idx - i) % P                  # who produced this block
+            keep = None
+            if causal:
+                k_pos = (src * S_l + ar).expand(B, S_l)
+                keep = _causal_mask(q_pos, k_pos)[:, None]
+            state = _partial_state(q, k, v, keep, scale)
+            acc = state if acc is None else \
+                monoids.attn_state.combine(acc, state)
+            if i + 1 < P:
+                k, v = dist.ppermute((k, v), axis_name, perm)
+        out = monoids.attn_state.extract(acc)    # (B,H,S_l,hd)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

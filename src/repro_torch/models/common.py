@@ -16,6 +16,8 @@ from typing import Tuple
 
 import torch
 
+from .. import dist
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -162,6 +164,18 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w over x's last axis and w's first, emitted in x's dtype."""
     out = torch.matmul(x, w.to(x.dtype).reshape(w.shape[0], -1))
     return out.reshape(tuple(x.shape[:-1]) + tuple(w.shape[1:]))
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, axes) -> torch.Tensor:
+    """``x @ w`` (``w`` 2-d) when w's rows, and x's last dim, are this
+    rank's block of a dimension cut over mesh ``axes``: the float32
+    products of the blocks are summed over the axes and rounded once to
+    x's dtype, as the unsharded product rounds its float32 sum once.
+    Without axes, ``x @ w`` in x's dtype."""
+    if not axes:
+        return x @ w.to(x.dtype)
+    part = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    return dist.psum(part, axes).to(x.dtype)
 
 
 def init_normal(gen: torch.Generator, shape: Tuple[int, ...],

@@ -56,17 +56,40 @@ under the caller's grad mode, each layer recomputed in the backward with
 ``flash_attention``'s autograd Function (its hand-written backward
 kernel), and the cross-entropy folded chunk by chunk with ``ce_chunk``.
 ``init_cache``, ``prefill`` and ``decode_step`` stay no-grad.
+
+Under a mesh (``RunCtx(mesh=)``, or inside ``dist.sharding.use_rules``)
+the dense and MoE families run tensor and expert parallel with explicit
+per-rank shards, where the JAX package lets GSPMD place its
+``PartitionSpec``s: each rank holds its block of every parameter
+(:func:`param_axes` names the dimensions; ``dist.sharding.shard_params``
+cuts them), the KV cache holds its KV heads, and the layers call the
+collectives themselves.  Under ``SERVE_RULES`` the ``heads``,
+``kv_heads``, ``mlp``, ``vocab`` and ``expert`` dimensions are cut over
+``model`` and the residual stream is replicated: the embedding is looked
+up in this rank's rows and summed over the axis, a ``psum`` follows
+``wo`` and the FFN's down projection (float32 partial products, rounded
+once), the MoE layer runs ``moe.moe_ffn(mesh=, impl=ctx.moe_impl)``, and
+the vocab-cut logits are gathered.  A dimension the axis does not divide
+stays whole (``spec_for``), and the layer computes the same function: KV
+heads the axis does not divide are sliced per query-head block
+(``attention.group_kv``).  ``decode_impl="flash"`` decodes over a cache
+whose rows are cut over ``model`` (``attention.flash_decode_shardmap``).
+MLA, the recurrent and the context families and :func:`loss_fn` refuse a
+mesh (later slices).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
+from .. import dist
+from ..dist import sharding as shd
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
@@ -74,6 +97,73 @@ from .common import ModelConfig, embed_lookup, init_normal, rms_norm
 from .moe import _act, dense_ffn  # noqa: F401  (their home is moe.py)
 
 Pytree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class RunCtx:
+    """Execution-context knobs threaded through the stack (the JAX
+    package's ``RunCtx``).  ``mesh`` (a ``DeviceMesh``) runs
+    :func:`forward`, :func:`prefill`, :func:`decode_step` and
+    :func:`init_cache` on this rank's blocks, under ``SERVE_RULES`` unless
+    a ``dist.sharding.use_rules`` scope is open; ``moe_impl``
+    (``replicated`` | ``a2a``) picks the expert-parallel strategy there (on
+    one device ``moe_ffn_local`` runs, as in the JAX package);
+    ``decode_impl="flash"`` decodes over a sequence-cut cache.
+    ``batch_axes`` are the mesh axes the caller cut the batch over (the MoE
+    stats are summed over them; the JAX package's arrays are global and
+    need no such field).  ``attn_chunk`` is accepted for the JAX package's
+    chunked attention; the kernel's own KV tiles take its place.
+    ``ce_chunk > 0`` folds the cross-entropy chunk by chunk of the
+    sequence; ``remat="full"`` recomputes each layer in the backward."""
+    mesh: Any = None
+    moe_impl: str = "replicated"
+    attn_chunk: Optional[int] = None
+    ce_chunk: int = 0
+    remat: str = "full"                 # full | none
+    decode_impl: str = "dense"          # dense | flash (sharded-KV decode)
+    batch_axes: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        if self.remat not in ("full", "none"):
+            raise ValueError(f"remat must be 'full' or 'none'; got "
+                             f"{self.remat!r}")
+        if self.decode_impl not in ("dense", "flash"):
+            raise ValueError(f"decode_impl must be 'dense' or 'flash'; got "
+                             f"{self.decode_impl!r}")
+
+
+_MESH_FAMILIES = ("the mesh tier serves the dense and MoE families; MLA, "
+                  "the recurrent and the context-conditioned families under "
+                  "a mesh are a later slice of the port (ROADMAP §1 item 4)")
+
+
+def _mesh_of(ctx: RunCtx):
+    """The mesh a call runs on: ``ctx.mesh``, else the open rules
+    scope's, else None."""
+    if ctx.mesh is not None:
+        return ctx.mesh
+    scope = shd.current_rules()
+    return None if scope is None else scope[0]
+
+
+@contextlib.contextmanager
+def _mesh_scope(cfg: ModelConfig, ctx: RunCtx):
+    """The scope a call runs in: nothing without a mesh; with one, its
+    rules (``SERVE_RULES`` unless a scope is open) and the mesh bound for
+    the collectives."""
+    mesh = _mesh_of(ctx)
+    if mesh is None:
+        yield
+        return
+    if cfg.use_mla or recurrent(cfg) or context_conditioned(cfg):
+        raise NotImplementedError(f"{cfg.name}: {_MESH_FAMILIES}")
+    if shd.current_rules() is None:
+        with shd.use_rules(mesh, shd.SERVE_RULES):
+            yield
+    else:
+        with dist.maybe_mesh(ctx.mesh if getattr(ctx.mesh, "mesh_dim_names",
+                                                 None) else None):
+            yield
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -119,16 +209,112 @@ def _init_attn(cfg: ModelConfig, normal, ones, zeros) -> Dict:
     return mix
 
 
+# the logical axes of every parameter leaf, by leaf name: the names the JAX
+# package's ParamBuilder records (models/common.py, attention.py, moe.py,
+# ssm.py), which ``dist.sharding`` maps to mesh axes
+_ATTN_AXES = {
+    "wq": ("embed", "heads", "head_dim"),
+    "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"),
+    "wo": ("heads", "head_dim", "embed"),
+    "bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+    "bv": ("kv_heads", "head_dim"),
+    "q_norm": ("head_dim",), "k_norm": ("head_dim",), "gate": (),
+    # MLA
+    "wq_a": ("embed", "q_lora"), "q_a_norm": ("q_lora",),
+    "wq_b": ("q_lora", "heads", "head_dim"),
+    "wkv_a": ("embed", "kv_lora"), "kv_a_norm": ("kv_lora",),
+    "wk_b": ("kv_lora", "heads", "head_dim"),
+    "wv_b": ("kv_lora", "heads", "head_dim"),
+}
+_FFN_AXES = {
+    "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"), "router": ("embed", None),
+    "we_gate": ("expert", "embed", "mlp"), "we_up": ("expert", "embed", "mlp"),
+    "we_down": ("expert", "mlp", "embed"),
+}
+_MIX_AXES = {
+    "mamba": {"A_log": ("d_inner", "d_state"), "D_skip": ("d_inner",),
+              "conv_b": ("d_inner",), "conv_w": (None, "d_inner"),
+              "dt_bias": ("d_inner",), "w_bcdt": ("d_inner", None),
+              "w_dt": (None, "d_inner"), "w_in": ("embed", "d_inner"),
+              "w_out": ("d_inner", "embed")},
+    "mlstm": {"b_if": (None,), "ln_g": ("d_inner",),
+              "w_down": ("d_inner", "embed"), "w_if": ("d_inner", None),
+              "w_up": ("embed", "d_inner"),
+              "wq": ("d_inner", "heads", "head_dim"),
+              "wk": ("d_inner", "heads", "head_dim"),
+              "wv": ("d_inner", "heads", "head_dim")},
+    "slstm": {"b": ("d_inner",), "w_down": ("mlp", "embed"),
+              "w_h": ("heads", "head_dim", None), "w_up": ("embed", "mlp"),
+              "w_x": ("embed", "d_inner")},
+}
+
+
+def _axes_like(tree: Dict, table: Dict) -> Dict:
+    return {k: _axes_like(v, table) if isinstance(v, dict) else table[k]
+            for k, v in tree.items()}
+
+
+def _layer_axes(ltype: str, layer: Dict) -> Dict:
+    """The logical axes of one layer's parameter dict."""
+    out = {}
+    for k, v in layer.items():
+        if k == "mix":
+            out[k] = _axes_like(v, _MIX_AXES.get(ltype, _ATTN_AXES))
+        elif k == "xattn":
+            out[k] = _axes_like(v, _ATTN_AXES)
+        elif k == "ffn":
+            out[k] = _axes_like(v, _FFN_AXES)
+        else:                                   # norm1, norm2, norm_x
+            out[k] = ("embed",)
+    return out
+
+
+def _top_axes(name: str) -> Tuple:
+    return {"embed": ("vocab", "embed"), "lm_head": ("embed", "vocab")}.get(
+        name, ("embed",))
+
+
+def param_axes(cfg: ModelConfig) -> Pytree:
+    """The logical-axes tree of the parameters (a tuple of names per leaf,
+    the tree shaped as :func:`init_params`'s), without allocating: the
+    names of the JAX package's ``param_axes``, per layer where it stacks
+    the layers under a leading ``"layers"`` name."""
+    shapes = param_shapes(cfg)
+    out = {k: _top_axes(k) for k in shapes if k not in ("layers", "encoder")}
+    out["layers"] = [_layer_axes(cfg.block_type(i), p)
+                     for i, p in enumerate(shapes["layers"])]
+    if "encoder" in shapes:
+        out["encoder"] = {"layers": [_layer_axes("attn", p) for p in
+                                     shapes["encoder"]["layers"]],
+                          "final_norm": ("embed",)}
+    return out
+
+
+def param_shapes(cfg: ModelConfig) -> Pytree:
+    """The parameter tree on the meta device: shapes and dtypes, nothing
+    allocated (the dry-run path)."""
+    return init_params(cfg, torch.Generator(), device="meta")
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
-                device="cuda") -> Pytree:
+                device="cuda",
+                shard: Optional[Callable[[Any, Any], Any]] = None) -> Pytree:
     """Random parameters with the JAX package's shapes and scales
     (``std = 1/sqrt(fan_in)``, norms at one, cross-attention gates at
     zero, Mamba's ``A_log`` / ``dt_bias`` at zero and ``D_skip`` at one),
     drawn from ``gen``.  A layer whose FFN is ``none`` has no ``norm2`` /
     ``ffn``; with ``cfg.use_mla`` an ``attn`` / ``local`` layer's ``mix``
-    holds MLA's projections (:func:`attn.init_mla`)."""
+    holds MLA's projections (:func:`attn.init_mla`).
+
+    ``shard(tree, axes)`` (e.g. ``dist.sharding.shard_params`` bound to a
+    mesh) is applied to each leaf or layer as soon as it is drawn, so a
+    rank keeps only its blocks of the same numbers the whole draw gives
+    and never holds more than one whole layer."""
     _check_supported(cfg)
     device = torch.device(device)
+    keep = shard or (lambda tree, axes: tree)
     D = cfg.d_model
     dt = cfg.dtype
 
@@ -164,18 +350,24 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                 moe_mod.init_dense_ffn(cfg, gen, device=device)
         return p
 
-    params: Dict[str, Any] = {"embed": normal((cfg.vocab_size, D), D)}
-    params["layers"] = [layer(cfg.block_type(i), cfg.ffn_type(i),
-                              cfg.decoder_cross_attn)
+    def layer_kept(ltype, ftype, cross_attends):
+        p = layer(ltype, ftype, cross_attends)
+        return keep(p, _layer_axes(ltype, p))
+
+    params: Dict[str, Any] = {"embed": keep(normal((cfg.vocab_size, D), D),
+                                            _top_axes("embed"))}
+    params["layers"] = [layer_kept(cfg.block_type(i), cfg.ffn_type(i),
+                                   cfg.decoder_cross_attn)
                         for i in range(cfg.num_layers)]
-    params["final_norm"] = ones(D)
+    params["final_norm"] = keep(ones(D), _top_axes("final_norm"))
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((D, cfg.vocab_size), D)
+        params["lm_head"] = keep(normal((D, cfg.vocab_size), D),
+                                 _top_axes("lm_head"))
     if cfg.encoder_layers > 0:   # whisper's encoder (the conv frontend is a stub)
         params["encoder"] = {
-            "layers": [layer("attn", "dense", False)
+            "layers": [layer_kept("attn", "dense", False)
                        for _ in range(cfg.encoder_layers)],
-            "final_norm": ones(D)}
+            "final_norm": keep(ones(D), ("embed",))}
     return params
 
 
@@ -194,7 +386,7 @@ def positional_cache(cfg: ModelConfig) -> bool:
 @torch.no_grad()
 def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
                context: Optional[torch.Tensor] = None,
-               pos_per_slot: bool = False) -> Pytree:
+               pos_per_slot: bool = False, ctx: RunCtx = RunCtx()) -> Pytree:
     """Decode caches on the parameters' device: zeroed KV rows per
     self-attention layer (with ``cfg.use_mla`` the latent rows ``lat_c``
     (B, max_seq, kv_lora_rank) and ``lat_r`` (B, max_seq, qk_rope_dim)
@@ -212,12 +404,31 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
     (``ssm.INIT_CACHE``): Mamba's ``ssm_h`` (B, d_inner, d_state) float32
     and ``ssm_conv`` (B, d_conv - 1, d_inner); mLSTM's ``ml_C`` (B, H, hd,
     hd) and ``ml_n`` (B, H, hd) float32; sLSTM's ``sl_h`` / ``sl_c`` (B, H,
-    D // H) float32."""
+    D // H) float32.
+
+    Under a mesh (``ctx.mesh`` or an open rules scope) ``batch`` is this
+    rank's and each KV cache holds this rank's KV heads (the ``wk`` block's
+    count) and its block of the rows when ``kv_seq`` is cut (the flash
+    decode)."""
+    with _mesh_scope(cfg, ctx):
+        return _init_cache(params, cfg, batch, max_seq, context,
+                           pos_per_slot)
+
+
+def _init_cache(params, cfg, batch, max_seq, context, pos_per_slot):
     _check_supported(cfg)
     device = params["embed"].device
     if cfg.encoder_layers > 0 and context is not None:
         context = encode(params, cfg, context)
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    rows = shd.cut((None, "kv_seq", "kv_heads", None),
+                   (batch, max_seq, KV, hd), 1)
+    rows = max_seq // dist.axis_size(rows) if rows else max_seq
+    kv_local = next((p["mix"]["wk"].shape[1] for i, p in
+                     enumerate(params["layers"])
+                     if cfg.block_type(i) in ("attn", "local")
+                     and "wk" in p["mix"]), KV)
+    shape = (batch, rows, kv_local, hd)
     pos = torch.zeros((batch,) if pos_per_slot else (), dtype=torch.int32,
                       device=device)
 
@@ -251,7 +462,7 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def _apply_ffn(p: Dict, cfg: ModelConfig, ftype: str, x: torch.Tensor,
-               stats: Optional[Dict]):
+               stats: Optional[Dict], ctx: RunCtx = RunCtx()):
     """The residual FFN block -> (x, stats): an MoE layer adds its stats
     into ``stats``, a ``none`` FFN returns x (the reference's
     ``_apply_ffn``)."""
@@ -260,7 +471,9 @@ def _apply_ffn(p: Dict, cfg: ModelConfig, ftype: str, x: torch.Tensor,
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if ftype == "dense":
         return x + dense_ffn(p["ffn"], cfg, h), stats
-    out, s = moe_mod.moe_ffn(p["ffn"], cfg, h)
+    out, s = moe_mod.moe_ffn(p["ffn"], cfg, h, mesh=_mesh_of(ctx),
+                             impl=ctx.moe_impl, batch_axes=ctx.batch_axes,
+                             with_stats=stats is not None)
     if stats is not None:
         stats = {k: stats[k] + s[k] for k in stats}
     return x + out, stats
@@ -276,7 +489,8 @@ def _cross_attend(p: Dict, cfg: ModelConfig, x: torch.Tensor, kv,
 
 def _decode_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
                   x: torch.Tensor, cache: Dict, pos: torch.Tensor,
-                  window: Optional[int]) -> torch.Tensor:
+                  window: Optional[int], ctx: RunCtx = RunCtx()
+                  ) -> torch.Tensor:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if ltype == "xattn":
         mixed = attn.cross_attention(p["mix"], cfg, h,
@@ -287,6 +501,9 @@ def _decode_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
     elif cfg.use_mla:
         mixed, _ = attn.mla_decode(p["mix"], cfg, h,
                                    (cache["lat_c"], cache["lat_r"]), pos)
+    elif ctx.decode_impl == "flash" and _mesh_of(ctx) is not None:
+        mixed, _ = attn.flash_decode_shardmap(
+            p["mix"], cfg, h, (cache["k"], cache["v"]), pos, window=window)
     else:
         mixed, _ = attn.attention_decode(p["mix"], cfg, h,
                                          (cache["k"], cache["v"]), pos,
@@ -295,14 +512,14 @@ def _decode_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
     if cfg.decoder_cross_attn and ltype in ("attn", "local") and \
             "xk" in cache:
         x = _cross_attend(p, cfg, x, (cache["xk"], cache["xv"]), decode=True)
-    x, _ = _apply_ffn(p, cfg, ftype, x, None)
+    x, _ = _apply_ffn(p, cfg, ftype, x, None, ctx)
     return x
 
 
 def _full_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
                 x: torch.Tensor, window: Optional[int],
                 stats: Optional[Dict], context=None, q_offset=None,
-                cache=None, span=None, k_rows=None):
+                cache=None, span=None, k_rows=None, ctx: RunCtx = RunCtx()):
     """One layer over the full sequence -> (x, rows, stats): ``rows`` maps
     the names of the cache leaves a self-attention layer fills (``k`` /
     ``v``, or MLA's ``lat_c`` / ``lat_r``) to its (B, S, ...) rows, or,
@@ -334,7 +551,7 @@ def _full_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
     if cfg.decoder_cross_attn and ltype in ("attn", "local") and \
             context is not None:
         x = _cross_attend(p, cfg, x, attn.cross_kv(p["xattn"], cfg, context))
-    x, stats = _apply_ffn(p, cfg, ftype, x, stats)
+    x, stats = _apply_ffn(p, cfg, ftype, x, stats, ctx)
     return x, rows, stats
 
 
@@ -348,7 +565,18 @@ def _zero_stats(cfg: ModelConfig, device) -> Optional[Dict]:
 
 def _embed(params: Pytree, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
-    x = embed_lookup(params["embed"], tokens).to(cfg.dtype)
+    emb = params["embed"]
+    cut = shd.cut(_top_axes("embed"), (cfg.vocab_size, cfg.d_model), 0)
+    if cut:       # this rank's rows: the ids it holds, zeros elsewhere
+        idx = tokens.long() - shd.block_start(cut, cfg.vocab_size)
+        mine = (idx >= 0) & (idx < emb.shape[0])
+        x = embed_lookup(emb, idx.clamp(0, emb.shape[0] - 1))
+        x = x.masked_fill(~mine[..., None], 0)
+        # one nonzero term per entry: the float32 sum is the row exactly
+        x = dist.psum(x.to(torch.float32), cut).to(emb.dtype)
+    else:
+        x = embed_lookup(emb, tokens)
+    x = x.to(cfg.dtype)
     if cfg.scale_embed:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -369,7 +597,8 @@ def _remat_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
 
 def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
              cache_layers=None, prefix_len=None, context=None,
-             remat: bool = False):
+             remat: bool = False, ctx: RunCtx = RunCtx(),
+             with_stats: bool = True):
     """(final hidden states of (B, S) tokens, MoE stats or None); with
     ``cache_layers``, the rows each layer caches (its (k, v), or MLA's
     latent rows) are written in place into rows [0, S) of its cache, or,
@@ -377,10 +606,12 @@ def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     cached prefix rows it attends to.  A
     ``context`` is encoded first when the arch has an encoder, then every
     cross-attending layer attends to it.  ``remat`` (training) recomputes
-    each layer in the backward (:func:`_remat_layer`)."""
+    each layer in the backward (:func:`_remat_layer`).  ``with_stats=False``
+    skips the MoE stats (the prefill drops them: under a mesh they cost a
+    collective a layer)."""
     S = tokens.shape[1]
     x = _embed(params, cfg, tokens)
-    stats = _zero_stats(cfg, x.device)
+    stats = _zero_stats(cfg, x.device) if with_stats else None
     if cfg.encoder_layers > 0 and context is not None:
         context = encode(params, cfg, context)
     span = k_rows = None
@@ -399,10 +630,10 @@ def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
         if prefix_len is not None:
             x, _, stats = _full_layer(p, cfg, ltype, ftype, x, window, stats,
                                       None, prefix_len, cache_layers[i],
-                                      span, k_rows)
+                                      span, k_rows, ctx)
             continue
         x, rows, stats = _full_layer(p, cfg, ltype, ftype, x, window, stats,
-                                     context)
+                                     context, ctx=ctx)
         if cache_layers is not None:
             for name, t in rows.items():
                 cache_layers[i][name][:, :S] = t
@@ -439,29 +670,35 @@ def encode(params: Pytree, cfg: ModelConfig,
 
 def forward_with_stats(params: Pytree, cfg: ModelConfig,
                        tokens: torch.Tensor, *,
-                       context: Optional[torch.Tensor] = None
+                       context: Optional[torch.Tensor] = None,
+                       ctx: RunCtx = RunCtx()
                        ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Token ids (B, S) -> (final hidden states (B, S, D), stats): the JAX
     package's ``forward`` (no remat; :func:`loss_fn` is the training form),
     under the caller's grad mode.  ``context`` (B, Sc, D) conditions a
     context arch (encoded first when it has an encoder).  ``stats`` is
     ``{"expert_load": (E,) int32, "dropped": int32}`` summed over the MoE
-    layers, or None without experts."""
-    return _forward(params, cfg, tokens, context=context)
+    layers, or None without experts.  Under a mesh (``ctx``) ``tokens`` is
+    this rank's block of the batch and every rank gets its rows' hidden
+    states whole."""
+    with _mesh_scope(cfg, ctx):
+        return _forward(params, cfg, tokens, context=context, ctx=ctx)
 
 
 def forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor, *,
-            context: Optional[torch.Tensor] = None) -> torch.Tensor:
+            context: Optional[torch.Tensor] = None,
+            ctx: RunCtx = RunCtx()) -> torch.Tensor:
     """Token ids (B, S) -> final hidden states (B, S, D)
     (:func:`forward_with_stats` without the stats)."""
-    return forward_with_stats(params, cfg, tokens, context=context)[0]
+    return forward_with_stats(params, cfg, tokens, context=context,
+                              ctx=ctx)[0]
 
 
 @torch.no_grad()
 def prefill(params: Pytree, cfg: ModelConfig, cache: Pytree,
             tokens: torch.Tensor, lengths: torch.Tensor,
-            prefix_len: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Pytree]:
+            prefix_len: Optional[torch.Tensor] = None, *,
+            ctx: RunCtx = RunCtx()) -> Tuple[torch.Tensor, Pytree]:
     """A whole (B, S) bucket of prompts in one pass -> ((B, V) float32
     logits at each row's position ``lengths - 1``, the cache).
 
@@ -480,6 +717,9 @@ def prefill(params: Pytree, cfg: ModelConfig, cache: Pytree,
     query offset), ``pos`` becomes ``prefix_len + S``, and the logits are
     those at suffix position ``lengths - 1``: what the decode step run over
     the suffix from ``pos = prefix_len`` leaves.
+
+    Under a mesh (``ctx``) the cache is this rank's (its KV heads) and the
+    logits are gathered whole on every rank.
     """
     if context_conditioned(cfg):
         raise NotImplementedError(
@@ -492,9 +732,11 @@ def prefill(params: Pytree, cfg: ModelConfig, cache: Pytree,
             "one-pass prefill; the engine runs the decode step over the "
             "bucket, as the JAX package's engine does")
     B, S = tokens.shape
-    h, _ = _forward(params, cfg, tokens, cache["layers"], prefix_len)
-    rows = torch.arange(B, device=h.device)
-    logits = unembed(params, cfg, h[rows, lengths.long() - 1])
+    with _mesh_scope(cfg, ctx):
+        h, _ = _forward(params, cfg, tokens, cache["layers"], prefix_len,
+                        ctx=ctx, with_stats=False)
+        rows = torch.arange(B, device=h.device)
+        logits = unembed(params, cfg, h[rows, lengths.long() - 1])
     pos = torch.full_like(cache["pos"], S) if prefix_len is None else \
         (prefix_len + S).to(cache["pos"].dtype)
     return logits, {"pos": pos, "layers": cache["layers"]}
@@ -502,39 +744,21 @@ def prefill(params: Pytree, cfg: ModelConfig, cache: Pytree,
 
 def unembed(params: Pytree, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Logits in float32: products of the activation-dtype inputs summed in
-    float32, as ``preferred_element_type=float32`` does."""
+    float32, as ``preferred_element_type=float32`` does.  With the vocab
+    cut over a mesh's axes (``embed`` / ``lm_head`` hold this rank's vocab
+    rows / columns) the logits of every rank are gathered."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(h.to(torch.float32), w.to(torch.float32))
+    logits = torch.matmul(h.to(torch.float32), w.to(torch.float32))
+    cut = shd.cut(_top_axes("lm_head"), (cfg.d_model, cfg.vocab_size), 1)
+    if cut:       # this rank's vocab columns: gather every rank's
+        logits = dist.all_gather(logits.movedim(-1, 0), cut, tiled=True)
+        logits = logits.movedim(0, -1).contiguous()
+    return logits
 
 
 # ---------------------------------------------------------------------------
 # training: the loss
 # ---------------------------------------------------------------------------
-
-@dataclasses.dataclass(frozen=True)
-class RunCtx:
-    """Execution-context knobs of the training forward (the JAX package's
-    ``RunCtx``).  ``mesh`` must be None: the mesh tier's model half is the next slice.
-    ``moe_impl`` is accepted and, on one device, runs ``moe_ffn_local`` as
-    the JAX package does there.  ``attn_chunk`` is accepted for the JAX
-    package's chunked attention; the kernel's own KV tiles take its place.
-    ``ce_chunk > 0`` folds the cross-entropy chunk by chunk of the
-    sequence; ``remat="full"`` recomputes each layer in the backward."""
-    mesh: Any = None
-    moe_impl: str = "replicated"
-    attn_chunk: Optional[int] = None
-    ce_chunk: int = 0
-    remat: str = "full"                 # full | none
-
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "RunCtx(mesh=) needs the mesh tier's model half, the next "
-                "slice of the port (ROADMAP §1 item 4)")
-        if self.remat not in ("full", "none"):
-            raise ValueError(f"remat must be 'full' or 'none'; got "
-                             f"{self.remat!r}")
-
 
 def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor,
                     mask: torch.Tensor):
@@ -559,6 +783,11 @@ def loss_fn(params: Pytree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     by chunk of the sequence -- in-mapper combining of ``(loss_sum,
     correct)`` -- each chunk's logits recomputed in the backward, so the
     full (B, S, V) logits are never live."""
+    if _mesh_of(ctx) is not None:
+        raise NotImplementedError(
+            "loss_fn with a mesh: the mesh tier's train half (the gradient "
+            "sync across ranks, make_train_step(mesh=)) is slice 17 of the "
+            "port (ROADMAP §1 item 4)")
     tokens = batch["tokens"]
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
@@ -590,16 +819,21 @@ def loss_fn(params: Pytree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def decode_step(params: Pytree, cfg: ModelConfig, cache: Pytree,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Pytree]:
+                tokens: torch.Tensor, *, ctx: RunCtx = RunCtx()
+                ) -> Tuple[torch.Tensor, Pytree]:
     """One serving step: (B, 1) new tokens -> (B, 1, V) float32 logits and
-    the cache, its KV rows written in place and ``pos`` advanced."""
+    the cache, its KV rows written in place and ``pos`` advanced.  Under a
+    mesh (``ctx``) the cache is this rank's and the logits are gathered
+    whole on every rank; ``ctx.decode_impl="flash"`` decodes over a cache
+    whose rows are cut (a scalar ``pos``)."""
     pos = cache["pos"]
-    x = _embed(params, cfg, tokens)
-    for i, (p, c) in enumerate(zip(params["layers"], cache["layers"])):
-        x = _decode_layer(p, cfg, cfg.block_type(i), cfg.ffn_type(i), x, c,
-                          pos, layer_window(cfg, i))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params, cfg, x)
+    with _mesh_scope(cfg, ctx):
+        x = _embed(params, cfg, tokens)
+        for i, (p, c) in enumerate(zip(params["layers"], cache["layers"])):
+            x = _decode_layer(p, cfg, cfg.block_type(i), cfg.ffn_type(i), x,
+                              c, pos, layer_window(cfg, i), ctx)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = unembed(params, cfg, x)
     return logits, {"pos": pos + 1, "layers": cache["layers"]}
 
 

@@ -415,6 +415,12 @@ class ContinuousEngine:
         self._shapes.setdefault(program, set()).add(
             tuple(tuple(t.shape) for t in tensors))
 
+    @property
+    def clock(self) -> Callable[[], float]:
+        """The clock the engine reads (event times, TTFT, the prefix
+        cache's scores)."""
+        return self._clock
+
     def compile_counts(self) -> Dict[str, int]:
         """Distinct input shapes per engine program that has run, plus the
         prefix cache's stats fold and row reset when it is on."""

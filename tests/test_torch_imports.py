@@ -53,7 +53,9 @@ def test_scan_sees_the_whole_port():
                    "models/convert.py",
                    # the mesh tier
                    "dist/__init__.py", "dist/collectives.py",
-                   "launch/mesh.py"):
+                   "launch/mesh.py",
+                   # its serve half
+                   "dist/sharding.py", "models/moe.py", "launch/serve.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) >= 30
     assert _forbidden("jax.numpy") and _forbidden("repro.core.plan")
@@ -71,6 +73,15 @@ def test_mesh_tier_loads_neither_jax_nor_repro():
             "import repro_torch.dist, repro_torch.dist.collectives\n"
             "import repro_torch.launch.mesh, repro_torch.core.plan\n"
             "import repro_torch.core.mapreduce, repro_torch.data.stats\n"
+            "import repro_torch.dist.sharding, repro_torch.models.moe\n"
+            "import repro_torch.models.attention, repro_torch.launch.steps\n"
+            "import repro_torch.launch.serve\n"
+            "from repro_torch.models.moe import moe_ffn_a2a, "
+            "moe_ffn_replicated\n"
+            "from repro_torch.models.attention import "
+            "flash_decode_shardmap, ring_attention_shardmap\n"
+            "from repro_torch.launch.steps import make_decode_step, "
+            "make_prefill_step\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -245,12 +245,19 @@ def test_pad_experts_are_never_routed():
 
 
 def test_moe_ffn_refuses_a_mesh(pair32):
+    """A mesh without a ``model`` axis runs ``moe_ffn_local``, as the JAX
+    package's ``moe_ffn`` does (the expert-parallel strategies are held
+    against the JAX package's in ``tests/test_torch_tp.py``)."""
     _, tcfg, _, tparams = pair32
-    x = torch.zeros((1, 2, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="mesh tier"):
-        moe.moe_ffn(tparams["layers"][0]["ffn"], tcfg, x, mesh=object())
-    out, _ = moe.moe_ffn(tparams["layers"][0]["ffn"], tcfg, x)
-    assert out.shape == x.shape
+    ffn = tparams["layers"][0]["ffn"]
+    x = torch.from_numpy(_tokens(6, tcfg.d_model, 7)).reshape(2, 3, -1)
+    want, wst = moe.moe_ffn_local(ffn, tcfg, x)
+    for mesh in (object(), {"data": 2}, {"data": 2, "model": 1}):
+        out, st = moe.moe_ffn(ffn, tcfg, x, mesh=mesh, impl="a2a")
+        assert torch.equal(out, want)
+        assert torch.equal(st["expert_load"], wst["expert_load"])
+    with pytest.raises(ValueError):
+        moe.moe_ffn(ffn, tcfg, x, mesh={"model": 2}, impl="bogus")
 
 
 # ---------------------------------------------------------------------------

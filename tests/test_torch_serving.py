@@ -166,7 +166,9 @@ def test_sampling_streams_are_request_keyed(weights):
 
 
 def test_entry_points_refuse_what_is_not_ported(weights):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # model_parallel > 1 serves inside a bound world (tests/test_torch_tp.py);
+    # outside one the 'model' axis is unbound
+    with pytest.raises(ValueError, match="mesh axis 'model'"):
         build_engine(ServeConfig(model_parallel=2), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

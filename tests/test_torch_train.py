@@ -122,8 +122,8 @@ def test_ce_chunk_and_remat_variants_equal_the_plain_form(arch):
         for g, w in zip(grads, base[2]):
             assert float((g - w).abs().max()) <= \
                 1e-6 * max(float(w.abs().max()), 1e-30), ctx
-    with pytest.raises(NotImplementedError, match="mesh"):
-        RunCtx(mesh=object())
+    with pytest.raises(NotImplementedError, match="slice 17"):
+        _port_loss_and_grads(tcfg, tp, batch, RunCtx(mesh=object()))
 
 
 def _qkv(B_, H, KV, S_, d, seed):
