@@ -2,7 +2,8 @@
 
   python3 chip_smoke.py [--seed 0] [--requests 16] [--serve-only]
                         [--train-only] [--mla-only] [--mesh-only]
-                        [--tp-only] [--tp-layers 24]
+                        [--tp-only] [--tp-layers 24] [--train-mesh-only]
+                        [--train-mesh-layers 28]
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -154,9 +155,11 @@ Phases, each of which must pass or the script exits non-zero:
    checkpoint at step 10; finite, falling loss; ``flash_attention`` 28 x 2
    x 2 launches a step, its backward 28 x 2, ``cms_update`` one; a second
    CLI run from a copy of the step-10 checkpoint to step 20 ends with the
-   stream stats and token count equal and losses within 1e-2; median step
+   stream stats and token count equal and the losses of steps 11-20 equal
+   (the embedding's backward adds its rows in a fixed order); median step
    time, tokens/s, the step's bound and share, peak memory and the
-   backward's share of one profiled step, split by kernel.
+   backward's share of one profiled step, split by kernel; the embedding
+   backward of a microbatch timed against the plain ``index_put_``.
    ``--train-only`` runs phases 1 and 14 alone.
 15. MLA and deepseek-v2-236b: (a) ``flash_attention`` at v's head dim 128
    != q / k's 192 (128 heads, bf16): m1, the engine's (4, 64) bucket; m2,
@@ -227,8 +230,33 @@ Phases, each of which must pass or the script exits non-zero:
    ``segment_fold`` == decode steps, every rank's tokens == rank 0's, the
    first request's first greedy token == one rank's; tokens/s, TTFT p50 /
    p99, step ms, peak memory a rank, collective calls and wire bytes per
-   step and axis, the first prefill's logits against one rank's.
+   step and axis, the first prefill's logits against one rank's; then the
+   drift trace: a (4, 64) batch through the layers one at a time on one
+   rank and on the 4, per layer the chain's bf16 drift from one rank and
+   the error the layer's attention and FFN add on one rank's inputs, in
+   bf16 units in the last place, with the MoE pairs dropped.
    ``--tp-only`` runs phases 1 and 17 alone.
+18. the mesh tier's train half (training on per-rank shards; gloo, 4
+   ranks on cuda:0, spawned as in phase 16): (a) the f32 smoke
+   qwen3-0.6b and qwen2-moe-a2.7b (both MoE strategies, capacity factor
+   8) train 3 steps through ``make_train_step(mesh=)`` at mesh (2, 2) and
+   (1, 4), 2 microbatches a rank, against one rank on the card: loss and
+   grad_norm within 5e-3 relative (the reference test's bound), every
+   leaf replicated over 'model' bit-equal on the model ranks,
+   ``flash_attention`` L x 2 x 2 and its backward L x 2 launches a step;
+   one ``lossy="int8"`` and one ``"topk:0.01"`` step; qwen3's state saved
+   at (2, 2) and restored onto (1, 4) and onto no mesh, every leaf
+   bit-equal to the saved one; (b) qwen3-0.6b at full width and
+   ``--train-mesh-layers`` (28, the whole model) at mesh (data 2, model
+   2): 8 x 1024 Zipf tokens a step, 2 microbatches a rank, remat, the
+   vocab-cut cross-entropy in chunks of 256, 5 steps, a checkpoint, a
+   resume onto (1, 4) for 2 steps (each restored block bit-equal to the
+   saved leaf), after one rank's first step (run first and freed): the
+   first loss within 1e-2 relative of one rank's, every loss finite and
+   equal on every rank, ``flash_attention`` 28 x 2 x 2 and its backward
+   28 x 2 launches a step on every rank; step ms, tokens/s, the gradient
+   sync alone, collective calls and wire bytes a step per axis, peak
+   memory a rank.  ``--train-mesh-only`` runs phases 1 and 18 alone.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  The exit code
@@ -3298,10 +3326,10 @@ def train_phase(args) -> int:
         print(f"  restart at 10 -> 20: stream stats equal {stats_equal}, "
               f"tokens equal {tokens_equal} "
               f"({float(out2['metrics_acc']['tokens'])}), worst loss "
-              f"difference over steps 11-20 {loss_diff:.3g} (limit 1e-2; the "
-              f"embedding's backward adds with atomics, so the parameters "
-              f"are not bit for bit)", flush=True)
-        if not (stats_equal and tokens_equal and loss_diff <= 1e-2):
+              f"difference over steps 11-20 {loss_diff:.3g} (must be 0: the "
+              f"embedding's backward adds its rows in a fixed order)",
+              flush=True)
+        if not (stats_equal and tokens_equal and loss_diff == 0):
             raise RuntimeError("qwen3-0.6b restart is not exact")
 
         # the backward kernel's share of one step, from a profiler trace
@@ -3346,9 +3374,36 @@ def train_phase(args) -> int:
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
         for k, t in top:
             print(f"    {t / 1e3:9.2f} ms  {k[:100]}", flush=True)
+        embedding_backward_cost(cfg, batch["tokens"], mbs)
         return bwd
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def embedding_backward_cost(cfg, tokens, mbs: int) -> None:
+    """The deterministic embedding backward's cost in 14(c)'s step: its
+    ``add_rows`` over a microbatch's tokens (a stable sort of the ids, one
+    segmented sum) against the plain ``embedding[tokens]`` backward
+    (``index_put_`` with accumulate) on the same cotangent, wall ms ending
+    in a sync, times the step's microbatches."""
+    from repro_torch.models.common import add_rows
+
+    mb = tokens.reshape(mbs, -1)[0]
+    g = torch.randn((mb.numel(), cfg.d_model), device=mb.device,
+                    dtype=cfg.dtype)
+
+    def plain():
+        return torch.zeros((cfg.vocab_size, cfg.d_model), device=mb.device,
+                           dtype=cfg.dtype).index_put_(
+            (mb.long(),), g, accumulate=True)
+
+    ours_ms = _median_wall_ms(lambda: add_rows(cfg.vocab_size, mb, g))
+    plain_ms = _median_wall_ms(plain)
+    occ = int(torch.bincount(mb.long()).max())
+    print(f"  embedding backward a microbatch ({mb.numel()} tokens, the "
+          f"hottest id {occ} times): add_rows {ours_ms:.3f} ms against the "
+          f"plain index_put_ {plain_ms:.3f} ms; x {mbs} microbatches: "
+          f"{(ours_ms - plain_ms) * mbs:.3f} ms more a step", flush=True)
 
 
 def training_phase(args, gen, dev) -> tuple:
@@ -3830,7 +3885,8 @@ def mla_phase(args, gen, dev, segment_fold, flash_attention) -> tuple:
 # the final norm and the first layers.  The whole tree is 2.38 GB in f32 a
 # microbatch value for each of 4 ranks on one card, and gloo stages every
 # collective through the host; PERF.md section 4 gives the measured cut
-MESH_GRAD_LAYERS = 4
+# (4 layers until phase 18 needed the script's time: 2 since)
+MESH_GRAD_LAYERS = 2
 MESH_OVERLAP_REPS = 3     # runs of each schedule behind a measured overlap
 MESH_KEYS = 65536
 GLOO_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.uint8,
@@ -4299,7 +4355,8 @@ def mesh_phase(args, dev) -> dict:
           f"{max(r['peak_gib'] for r in ranks):.2f} GiB a rank, the whole "
           f"tree would take ~{max(r['grads_s'] for r in ranks) * scale:.0f} "
           f"s and ~{world * max(r['peak_gib'] for r in ranks) * scale:.0f} "
-          "GiB of the card for 4 ranks; Algorithm 4 on 2**12 records",
+          "GiB of the card for 4 ranks; Algorithm 4 on 2**12 records; "
+          "2 layers (from 4) leave the script's 1200 s room for phase 18",
           flush=True)
     return {"segment_fold_and_cms_update": launches}
 
@@ -4568,10 +4625,13 @@ def _tp_full_engine(args, layers: int, model_parallel: int, dev):
     return engine, time.perf_counter() - t0
 
 
-def _tp_full_rank(rank, world, store_path, args, layers, device="cuda:0"):
+def _tp_full_rank(rank, world, store_path, args, layers, trace_path,
+                  device="cuda:0"):
     """17(b): qwen2-moe-a2.7b at full width, model_parallel ``world``:
-    every rank builds the engine from the seed, keeping its blocks."""
-    from repro_torch.launch.mesh import init_distributed
+    every rank builds the engine from the seed, keeping its blocks, serves,
+    then runs the drift trace on one rank's trace (``trace_path``)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
     from repro_torch.models import num_params
 
     dev = torch.device(device)
@@ -4581,6 +4641,16 @@ def _tp_full_rank(rank, world, store_path, args, layers, device="cuda:0"):
     engine, init_s = _tp_full_engine(args, layers, world, dev)
     out = _tp_full_serve(engine, args)
     out.update(init_s=init_s, params_local=num_params(engine.backend.params))
+    # the engine's config: a capacity of every routed pair (serve.py)
+    cfg = dataclasses.replace(_tp_full_config(layers), moe_capacity_factor=max(
+        _tp_full_config(layers).moe_capacity_factor, float(world)))
+    mesh = make_host_mesh(model=world, device=dev)
+    with shd.use_rules(mesh, shd.SERVE_RULES):
+        trace = _drift_trace(engine.backend.params, cfg,
+                             _drift_tokens(cfg, args.seed, dev),
+                             feed=torch.load(trace_path, weights_only=False))
+    if rank == 0:
+        out["drift"] = trace
     return out
 
 
@@ -4683,6 +4753,11 @@ def tp_phase(args, dev) -> None:
     engine, init_s = _tp_full_engine(args, layers, 1, dev)
     n_params = num_params(engine.backend.params)
     ref = _tp_full_serve(engine, args)
+    one_trace = _drift_trace(engine.backend.params, full,
+                             _drift_tokens(full, args.seed, dev))
+    os.makedirs(os.path.join(_HERE, "build"), exist_ok=True)
+    trace_path = os.path.join(_HERE, "build", f"drift_{os.getpid()}.pt")
+    torch.save(one_trace, trace_path)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -4692,8 +4767,11 @@ def tp_phase(args, dev) -> None:
           f"{ref['steps']} prefill_calls={ref['prefills']} peak_mem_GiB="
           f"{ref['peak_gib']}", flush=True)
     t0 = time.perf_counter()
-    ranks = run_world(_tp_full_rank, TP_WORLD, args=(args, layers),
-                      timeout_s=900)
+    try:
+        ranks = run_world(_tp_full_rank, TP_WORLD,
+                          args=(args, layers, trace_path), timeout_s=900)
+    finally:
+        os.remove(trace_path)
     world_s = time.perf_counter() - t0
     for rank, res in enumerate(ranks):
         if res["flash"] != full.num_layers * res["prefills"]:
@@ -4735,9 +4813,556 @@ def tp_phase(args, dev) -> None:
           f"whole sequences equal in {whole}/{len(ref['tokens'])}; the "
           f"first prefill call's last-position logits max_abs_diff="
           f"{max_err(r0['logits'], ref['logits'])}", flush=True)
+    _drift_report(one_trace, r0["drift"], TP_WORLD)
     if layers != TP_FULL_LAYERS:
         print(f"tp (b): reduced: num_layers {TP_FULL_LAYERS} -> {layers} "
               f"(--tp-layers)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 17(b), continued: where the bf16 drift from one rank grows
+# ---------------------------------------------------------------------------
+
+DRIFT_BATCH = (4, 64)        # 17(b)'s prefill bucket: 4 rows of 64 tokens
+
+
+def _ulps(got, want) -> tuple:
+    """(max |got - want| in bf16 units in the last place of ``want``'s
+    entry, share of entries that differ): one rounding of a float32 sum
+    taken in another order moves an entry 1 unit at most.  Entries below
+    2^-8 of ``want``'s largest are measured in the unit at 2^-8 of it (a
+    difference there is one of the larger entries' roundings, cancelled)."""
+    g, w = got.float(), want.float()
+    floor = float(w.abs().max()) * 2.0 ** -8
+    ulp = torch.pow(2.0, torch.floor(torch.log2(w.abs().clamp(
+        min=max(floor, 2.0 ** -126)))) - 7)
+    d = (g - w).abs()
+    return float((d / ulp).max()), float((d > 0).float().mean())
+
+
+def _drift_trace(params, cfg, tokens, feed=None) -> dict:
+    """The layers of ``params`` (this rank's blocks under the open scope)
+    over ``tokens``, one at a time: per layer its input ``h``, the
+    attention's output ``attn`` and residual sum ``a``, the FFN's output
+    ``ffn`` and the MoE pairs dropped; the last position's logits; the
+    shared experts' activation ``up`` and down projection ``down`` at layer
+    0.  With ``feed`` (one rank's trace) each layer's attention also runs
+    on one rank's ``h``, its FFN on one rank's ``a``, layer 0's down
+    projection on one rank's ``up`` (this rank's columns: ``row_parallel``)
+    and the logits on one rank's final h: the error each adds, apart from
+    the error it was handed."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import attention
+    from repro_torch.models.common import dense, rms_norm, row_parallel
+
+    dev = tokens.device
+    scope = shd.current_rules()
+    mesh = None if scope is None else scope[0]
+    out = {k: [] for k in ("h", "a", "attn", "ffn", "dropped", "attn_fed",
+                           "ffn_fed")}
+    with torch.no_grad():
+        x = T._embed(params, cfg, tokens)
+        for i, p in enumerate(params["layers"]):
+            def attn(x):
+                return attention(p["mix"], cfg,
+                                 rms_norm(x, p["norm1"], cfg.norm_eps),
+                                 window=T.layer_window(cfg, i))[0]
+
+            def ffn(a):
+                h = rms_norm(a, p["norm2"], cfg.norm_eps)
+                if cfg.ffn_type(i) != "moe":
+                    return M.dense_ffn(p["ffn"], cfg, h), 0
+                o, st = M.moe_ffn(p["ffn"], cfg, h, mesh=mesh)
+                return o, int(st["dropped"])
+            out["h"].append(x.cpu())
+            mixed = attn(x)
+            a = x + mixed
+            f, dropped = ffn(a)
+            out["attn"].append(mixed.cpu())
+            out["a"].append(a.cpu())
+            out["ffn"].append(f.cpu())
+            out["dropped"].append(dropped)
+            if feed is not None:
+                out["attn_fed"].append(attn(feed["h"][i].to(dev)).cpu())
+                out["ffn_fed"].append(ffn(feed["a"][i].to(dev))[0].cpu())
+            x = a + f
+        out["h"].append(x.cpu())
+        final = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+        out["logits"] = T.unembed(params, cfg, final).cpu()
+        sh = params["layers"][0]["ffn"]["shared"]
+        Fs = cfg.num_shared_experts * cfg.d_ff_expert
+        if feed is None:
+            h = rms_norm(out["a"][0].to(dev), params["layers"][0]["norm2"],
+                         cfg.norm_eps)
+            up = M._act(cfg, dense(h, sh["w_gate"])) * dense(h, sh["w_up"])
+            out["up"], out["down"] = up.cpu(), dense(up, sh["w_down"]).cpu()
+            out["final"] = final.cpu()
+        else:
+            cut = shd.cut(("mlp", "embed"), (Fs, cfg.d_model), 0)
+            n = sh["w_down"].shape[0]
+            c0 = shd.block_start(cut, Fs)
+            up = feed["up"].to(dev)[..., c0:c0 + n]
+            out["down_fed"] = row_parallel(up, sh["w_down"], cut).cpu()
+            out["logits_fed"] = T.unembed(params, cfg,
+                                          feed["final"].to(dev)).cpu()
+    return out
+
+
+def _drift_tokens(cfg, seed: int, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    return torch.randint(1, cfg.vocab_size, DRIFT_BATCH, generator=gen,
+                         device=dev, dtype=torch.int32)
+
+
+def _drift_report(one: dict, mp: dict, world: int) -> None:
+    """Print 17(b)'s drift trace: per layer the drift of the chain (model
+    parallel's own h against one rank's), and the error the layer's
+    attention and FFN add on one rank's inputs, in bf16 units in the last
+    place; then layer 0's shared down projection (one ``row_parallel``) and
+    the logits, each on one rank's input."""
+    print(f"tp (b) drift trace, {DRIFT_BATCH} bf16 tokens, model_parallel "
+          f"{world} (the engine's capacity factor {world}) against one rank "
+          f"(ulp = a bf16 unit in the last place of one rank's entry, at "
+          f"least that of 2^-8 of its largest):", flush=True)
+    emb = _ulps(mp["h"][0], one["h"][0])
+    print(f"  embedding: max {emb[0]:.3g} ulp, share differing {emb[1]:.3g}",
+          flush=True)
+    worst = 0.0
+    for i in range(len(one["a"])):
+        chain = _ulps(mp["h"][i + 1], one["h"][i + 1])
+        diff = float((mp["h"][i + 1].float() - one["h"][i + 1].float()
+                      ).abs().max())
+        a_fed = _ulps(mp["attn_fed"][i], one["attn"][i])
+        f_fed = _ulps(mp["ffn_fed"][i], one["ffn"][i])
+        worst = max(worst, a_fed[0], f_fed[0])
+        print(f"  layer {i:2d}: chain max_abs_diff={diff:.4g} ({chain[0]:.3g} "
+              f"ulp, share {chain[1]:.3g}); on one rank's inputs: attention "
+              f"{a_fed[0]:.3g} ulp (share {a_fed[1]:.3g}), ffn "
+              f"{f_fed[0]:.3g} ulp (share {f_fed[1]:.3g}); dropped pairs "
+              f"{mp['dropped'][i]} (one rank {one['dropped'][i]})",
+              flush=True)
+    down = _ulps(mp["down_fed"], one["down"])
+    print(f"  layer 0's shared down projection (row_parallel: float32 "
+          f"partials psummed, rounded once) on one rank's activation: "
+          f"{down[0]:.3g} ulp (share {down[1]:.3g}); the logits on one "
+          f"rank's final h max_abs_diff="
+          f"{max_err(mp['logits_fed'], one['logits'])} (float32); the "
+          f"chain's logits max_abs_diff="
+          f"{max_err(mp['logits'], one['logits'])}; the largest error one "
+          f"layer adds on one rank's inputs {worst:.3g} ulp", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the mesh tier's train half — training across ranks
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_WORLD = 4
+# 18(a): the f32 smoke models and the MoE strategies (capacity factor 8:
+# nothing dropped, so one rank computes the same function)
+TRAIN_MESH_SMOKE = (("qwen3-0.6b", "replicated"), (MOE_ARCH, "replicated"),
+                    (MOE_ARCH, "a2a"))
+TRAIN_MESH_SMOKE_OPT = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=100)
+# 18(b): qwen3-0.6b's depth trained at mesh (2, 2) (28: the whole model);
+# a smaller --train-mesh-layers is printed as a cut
+TRAIN_MESH_LAYERS = 28
+TRAIN_MESH_STEPS, TRAIN_MESH_RESUMED = 5, 2
+TRAIN_MESH_CE_CHUNK = 256
+# the first step's loss against one rank's: the same bf16 products summed
+# in other orders, rounded once each (17(b)'s drift trace)
+TRAIN_MESH_LOSS_RTOL = 1e-2
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-6)
+
+
+def _replicated_equal(tree, specs, mesh) -> bool:
+    """Every leaf replicated over 'model' (spec ()) is bit-equal on the
+    model ranks: gathered over the axis, one leaf at a time."""
+    from repro_torch import dist
+    from repro_torch.dist import sharding as shd
+
+    same = []
+    with dist.use_mesh(mesh):
+        def check(t, spec):
+            if not spec:
+                g = dist.all_gather(t.contiguous(), "model")
+                same.append(all(torch.equal(g[0], g[j])
+                                for j in range(1, g.shape[0])))
+        shd._walk(check, tree, specs)
+    return all(same)
+
+
+def _local_batch(built, batch, mesh):
+    from repro_torch.dist import sharding as shd
+    batch.pop("valid_mask", None)
+    return {k: shd.block_of(v, built.in_shardings[2][k], mesh)
+            for k, v in batch.items()}
+
+
+def _train_mesh_smoke_rank(rank, world, store_path, seed, ckpt_dir,
+                           device="cuda:0"):
+    """18(a): gloo, ``world`` ranks on cuda:0.  The f32 smoke models train
+    3 steps at mesh (2, 2) and (1, 4) against one rank (this rank, no mesh,
+    the same weights and batches); an int8 and a top-k step; qwen3's state
+    saved at (2, 2) and restored onto (1, 4) and onto no mesh."""
+    import dataclasses as dc
+    from repro_torch import dist
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import RunCtx, init_params
+    from repro_torch.models.transformer import param_axes, param_shapes
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("gloo", rank, world, _store(store_path, world),
+                     device=dev)
+    opt = OptConfig(**TRAIN_MESH_SMOKE_OPT)
+    rows, meshes, saved = [], {}, None
+    for mp in (2, 4):
+        mesh = meshes[mp] = make_mesh((world // mp, mp), ("data", "model"),
+                                      device=dev)
+        cases = [(a, i, None) for a, i in TRAIN_MESH_SMOKE]
+        if mp == 2:
+            cases += [("qwen3-0.6b", "replicated", "int8"),
+                      ("qwen3-0.6b", "replicated", "topk:0.01")]
+        for arch, impl, lossy in cases:
+            cfg = get_config(arch, smoke=True)
+            cfg = dc.replace(cfg, dtype=torch.float32, **(
+                {"moe_capacity_factor": 8.0} if cfg.num_experts else {}))
+            params = init_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(seed), device=dev)
+            corpus = SyntheticCorpus(DataConfig(
+                vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+                seed=seed), device=dev)
+            kw = dict(opt=opt, num_microbatches=2, lossy=lossy,
+                      ctx=RunCtx(moe_impl=impl))
+            one, built = make_train_step(cfg, **kw), \
+                make_train_step(cfg, mesh, **kw)
+            s1 = init_opt_state(params, with_ef=lossy is not None)
+            p1 = params
+            pl, ol, _ = built.local(params, init_opt_state(
+                params, with_ef=lossy is not None), {})
+            worst, launches = 0.0, []
+            for i in range(1 if lossy else 3):
+                batch = corpus(i)
+                batch.pop("valid_mask", None)
+                p1, s1, m1 = one(p1, s1, batch)
+                lb = _local_batch(built, dict(batch), mesh)
+                flash_attention.launches = flash_attention_bwd.launches = 0
+                pl, ol, ml = built.fn(pl, ol, lb)
+                torch.cuda.synchronize()
+                launches.append((flash_attention.launches,
+                                 flash_attention_bwd.launches))
+                worst = max(worst, *(_rel(float(ml[k]), float(m1[k]))
+                                     for k in ("loss", "grad_norm")))
+            rows.append(dict(
+                arch=arch, impl=impl, lossy=lossy, mp=mp, worst=worst,
+                layers=cfg.num_layers, launches=launches,
+                replicated_equal=_replicated_equal(
+                    ol["master"], built.in_shardings[0], mesh),
+                ef_finite=lossy is None or all(
+                    bool(torch.isfinite(t).all())
+                    for t in pytree.tree_leaves(ol["ef"]))))
+            if mp == 2 and arch == "qwen3-0.6b" and lossy is None:
+                store = CheckpointStore(ckpt_dir)
+                store.save(3, (pl, ol), shardings=built.in_shardings[:2],
+                           mesh=mesh)
+                saved = (cfg, shd.gather_params(
+                    ol["master"], param_axes(cfg), mesh, shd.TRAIN_RULES,
+                    param_shapes(cfg)), pl, ol)
+    # the (2, 2) save restored onto (1, 4) and onto no mesh
+    cfg, want, pl, ol = saved
+    store = CheckpointStore(ckpt_dir)
+    b14 = make_train_step(cfg, meshes[4], opt=opt)
+    _, (_, o14) = store.restore((pl, ol), shardings=b14.in_shardings[:2],
+                                mesh=meshes[4])
+    back = shd.gather_params(o14["master"], param_axes(cfg), meshes[4],
+                             shd.TRAIN_RULES, param_shapes(cfg))
+    _, (_, whole) = store.restore((want, init_opt_state(want)))
+    restore_equal = all(torch.equal(a, b) and torch.equal(c, b) for a, b, c
+                        in zip(pytree.tree_leaves(back),
+                               pytree.tree_leaves(want),
+                               pytree.tree_leaves(whole["master"])))
+    return dict(rows=rows, restore_equal=restore_equal,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _train_mesh_config(layers: int):
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    return cfg if layers == cfg.num_layers else \
+        dc.replace(cfg, num_layers=layers)
+
+
+def _train_mesh_corpus(cfg, seed: int, dev):
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    return SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=1024, global_batch=8,
+                                      seed=seed), device=dev)
+
+
+def _train_mesh_full_rank(rank, world, store_path, seed, layers, ckpt_dir,
+                          device="cuda:0"):
+    """18(b): qwen3-0.6b at full width on mesh (2, 2): every rank draws
+    the weights from the seed keeping its blocks, trains
+    ``TRAIN_MESH_STEPS`` steps through ``make_train_step(mesh=)``, saves,
+    restores onto (1, 4) (each restored block held against the saved leaf,
+    one leaf at a time) and trains ``TRAIN_MESH_RESUMED`` more steps."""
+    from repro_torch import dist
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import ShapeCell
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.collectives import grad_sync
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import RunCtx, init_params, num_params
+    from repro_torch.optim import init_opt_state
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("gloo", rank, world, _store(store_path, world),
+                     device=dev)
+    cfg = _train_mesh_config(layers)
+    shape = ShapeCell("t", "train", 1024, 8)
+    ctx = RunCtx(remat="full", ce_chunk=TRAIN_MESH_CE_CHUNK)
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev)
+    built = make_train_step(cfg, mesh, shape=shape, num_microbatches=2,
+                            ctx=ctx)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev, shard=lambda tree, axes: shd.shard_params(
+                             tree, axes, mesh, built.rules))
+    opt_state = init_opt_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    corpus = _train_mesh_corpus(cfg, seed, dev)
+    steps = []
+
+    def run(step_fn, p, o, i, mesh_):
+        lb = _local_batch(built, corpus(i), mesh_)
+        dist.reset_counts()
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step_fn(p, o, lb)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"]),
+                          flash=flash_attention.launches,
+                          bwd=flash_attention_bwd.launches,
+                          counts=dist.counts()))
+        return p, o
+
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_MESH_STEPS):
+        params, opt_state = run(built.fn, params, opt_state, i, mesh)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the gradient sync alone, on a gradient-shaped tree of this rank's
+    # blocks (the step's own is inside its wall time)
+    zeros = pytree.tree_map(torch.zeros_like, params)
+    sync_ms = _median_ms(lambda: grad_sync(zeros, mesh, ("data",)))
+    del zeros
+    store = CheckpointStore(ckpt_dir)
+    save_s = _timed_ms(lambda: store.save(
+        TRAIN_MESH_STEPS, (params, opt_state),
+        shardings=built.in_shardings[:2], mesh=mesh))[1] / 1e3
+    mesh14 = make_mesh((1, 4), ("data", "model"), device=dev)
+    built14 = make_train_step(cfg, mesh14, shape=shape, num_microbatches=2,
+                              ctx=ctx)
+    (_, (p14, o14)), restore_ms = _timed_ms(lambda: store.restore(
+        (params, opt_state), shardings=built14.in_shardings[:2],
+        mesh=mesh14))
+    # each restored block against the saved leaf (gathered at (2, 2))
+    same = []
+
+    def check(blk22, blk14, s22, s14):
+        whole = shd.gather_leaf(blk22, s22, mesh)
+        same.append(torch.equal(shd.block_of(whole, s14, mesh14), blk14))
+    for tree22, tree14, part in ((params, p14, None),) + tuple(
+            (opt_state[k], o14[k], k) for k in ("m", "v", "master")):
+        shd._walk(check, tree22, tree14, built.in_shardings[0],
+                  built14.in_shardings[0])
+    same.append(torch.equal(opt_state["step"].cpu(), o14["step"].cpu()))
+    local22 = num_params(params)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    built = built14
+    for i in range(TRAIN_MESH_STEPS, TRAIN_MESH_STEPS + TRAIN_MESH_RESUMED):
+        p14, o14 = run(built14.fn, p14, o14, i, mesh14)
+    return dict(steps=steps, init_s=init_s, sync_ms=sync_ms, save_s=save_s,
+                restore_s=restore_ms / 1e3, restored_equal=all(same),
+                restored_leaves=len(same), peak_gib=peak,
+                params_local=(local22, num_params(p14)))
+
+
+def train_mesh_phase(args, dev) -> None:
+    """Phase 18: (a) the f32 smoke models at mesh (2, 2) and (1, 4) against
+    one rank, the MoE strategies, lossy steps, a save restored onto another
+    mesh; (b) qwen3-0.6b at full width on mesh (2, 2), against one rank's
+    first step run first (and freed), then resumed onto (1, 4).  Every rank
+    is gloo on cuda:0 (NCCL refuses two ranks on one card): the wires are
+    host loopback, so no time here is a speed claim."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import RunCtx, init_params, num_params
+    from repro_torch.optim import init_opt_state
+
+    os.makedirs(os.path.join(_HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_mesh_", dir=os.path.join(
+        _HERE, "build"))
+    try:
+        t0 = time.perf_counter()
+        ranks = run_world(_train_mesh_smoke_rank, TRAIN_MESH_WORLD,
+                          args=(args.seed, os.path.join(root, "smoke")),
+                          timeout_s=600)
+        print(f"train mesh (a): gloo world of {TRAIN_MESH_WORLD} on one "
+              f"card; spawn + run {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        for rank, res in enumerate(ranks):
+            for row in res["rows"]:
+                what = (f"rank {rank} {row['arch']} smoke f32 "
+                        f"{row['impl']} mesh ({TRAIN_MESH_WORLD // row['mp']}"
+                        f", {row['mp']})" + (f" lossy={row['lossy']}"
+                                             if row["lossy"] else ""))
+                L = row["layers"]
+                bad = []
+                if not row["worst"] <= 5e-3:
+                    bad.append(f"loss / grad_norm {row['worst']} from one "
+                               "rank's")
+                if not row["replicated_equal"]:
+                    bad.append("a replicated leaf differs across model "
+                               "ranks")
+                if any(l != (L * 2 * 2, L * 2) for l in row["launches"]):
+                    bad.append(f"flash_attention / bwd launches "
+                               f"{row['launches']} a step (expected "
+                               f"{L * 2 * 2} / {L * 2})")
+                if not row["ef_finite"]:
+                    bad.append("the error feedback is not finite")
+                if bad:
+                    raise RuntimeError(f"{what}: {'; '.join(bad)}")
+                print(f"  {what}: worst relative difference of loss / "
+                      f"grad_norm from one rank {row['worst']:.3g} (<= 5e-3) "
+                      f"over {len(row['launches'])} step(s); replicated "
+                      f"leaves equal across model ranks; flash_attention / "
+                      f"bwd launches a step {row['launches'][0]}",
+                      flush=True)
+            if not res["restore_equal"]:
+                raise RuntimeError(f"rank {rank}: the (2, 2) save restored "
+                                   "onto (1, 4) or onto no mesh differs")
+        print(f"  qwen3 smoke state saved at (2, 2), restored onto (1, 4) "
+              f"and onto no mesh: every leaf bit-equal on every rank; peak "
+              f"memory a rank {[r['peak_gib'] for r in ranks]} GiB",
+              flush=True)
+        del ranks
+        torch.cuda.empty_cache()
+
+        # (b): one rank's first step, then the world
+        layers = args.train_mesh_layers
+        cfg = _train_mesh_config(layers)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), device=dev)
+        n_params = num_params(params)
+        step = make_train_step(cfg, num_microbatches=2, ctx=RunCtx(
+            remat="full", ce_chunk=TRAIN_MESH_CE_CHUNK))
+        batch = _train_mesh_corpus(cfg, args.seed, dev)(0)
+        batch.pop("valid_mask", None)
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, init_opt_state(params), batch)
+        ref_loss = float(m["loss"])
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        print(f"train mesh (b) one rank: {TRAIN_ARCH} {layers} layers "
+              f"params={n_params} first step loss={ref_loss} step_ms="
+              f"{one_ms} (the first, cold) flash_attention / bwd launches "
+              f"{flash_attention.launches} / {flash_attention_bwd.launches}",
+              flush=True)
+        del params, step, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_world(_train_mesh_full_rank, TRAIN_MESH_WORLD,
+                          args=(args.seed, layers,
+                                os.path.join(root, "full")), timeout_s=900)
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    steps_all = TRAIN_MESH_STEPS + TRAIN_MESH_RESUMED
+    for rank, res in enumerate(ranks):
+        bad = []
+        for i, s in enumerate(res["steps"]):
+            if (s["flash"], s["bwd"]) != (layers * 2 * 2, layers * 2):
+                bad.append(f"step {i + 1}: flash_attention / bwd launches "
+                           f"{s['flash']} / {s['bwd']}")
+            if not math.isfinite(s["loss"]):
+                bad.append(f"step {i + 1}: loss {s['loss']}")
+        if len(res["steps"]) != steps_all:
+            bad.append(f"{len(res['steps'])} steps, expected {steps_all}")
+        if not res["restored_equal"]:
+            bad.append("a block restored onto (1, 4) differs from the "
+                       "saved leaf")
+        if [s["loss"] for s in res["steps"]] != \
+                [s["loss"] for s in ranks[0]["steps"]]:
+            bad.append("its losses differ from rank 0's")
+        if bad:
+            raise RuntimeError(f"train mesh (b) rank {rank}: "
+                               f"{'; '.join(bad)}")
+    r0 = ranks[0]
+    first = r0["steps"][0]["loss"]
+    if not _rel(first, ref_loss) <= TRAIN_MESH_LOSS_RTOL:
+        raise RuntimeError(f"train mesh (b): the first step's loss {first} "
+                           f"is not within {TRAIN_MESH_LOSS_RTOL} of one "
+                           f"rank's {ref_loss}")
+    ms = [s["ms"] for s in r0["steps"]]
+    warm = sorted(ms[1:TRAIN_MESH_STEPS])
+    med = warm[len(warm) // 2]
+    per_step = {ax: {k: c[k] for k in ("calls", "wire_bytes")}
+                for ax, c in r0["steps"][1]["counts"].items()}
+    print(f"train mesh (b) mesh (2, 2): {TRAIN_ARCH} {layers} layers "
+          f"params_a_rank={[r['params_local'][0] for r in ranks]} "
+          f"(at (1, 4): {[r['params_local'][1] for r in ranks]}) init_s="
+          f"{[r['init_s'] for r in ranks]} world_s={world_s} losses="
+          f"{[s['loss'] for s in r0['steps']]} (steps {TRAIN_MESH_STEPS + 1}"
+          f"-{steps_all} resumed onto (1, 4)) grad_norms="
+          f"{[s['grad_norm'] for s in r0['steps']]}", flush=True)
+    print(f"  first step loss {first} against one rank's {ref_loss}: "
+          f"relative {_rel(first, ref_loss):.3g} (<= {TRAIN_MESH_LOSS_RTOL})"
+          f"; step_ms={ms} median (steps 2-{TRAIN_MESH_STEPS}) {med} ms, "
+          f"{8 * 1024 / med * 1e3} tokens/s (8 x 1024 a step over the "
+          f"world); one rank's cold first step {one_ms} ms", flush=True)
+    print(f"  grad_sync alone (a gradient-shaped tree of a rank's blocks "
+          f"over 'data') {[r['sync_ms'] for r in ranks]} ms; collectives a "
+          f"step (step 2, rank 0) {per_step}; flash_attention / bwd "
+          f"launches a step on every rank {layers * 2 * 2} / {layers * 2}; "
+          f"peak memory a rank {[r['peak_gib'] for r in ranks]} GiB; save "
+          f"{[r['save_s'] for r in ranks]} s, restore onto (1, 4) "
+          f"{[r['restore_s'] for r in ranks]} s, {r0['restored_leaves']} "
+          f"restored leaves bit-equal on every rank", flush=True)
+    if layers != TRAIN_MESH_LAYERS:
+        print(f"train mesh (b): reduced: num_layers {TRAIN_MESH_LAYERS} -> "
+              f"{layers} (--train-mesh-layers)", flush=True)
 
 
 def main(argv=None) -> int:
@@ -4764,6 +5389,12 @@ def main(argv=None) -> int:
                          "only and print no record")
     ap.add_argument("--tp-layers", type=int, default=TP_FULL_LAYERS,
                     help="qwen2-moe-a2.7b layers served in phase 17(b)")
+    ap.add_argument("--train-mesh-only", action="store_true",
+                    help="run phases 1 and 18 (the mesh tier's train half) "
+                         "only and print no record")
+    ap.add_argument("--train-mesh-layers", type=int,
+                    default=TRAIN_MESH_LAYERS,
+                    help="qwen3-0.6b layers trained in phase 18(b)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4827,6 +5458,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         tp_phase(args, dev)
         print(f"phase 17 took {time.perf_counter() - t0:.1f}s", flush=True)
+        print(f"card: {card}")
+        return 0
+    if args.train_mesh_only:
+        t0 = time.perf_counter()
+        train_mesh_phase(args, dev)
+        print(f"phase 18 took {time.perf_counter() - t0:.1f}s", flush=True)
         print(f"card: {card}")
         return 0
     rows = []
@@ -4976,6 +5613,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     tp_phase(args, dev)
     print(f"phase 17 took {time.perf_counter() - t0:.1f}s", flush=True)
+    # phase 18: the mesh tier's train half, training across ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_mesh_phase(args, dev)
+    print(f"phase 18 took {time.perf_counter() - t0:.1f}s", flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

@@ -22,6 +22,13 @@ restores in the other, bit for bit.
   restore, training resumes at step k and the accumulator of steps [0, k)
   combines with the new partial aggregate; associativity makes restart
   exact.
+* **Mesh-agnostic** -- under a mesh each rank holds its blocks
+  (``dist/sharding.py``).  ``save(..., shardings=)`` gathers every cut leaf
+  on every rank (a collective), rank 0 alone writes the whole arrays, and
+  the ranks meet at a barrier once the write is done; ``restore(...,
+  shardings=)`` reads the whole arrays and keeps each rank's block of the
+  mesh it restores onto, which need not be the saver's (the elastic
+  re-mesh path of ``runtime/fault_tolerance.py``).
 """
 from __future__ import annotations
 
@@ -45,6 +52,13 @@ _TORCH_OF = {
     "bool": torch.bool,
 }
 _NAME_OF = {v: k for k, v in _TORCH_OF.items()}
+
+
+class _Spec:
+    """A spec as a leaf of :func:`_flatten` (a tuple would be walked)."""
+
+    def __init__(self, spec):
+        self.spec = spec
 
 
 def _flatten(tree: Pytree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -93,6 +107,17 @@ def _to_host(tree: Pytree) -> List[Tuple[str, np.ndarray, str]]:
     return out
 
 
+def _walk_specs(fn, tree: Pytree, specs: Pytree) -> Pytree:
+    """``fn(leaf, spec)`` over ``tree``'s leaves, ``specs`` shaped like
+    ``tree`` with a spec (a tuple) at each leaf."""
+    if isinstance(tree, dict):
+        return {k: _walk_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk_specs(fn, v, sp) for v, sp in
+                          zip(tree, specs))
+    return fn(tree, specs)
+
+
 def _step_dir(base: str, step: int) -> str:
     return os.path.join(base, f"step_{step:08d}")
 
@@ -104,32 +129,68 @@ class CheckpointStore:
         os.makedirs(base_dir, exist_ok=True)
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[Future] = None
+        self._barrier = False
 
     # -- save -----------------------------------------------------------------
+    def _host(self, tree, aggregates, shardings, mesh):
+        """(whether this rank writes, the leaves on the host, the
+        aggregates'); under a mesh the cut leaves are gathered first."""
+        writes = True
+        if shardings is not None:
+            import torch.distributed as tdist
+            from ..dist.sharding import gather_leaf
+            writes = not tdist.is_initialized() or tdist.get_rank() == 0
+
+            def whole(t, spec):     # on the host leaf by leaf: one whole
+                t = gather_leaf(torch.as_tensor(t).detach(), spec, mesh)
+                return t.to("cpu") if writes else None  # leaf on the card
+            tree = _walk_specs(whole, tree, shardings)
+        if not writes:
+            return False, None, None
+        return True, _to_host(tree), {
+            k: (mn, _to_host(v)) for k, (mn, v) in (aggregates or {}).items()}
+
     def save(self, step: int, tree: Pytree, *,
-             aggregates: Optional[Dict[str, Tuple[str, Pytree]]] = None
-             ) -> str:
-        """Blocking save.  ``aggregates`` maps name -> (monoid_name, value)."""
-        host = _to_host(tree)
-        agg_host = {k: (mn, _to_host(v))
-                    for k, (mn, v) in (aggregates or {}).items()}
-        return self._write(step, host, agg_host)
+             aggregates: Optional[Dict[str, Tuple[str, Pytree]]] = None,
+             shardings: Optional[Pytree] = None, mesh=None) -> str:
+        """Blocking save.  ``aggregates`` maps name -> (monoid_name, value).
+        With ``shardings`` (a spec tree shaped like ``tree``) each leaf is
+        this rank's block on ``mesh`` (default: the bound one): every rank
+        calls this, rank 0 writes the whole arrays, then a barrier."""
+        self.wait()
+        writes, host, agg_host = self._host(tree, aggregates, shardings,
+                                            mesh)
+        path = self._write(step, host, agg_host) if writes else \
+            _step_dir(self.base, step)
+        if shardings is not None:
+            import torch.distributed as tdist
+            tdist.barrier()
+        return path
 
     def save_async(self, step: int, tree: Pytree, *,
-                   aggregates: Optional[Dict[str, Tuple[str, Pytree]]] = None
-                   ) -> Future:
-        """Device -> host copy now; the disk write in the background."""
+                   aggregates: Optional[Dict[str, Tuple[str, Pytree]]] = None,
+                   shardings: Optional[Pytree] = None, mesh=None
+                   ) -> Optional[Future]:
+        """Device -> host copy now (under a mesh the gather too); the disk
+        write in the background; ``wait()`` joins it (and, under a mesh,
+        meets the other ranks at a barrier)."""
         self.wait()
-        host = _to_host(tree)
-        agg_host = {k: (mn, _to_host(v))
-                    for k, (mn, v) in (aggregates or {}).items()}
-        self._pending = self._pool.submit(self._write, step, host, agg_host)
+        writes, host, agg_host = self._host(tree, aggregates, shardings,
+                                            mesh)
+        if writes:
+            self._pending = self._pool.submit(self._write, step, host,
+                                              agg_host)
+        self._barrier = shardings is not None
         return self._pending
 
     def wait(self) -> None:
         if self._pending is not None:
             self._pending.result()
             self._pending = None
+        if self._barrier:
+            import torch.distributed as tdist
+            self._barrier = False
+            tdist.barrier()
 
     def _write(self, step: int, host, agg_host) -> str:
         final = _step_dir(self.base, step)
@@ -188,16 +249,19 @@ class CheckpointStore:
         with open(p) as f:
             return int(f.read().strip())
 
-    def _read_leaves(self, d: str, entries: List[dict]) -> List[torch.Tensor]:
+    def _read_leaves(self, d: str, entries: List[dict],
+                     each=lambda t, i: t) -> List[torch.Tensor]:
+        """The leaves of ``entries`` on the host, ``each(leaf, i)`` applied
+        as each is read."""
         out = []
-        for e in entries:
+        for i, e in enumerate(entries):
             with open(os.path.join(d, "arrays", e["file"]), "rb") as f:
                 buf = bytearray(f.read())
             dt = _TORCH_OF[e["dtype"]]
             raw = torch.uint16 if dt == torch.bfloat16 else dt
             t = torch.frombuffer(buf, dtype=raw) if buf else \
                 torch.empty((0,), dtype=raw)
-            out.append(t.view(dt).reshape(e["shape"]))
+            out.append(each(t.view(dt).reshape(e["shape"]), i))
         return out
 
     @staticmethod
@@ -217,16 +281,37 @@ class CheckpointStore:
         with open(os.path.join(d, "manifest.json")) as f:
             return d, json.load(f)
 
-    def restore(self, like: Pytree, *, step: Optional[int] = None
+    def restore(self, like: Pytree, *, step: Optional[int] = None,
+                shardings: Optional[Pytree] = None, mesh=None,
+                coords: Optional[Dict[str, int]] = None
                 ) -> Tuple[int, Pytree]:
         """Restore into the structure of ``like`` (values ignored; each
-        leaf lands on its ``like`` leaf's device, in the saved dtype)."""
+        leaf lands on its ``like`` leaf's device, in the saved dtype).
+
+        ``shardings`` (a spec tree shaped like ``like``) restores onto a
+        mesh: each leaf is this rank's block on ``mesh`` (default: the
+        bound one; a ``{axis: size}`` mapping with ``coords`` stands for a
+        rank of a simulated one), a copy of its own.  The arrays on disk
+        are whole, so the mesh need not be the saver's."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.base}")
         d, manifest = self._manifest(step)
-        return step, self._place(like, self._read_leaves(d,
-                                                         manifest["leaves"]))
+        if shardings is None:
+            return step, self._place(like, self._read_leaves(
+                d, manifest["leaves"]))
+        from .. import dist
+        from ..dist.sharding import block_of
+        mesh = dist.current_mesh() if mesh is None else mesh
+        specs = [sp.spec for _, sp in _flatten(_walk_specs(
+            lambda t, sp: _Spec(sp), like, shardings))]
+        if len(specs) != len(manifest["leaves"]):
+            raise ValueError(f"checkpoint has {len(manifest['leaves'])} "
+                             f"leaves, expected {len(specs)}")
+        # each leaf's block as it is read: the whole leaf is freed at once
+        return step, self._place(like, self._read_leaves(
+            d, manifest["leaves"],
+            lambda t, i: block_of(t, specs[i], mesh, coords)))
 
     def restore_aggregate(self, name: str, like: Pytree, *,
                           step: Optional[int] = None) -> Optional[Pytree]:

@@ -34,6 +34,20 @@ payload bytes (this rank's input) and per-device wire bytes (ring
 all-reduce 2(P-1)/P x bytes, all-gather (P-1) x bytes, reduce-scatter and
 all-to-all (P-1)/P x bytes, ``ppermute`` the bytes it sends), the
 quantities the planner's byte model predicts.
+
+A training forward differentiates through them.  :func:`psum`,
+:func:`all_gather` and :func:`all_to_all`, called synchronously on tensors
+that require grad with grad mode on, are ``torch.autograd.Function``s whose
+backward is the transpose under the invariant of the model's cut products:
+a value replicated over the axis has the same cotangent on every rank.  So
+``psum`` of partials into a replicated value passes its cotangent through,
+``all_gather`` hands back this rank's slice (not a reduce-scatter, which
+would count it P times), and ``all_to_all`` runs the inverse
+``all_to_all``.  :func:`enter` marks a replicated value entering a cut
+computation: the identity forward, the ``psum`` of the rank's partial
+cotangents backward.  Each captures the bound mesh in its forward and
+rebinds it in the backward, which autograd may run on a thread of its own
+that sees no scope.
 """
 from __future__ import annotations
 
@@ -295,8 +309,104 @@ def _reduce(x, axis, op, async_op):
     return p if async_op else p.wait()
 
 
+# ---------------------------------------------------------------------------
+# autograd: the transposes a training backward runs
+# ---------------------------------------------------------------------------
+
+def _needs_grad(x: Pytree) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in pytree.tree_leaves(x))
+
+
+def _per_leaf(fn: Callable, x: Pytree):
+    """``fn`` on the leaves that require grad; the plain collective (grad
+    mode off) on the rest."""
+    return pytree.tree_map(lambda t: fn(t) if t.requires_grad else
+                           _no_grad(fn, t), x)
+
+
+def _no_grad(fn, t):
+    with torch.no_grad():
+        return fn(t)
+
+
+class _Psum(torch.autograd.Function):
+    """psum of partials into a replicated value; backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _reduce(x, axis, "sum", False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """A replicated value entering a cut computation; backward: the psum of
+    every rank's partial cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.mesh = axis, _bound(axis_names(axis)[0])
+        for name in axis_names(axis):
+            _bound(name)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return _reduce(g.contiguous(), ctx.axis, "sum", False), None
+
+
+class _AllGather(torch.autograd.Function):
+    """all_gather into a replicated value; backward: this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, axis, tiled):
+        ctx.idx, ctx.shape, ctx.tiled = axis_index(axis), x.shape, tiled
+        return _all_gather(x, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.tiled:
+            return g[ctx.idx], None, None
+        n = ctx.shape[0] if len(ctx.shape) else 1
+        return g.narrow(0, ctx.idx * n, n).reshape(ctx.shape), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """all_to_all; backward: the inverse all_to_all (the same exchange)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.mesh = axis, _bound(axis)
+        return _all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return _all_to_all(g.contiguous(), ctx.axis), None
+
+
+def enter(x: Pytree, axis):
+    """``x`` (replicated over a bound axis) as the input of a computation
+    cut over it: the identity forward; the backward sums the ranks'
+    partial cotangents over the axis, so the cotangent of ``x`` is the
+    same on every rank.  Without grad, ``x`` itself."""
+    if not axis_names(axis) or not _needs_grad(x):
+        return x
+    return pytree.tree_map(lambda t: _Enter.apply(t, axis)
+                           if t.requires_grad else t, x)
+
+
 def psum(x: Pytree, axis, *, async_op: bool = False):
-    """Sum over a bound axis (``jax.lax.psum``)."""
+    """Sum over a bound axis (``jax.lax.psum``).  Differentiable (the
+    identity backward: the sum is a replicated value) when called
+    synchronously on tensors that require grad."""
+    if not async_op and _needs_grad(x):
+        return _per_leaf(lambda t: _Psum.apply(t, axis), x)
     return _reduce(x, axis, "sum", async_op)
 
 
@@ -314,7 +424,15 @@ def all_gather(x: Pytree, axis, *, tiled: bool = False,
                async_op: bool = False):
     """Every rank's value, stacked on a new dim 0 in coordinate order
     (``jax.lax.all_gather(axis=0)``); ``tiled=True`` concatenates along dim
-    0 instead (``all_gather_into_tensor``)."""
+    0 instead (``all_gather_into_tensor``).  Differentiable (backward: this
+    rank's block of the cotangent) when called synchronously on tensors
+    that require grad."""
+    if not async_op and _needs_grad(x):
+        return _per_leaf(lambda t: _AllGather.apply(t, axis, tiled), x)
+    return _all_gather(x, axis, tiled, async_op)
+
+
+def _all_gather(x: Pytree, axis, tiled: bool, async_op: bool = False):
     names = axis_names(axis)
 
     def one(v, name):
@@ -380,14 +498,22 @@ def ppermute(x: Pytree, axis, perm: Sequence[Tuple[int, int]], *,
 
 def all_to_all(x: Pytree, axis, *, async_op: bool = False):
     """Block j of dim 0 to rank j; block i of the result from rank i
-    (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``), one axis."""
+    (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``), one axis.
+    Differentiable (backward: the same exchange of the cotangent) when
+    called synchronously on tensors that require grad."""
+    if not async_op and _needs_grad(x):
+        return _per_leaf(lambda t: _AllToAll.apply(t, axis), x)
+    return _all_to_all(x, axis, async_op)
+
+
+def _all_to_all(x: Pytree, axis, async_op: bool = False):
     (name,) = axis_names(axis)
     return _over_tree(x, lambda t: _all_to_all_leaf(t, name), async_op)
 
 
 __all__ = [
     "Pending", "all_gather", "all_to_all", "axis_index",
-    "axis_names", "axis_size", "counts", "current_mesh", "group",
+    "axis_names", "axis_size", "counts", "current_mesh", "enter", "group",
     "local_block", "maybe_mesh", "mesh_axis_sizes", "pmax", "pmin",
     "ppermute", "psum",
     "psum_scatter", "reset_counts", "use_mesh",

@@ -223,14 +223,19 @@ def shard_params(params: Pytree, axes: Pytree, mesh, rules: Rules, *,
         coords), params, axes)
 
 
-def _gather_leaf(block: torch.Tensor, spec: Spec) -> torch.Tensor:
-    from . import all_gather
+def gather_leaf(block: torch.Tensor, spec: Spec, mesh=None) -> torch.Tensor:
+    """The whole leaf from this rank's ``block`` under ``spec``: one
+    ``all_gather`` per cut dimension, inside ``mesh``'s scope (None: the
+    bound mesh), a collective every rank calls."""
+    from . import all_gather, maybe_mesh
     out = block
-    for d, entry in enumerate(spec):
-        if entry is None:
-            continue
-        names = axis_names(entry)
-        out = all_gather(out.movedim(d, 0), names, tiled=True).movedim(0, d)
+    with maybe_mesh(mesh):
+        for d, entry in enumerate(spec):
+            if entry is None:
+                continue
+            names = axis_names(entry)
+            out = all_gather(out.movedim(d, 0), names,
+                             tiled=True).movedim(0, d)
     return out.contiguous()
 
 
@@ -281,7 +286,7 @@ def gather_params(local: Pytree, axes: Pytree, mesh, rules: Rules,
             *local)
     from . import use_mesh
     with use_mesh(mesh):
-        return _walk(lambda b, spec: _gather_leaf(b, spec), local, specs)
+        return _walk(lambda b, spec: gather_leaf(b, spec), local, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +317,27 @@ def use_rules(mesh, rules: Rules):
 def current_rules() -> Optional[Tuple[Any, Rules]]:
     """The active (mesh, rules), or None outside any use_rules scope."""
     return _ACTIVE.get()
+
+
+def capture() -> Tuple[Any, Any]:
+    """The open scope (the active rules and the bound mesh), for code that
+    runs later and maybe on another thread (a checkpointed layer's
+    recompute, an autograd backward), where the context is not seen."""
+    from . import current_mesh
+    return _ACTIVE.get(), current_mesh()
+
+
+@contextlib.contextmanager
+def use_scope(captured: Tuple[Any, Any]):
+    """Reopen a :func:`capture`d scope."""
+    from . import maybe_mesh
+    active, mesh = captured
+    token = _ACTIVE.set(active)
+    try:
+        with maybe_mesh(mesh):
+            yield
+    finally:
+        _ACTIVE.reset(token)
 
 
 def cut(names: Sequence[Optional[str]], shape: Sequence[int],
@@ -358,7 +384,7 @@ def act(x: torch.Tensor, names: Sequence[Optional[str]], *,
 
 __all__ = [
     "SERVE_RULES", "TRAIN_RULES", "act", "block_shape", "block_start",
-    "block_of", "current_rules", "cut", "gather_params", "mesh_sizes",
-    "param_shardings", "shard_params", "spec_for", "trim_rules",
-    "use_rules",
+    "block_of", "capture", "current_rules", "cut", "gather_leaf",
+    "gather_params", "mesh_sizes", "param_shardings", "shard_params",
+    "spec_for", "trim_rules", "use_rules", "use_scope",
 ]

@@ -1,13 +1,12 @@
 """Step builders: the port of the JAX package's ``launch/steps.py``.
 
 The JAX package jit-compiles its steps with explicit shardings for a mesh.
-The port's steps are eager functions: the train step runs on one device
-(a mesh and ``model_parallel > 1`` wait for the mesh tier's train half,
-slice 17 of the port), and the prefill and decode steps run on a mesh's
-ranks, each on its own blocks.  The sharding helpers give the same specs
-as the reference's ``NamedSharding``s, as tuples (``dist/sharding.py``):
-a :class:`BuiltStep` carries them, the step's global argument shapes on
-the meta device (the dry run's) and :meth:`BuiltStep.local`, which cuts
+The port's steps are eager functions: the train step runs on one device,
+or with ``mesh=`` on a mesh's ranks, as the prefill and decode steps do,
+each rank on its own blocks.  The sharding helpers give the same specs as
+the reference's ``NamedSharding``s, as tuples (``dist/sharding.py``): a
+:class:`BuiltStep` carries them, the step's global argument shapes on the
+meta device (the dry run's) and :meth:`BuiltStep.local`, which cuts
 global arguments to this rank's blocks.
 """
 from __future__ import annotations
@@ -21,17 +20,17 @@ import torch.utils._pytree as pytree
 from ..configs import ShapeCell, input_specs
 from ..core.aggregation import grad_accum_fold
 from ..dist import sharding as shd
+from ..dist.collectives import grad_sync, metrics_sync
 from ..models import (ModelConfig, RunCtx, decode_step, forward, init_cache,
                       loss_fn, unembed)
 from ..models.convert import from_jax_layout, to_jax_layout
 from ..models.moe import _divisible_batch_axes
-from ..models.transformer import param_shapes
-from ..optim import OptConfig, adamw_update
+from ..models.transformer import (_MESH_FAMILIES, context_conditioned,
+                                  param_shapes, recurrent)
+from ..optim import OptConfig, adamw_update, opt_state_shapes
 from ..optim.compress import LossySpec
 
 Pytree = Any
-_MESH_TODO = ("needs the mesh tier's train half, slice 17 of the port "
-              "(ROADMAP §1 item 4)")
 
 trim_rules = shd.trim_rules  # canonical definition lives in dist.sharding
 
@@ -145,14 +144,42 @@ def _grad_fn(cfg: ModelConfig, ctx: RunCtx) -> Callable:
     return loss_and_grad
 
 
+def _split_microbatches(batch: Dict, n: int) -> Dict:
+    B = batch["tokens"].shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} does not split into {n} microbatches")
+    return {k: v.reshape((n, B // n) + tuple(v.shape[1:]))
+            for k, v in batch.items()}
+
+
+def _lossy(spec: LossySpec, cfg: ModelConfig, grads: Pytree, ef: Pytree,
+           each_leaf=None, mesh=None):
+    """(the compressor round trip of ``grads``, the new residual), per JAX
+    leaf: the compressors select and scale per leaf, and a JAX leaf stacks
+    a layer slot over its periods, so they run in that layout.  Under a
+    mesh (``each_leaf`` walks a tree with its leaves' specs) each leaf is
+    gathered whole first and this rank's block of each result kept."""
+    if mesh is not None:
+        grads, ef = (each_leaf(lambda t, sp: shd.gather_leaf(t, sp, mesh),
+                               tree) for tree in (grads, ef))
+    stacked = to_jax_layout(grads, cfg)
+    comp, new_ef = spec.compress(stacked, to_jax_layout(ef, cfg))
+    out = (from_jax_layout(spec.decompress(comp, stacked), cfg, grads),
+           from_jax_layout(new_ef, cfg, ef))
+    if mesh is not None:
+        out = tuple(each_leaf(lambda t, sp: shd.block_of(t, sp, mesh), tree)
+                    for tree in out)
+    return out
+
+
 def make_train_step(cfg: ModelConfig, mesh=None, *,
                     opt: OptConfig = OptConfig(),
                     ctx: Optional[RunCtx] = None,
                     num_microbatches: int = 1,
                     lossy: Optional[str] = None,
-                    model_parallel: int = 1
-                    ) -> Callable[[Pytree, Dict, Dict],
-                                  Tuple[Pytree, Dict, Dict]]:
+                    model_parallel: int = 1,
+                    shape: Optional[ShapeCell] = None,
+                    rules: Optional[Dict[str, Any]] = None):
     """The train step ``(params, opt_state, batch) -> (new bf16 params, new
     opt state, metrics)`` for ``cfg`` on the parameters' device.
 
@@ -174,43 +201,75 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
 
     ``metrics`` is ``loss_fn``'s Sum-monoid dict plus ``lr``, ``grad_norm``
     and ``loss = loss_sum / max(tokens, 1)``.
+
+    Without ``mesh`` the step is a function on one device.  With a
+    ``DeviceMesh`` it is a :class:`BuiltStep` whose ``fn`` each rank calls
+    on its blocks (``local`` cuts global arguments): the parameters and the
+    optimizer state cut by ``TRAIN_RULES`` (trimmed to the mesh), the batch
+    by :func:`batch_sharding`.  Each rank folds the gradients of its rows
+    over its microbatches, then ``grad_sync`` sums them over the batch
+    axes, once a step, and ``metrics_sync`` sums the Sum-monoid metrics, so
+    ``loss``, ``grad_norm``, ``tokens`` and ``correct`` are the global
+    values on every rank; the global norm psums the cut leaves' squares
+    over ``model`` and counts a replicated leaf once.  ``lossy`` takes the
+    round trip of the synced gradient: each leaf's blocks are gathered over
+    the axes it is cut over, every rank compresses the whole leaf
+    identically (top-k's selection and int8's scale span the leaf, as the
+    JAX package's do), and each keeps its block of the result and of the
+    residual.  ``model_parallel > 1`` needs ``mesh`` (e.g.
+    ``launch.mesh.make_host_mesh(model=...)`` in a bound world).
     """
-    if mesh is not None or model_parallel != 1:
-        raise NotImplementedError(f"make_train_step(mesh=, model_parallel>1) "
-                                  f"on the mesh tier {_MESH_TODO}")
     if num_microbatches < 1:
         raise ValueError(f"num_microbatches must be >= 1; got "
                          f"{num_microbatches}")
-    ctx = ctx or RunCtx()
     spec = None if lossy is None else LossySpec.parse(lossy)
+    if mesh is None:
+        if model_parallel != 1:
+            raise ValueError(
+                f"model_parallel={model_parallel} cuts the weights over a "
+                "mesh: pass mesh= (launch.mesh.make_host_mesh(model=...) "
+                "in a bound world)")
+        return _step_fn(cfg, opt, ctx or RunCtx(), num_microbatches, spec)
+    if cfg.use_mla or recurrent(cfg) or context_conditioned(cfg):
+        raise NotImplementedError(f"{cfg.name}: {_MESH_FAMILIES}")
+    return _mesh_train_step(cfg, mesh, opt, ctx, num_microbatches, spec,
+                            shape, rules)
+
+
+def _step_fn(cfg, opt, ctx, num_microbatches, spec, mesh=None,
+             pshard=None):
+    """The train step's body.  Under a mesh (``pshard``: the parameters'
+    specs) the gradients and the metrics are summed over
+    ``ctx.batch_axes`` after the microbatch fold, ``lossy`` works on the
+    gathered leaves and the global norm knows each leaf's cut."""
     loss_and_grad = _grad_fn(cfg, ctx)
+
+    def each_leaf(fn, *trees):
+        return shd._walk(fn, *trees, pshard)
 
     def train_step(params, opt_state, batch):
         if num_microbatches > 1:
-            B = batch["tokens"].shape[0]
-            if B % num_microbatches:
-                raise ValueError(f"batch {B} does not split into "
-                                 f"{num_microbatches} microbatches")
-            mbatch = {k: v.reshape((num_microbatches, B // num_microbatches)
-                                   + tuple(v.shape[1:]))
-                      for k, v in batch.items()}
-            metrics, grads = grad_accum_fold(loss_and_grad, params, mbatch)
+            metrics, grads = grad_accum_fold(
+                loss_and_grad, params,
+                _split_microbatches(batch, num_microbatches))
             gscale = 1.0 / num_microbatches
         else:
             metrics, grads = loss_and_grad(params, batch)
             gscale = 1.0
+        norm_axes = None
+        if mesh is not None:
+            grads = grad_sync(grads, mesh, ctx.batch_axes)
+            metrics = metrics_sync(metrics, mesh, ctx.batch_axes)
+            # per leaf in the order tree_leaves(grads) meets them (the
+            # caller's key order, which need not be the specs')
+            norm_axes = []
+            each_leaf(lambda t, sp: norm_axes.append(_spec_axes(sp)), grads)
         if spec is not None:
-            # the compressors select and scale per leaf, and a JAX leaf
-            # stacks a layer slot over its periods: compress in that layout
-            stacked = to_jax_layout(grads, cfg)
-            comp, new_ef = spec.compress(stacked,
-                                         to_jax_layout(opt_state["ef"], cfg))
-            grads = from_jax_layout(spec.decompress(comp, stacked), cfg,
-                                    grads)
-            new_ef = from_jax_layout(new_ef, cfg, opt_state["ef"])
+            grads, new_ef = _lossy(spec, cfg, grads, opt_state["ef"],
+                                   each_leaf, mesh)
             opt_state = {k: v for k, v in opt_state.items() if k != "ef"}
-        new_params, new_opt, om = adamw_update(grads, opt_state, opt,
-                                               grad_scale=gscale)
+        new_params, new_opt, om = adamw_update(
+            grads, opt_state, opt, grad_scale=gscale, norm_axes=norm_axes)
         if spec is not None:
             new_opt["ef"] = new_ef
         metrics = dict(metrics)
@@ -220,6 +279,45 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
         return new_params, new_opt, metrics
 
     return train_step
+
+
+def _spec_axes(spec: Tuple) -> Tuple[str, ...]:
+    """Every mesh axis a leaf's spec cuts over."""
+    return tuple(a for e in spec for a in shd._axes_tuple(e))
+
+
+def _mesh_train_step(cfg, mesh, opt, ctx, num_microbatches, spec, shape,
+                     rules) -> "BuiltStep":
+    rules = trim_rules(rules or shd.TRAIN_RULES, mesh)
+    ctx = _step_ctx(cfg, mesh, rules, ctx,
+                    None if shape is None else shape.global_batch)
+    # a batch axis of size 1 sums nothing: no collective on it
+    sizes = shd.mesh_sizes(mesh)
+    ctx = dataclasses.replace(ctx, batch_axes=tuple(
+        a for a in ctx.batch_axes if sizes[a] > 1))
+    pshapes, pshard = _param_specs(cfg, mesh, rules)
+    body = _step_fn(cfg, opt, ctx, num_microbatches, spec, mesh, pshard)
+
+    def train_step(params, opt_state, batch):
+        with shd.use_rules(mesh, rules):
+            return body(params, opt_state, batch)
+
+    oshapes = opt_state_shapes(pshapes, with_ef=spec is not None)
+    oshard = {"step": replicated(mesh), "m": pshard, "v": pshard,
+              "master": pshard}
+    if spec is not None:
+        oshard["ef"] = pshard
+    if shape is not None:
+        specs = input_specs(cfg, shape)
+        bshard = data_shardings(cfg, mesh, rules, specs)
+    else:
+        specs = None
+        bshard = {k: batch_sharding(mesh, rules) for k in ("tokens",
+                                                           "labels")}
+    return BuiltStep(fn=train_step, abstract_args=(pshapes, oshapes, specs),
+                     in_shardings=(pshard, oshard, bshard),
+                     out_shardings=(pshard, oshard, replicated(mesh)),
+                     mesh=mesh, rules=rules, ctx=ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -302,9 +400,9 @@ def make_cache(built: BuiltStep, cfg: ModelConfig, params: Pytree,
 
 
 def build_step(cfg: ModelConfig, mesh, shape: ShapeCell, **kw) -> BuiltStep:
-    """Dispatch on the cell kind (``train`` refuses a mesh: slice 17)."""
+    """Dispatch on the cell kind."""
     if shape.kind == "train":
-        return make_train_step(cfg, mesh, **kw)
+        return make_train_step(cfg, mesh, shape=shape, **kw)
     if shape.kind == "prefill":
         return make_prefill_step(cfg, mesh, shape, **kw)
     if shape.kind == "decode":

@@ -180,6 +180,20 @@ def group_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def _entered(p: Dict, cfg: ModelConfig, x: torch.Tensor):
+    """(p, x) as the heads cut over a mesh axis read them: under a cut, x
+    and the replicated leaves the cut heads read (the qk-norm gains, and
+    the KV projections when the axis does not divide the KV heads, which
+    each rank then slices) go through ``dist.enter``, so each gets the sum
+    of the ranks' partial cotangents; without grad, or a cut, unchanged."""
+    hcut, kcut = _head_cuts(cfg)
+    if not hcut:
+        return p, x
+    rep = ("q_norm", "k_norm") + (() if kcut else ("wk", "wv", "bk", "bv"))
+    return ({k: dist.enter(t, hcut) if k in rep else t for k, t in
+             p.items()}, dist.enter(x, hcut))
+
+
 def out_proj(p: Dict, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
     """(B, S, Hl, dv) head outputs -> (B, S, D) through ``wo``: summed over
     the mesh axes the heads are cut over (:func:`row_parallel`)."""
@@ -228,6 +242,7 @@ def attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
             "attention derives its query positions from q_offset (arange(S) "
             "per row, shifted by the row's offset); the positions it was "
             "handed differ, and the kernel's causal mask cannot follow them")
+    p, x = _entered(p, cfg, x)
     q, k, v = _project_qkv(p, cfg, x, derived)
     if cache is not None:
         kc, vc = cache

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -156,8 +156,60 @@ def rotary_embed(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embedding[tokens]
+def add_rows(n_rows: int, ids: torch.Tensor,
+             rows: torch.Tensor) -> torch.Tensor:
+    """(n_rows, D) zeros plus each of ``rows`` (N, D) added into row
+    ``ids[i]``, in a fixed order without atomics: the ids are sorted
+    stably, and one segmented sum (``torch.segment_reduce``: an output
+    entry's adds run in one thread, in row order) adds each id's rows in
+    their order in ``ids``, each add rounded to the rows' dtype.  That is
+    the order of a sequential ``index_add_`` in ``ids``' order, so the sums
+    are the same bit for bit on every run.  One host read: the number of
+    distinct ids."""
+    ids = ids.reshape(-1).long()
+    rows = rows.reshape(ids.numel(), rows.shape[-1])
+    out = rows.new_zeros((n_rows, rows.shape[1]))
+    if ids.numel() == 0:
+        return out
+    order = torch.argsort(ids, stable=True)
+    uniq, counts = torch.unique_consecutive(ids[order], return_counts=True)
+    sums = torch.segment_reduce(rows[order], "sum", lengths=counts,
+                                unsafe=True)
+    return out.index_copy_(0, uniq, sums)
+
+
+class _Lookup(torch.autograd.Function):
+    """``table[ids]`` (zeros where ``keep`` is False); backward: the
+    cotangent rows added into the ids' rows by :func:`add_rows`."""
+
+    @staticmethod
+    def forward(ctx, table, ids, keep):
+        ctx.save_for_backward(ids, keep)
+        ctx.rows = table.shape[0]
+        out = table[ids]
+        return out if keep is None else out.masked_fill(~keep[..., None], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, keep = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        ids = ids.reshape(-1)
+        if keep is not None:
+            mine = keep.reshape(-1)
+            ids, g = ids[mine], g[mine]
+        return add_rows(ctx.rows, ids, g), None, None
+
+
+def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor,
+                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``embedding[tokens]``, zeros where ``keep`` (tokens' shape) is
+    False; its backward adds the cotangent rows in a fixed order
+    (:func:`add_rows`), deterministic where ``embedding[tokens]``'s
+    backward on the card is not."""
+    if torch.is_grad_enabled() and embedding.requires_grad:
+        return _Lookup.apply(embedding, tokens, keep)
+    out = embedding[tokens]
+    return out if keep is None else out.masked_fill(~keep[..., None], 0)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -171,7 +223,8 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, axes) -> torch.Tensor:
     rank's block of a dimension cut over mesh ``axes``: the float32
     products of the blocks are summed over the axes and rounded once to
     x's dtype, as the unsharded product rounds its float32 sum once.
-    Without axes, ``x @ w`` in x's dtype."""
+    Without axes, ``x @ w`` in x's dtype.  Differentiable: the psum's
+    backward passes the (replicated) cotangent to every rank's block."""
     if not axes:
         return x @ w.to(x.dtype)
     part = torch.matmul(x.to(torch.float32), w.to(torch.float32))

@@ -105,14 +105,16 @@ def dense_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     """The (gated) FFN of width ``d_ff`` (default ``cfg.d_ff``).  Under a
     rules scope that cuts ``mlp``, ``w_up`` / ``w_gate`` hold this rank's
     columns and ``w_down`` its rows: the down projection is summed over the
-    cut axes (:func:`row_parallel`)."""
+    cut axes (:func:`row_parallel`), x entering the column-cut products
+    through ``dist.enter``."""
+    Fd = cfg.d_ff if d_ff is None else d_ff
+    cut = shd.cut(("mlp", "embed"), (Fd, cfg.d_model), 0)
+    x = dist.enter(x, cut)
     up = dense(x, p["w_up"])
     if cfg.gated_ffn:
         up = _act(cfg, dense(x, p["w_gate"])) * up
     else:
         up = _act(cfg, up)
-    Fd = cfg.d_ff if d_ff is None else d_ff
-    cut = shd.cut(("mlp", "embed"), (Fd, cfg.d_model), 0)
     if cut:
         return row_parallel(up, p["w_down"], cut)
     return dense(up, p["w_down"])
@@ -253,12 +255,13 @@ def moe_ffn_local(p: Dict, cfg: ModelConfig,
     gate-weighted combine, plus the shared experts."""
     D = x.shape[-1]
     xf = x.reshape(-1, D)
-    xbuf, gs, order, top_w = dispatch(p, cfg, xf)
-    out = combine(expert_compute(p, xbuf, gs), order, top_w)
     # the experts whole on every rank but their mlp dim cut (the axis does
     # not divide the experts): each rank's products are partial sums
     cut = shd.cut(("expert", "mlp", "embed"),
                   (cfg.num_experts, cfg.d_ff_expert, D), 1)
+    pe, xe = _entered(p, xf, cut)
+    xbuf, gs, order, top_w = dispatch(pe, cfg, xe)
+    out = combine(expert_compute(p, xbuf, gs), order, top_w)
     if cut:
         out = dist.psum(out.to(torch.float32), cut).to(x.dtype)
     if cfg.num_shared_experts > 0:
@@ -271,6 +274,17 @@ def moe_ffn_local(p: Dict, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # expert-parallel strategies (each rank calls the collectives itself)
 # ---------------------------------------------------------------------------
+
+def _entered(p: Dict, x: torch.Tensor, axes) -> Tuple[Dict, torch.Tensor]:
+    """(p, x) as a layer cut over ``axes`` reads them: x and the replicated
+    router through ``dist.enter`` (each rank's gates, and its experts'
+    rows, give a partial cotangent); the shared experts take x as it is
+    (``dense_ffn`` enters it itself)."""
+    if not axes:
+        return p, x
+    return {**p, "router": dist.enter(p["router"], axes)}, \
+        dist.enter(x, axes)
+
 
 def _divisible_batch_axes(mesh, batch_axes, B: int):
     """Keep only mesh axes present AND dividing the batch dim (B=1 decode)."""
@@ -323,9 +337,10 @@ def moe_ffn_replicated(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh=None,
     with dist.maybe_mesh(mesh):
         E_l = _local_experts(p, cfg, axis_name)
         xf = x.reshape(-1, D)
+        pe, xe = _entered(p, xf, axis_name)
         T = xf.shape[0]
         C = _capacity(cfg, T, dist.axis_size(axis_name))
-        top_e, top_w = route_sorted(p, cfg, xf)       # the same on all ranks
+        top_e, top_w = route_sorted(pe, cfg, xe)      # the same on all ranks
         e0 = dist.axis_index(axis_name) * E_l
         local_e = top_e.reshape(-1) - e0
         is_mine = (local_e >= 0) & (local_e < E_l)
@@ -340,7 +355,7 @@ def moe_ffn_replicated(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh=None,
         # copy of the weights for a sentinel) and are zeroed below
         gs_run = gs.clone()
         gs_run[-1] += order.numel() - taken[-1]
-        out_buf = expert_compute(p, xf[order // k], gs_run)
+        out_buf = expert_compute(p, xe[order // k], gs_run)
         w = top_w.reshape(-1)[order].to(out_buf.dtype)
         contrib = torch.where(kept[:, None], out_buf * w[:, None],
                               torch.zeros((), dtype=out_buf.dtype,
@@ -384,10 +399,11 @@ def moe_ffn_a2a(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh=None,
         E_l = _local_experts(p, cfg, axis_name)
         S_l = S // P
         r = dist.axis_index(axis_name)
-        xf = x[:, r * S_l:(r + 1) * S_l].reshape(-1, D)
+        pe, xe = _entered(p, x, axis_name)
+        xf = xe[:, r * S_l:(r + 1) * S_l].reshape(-1, D)
         T = xf.shape[0]
         C = _capacity(cfg, T, P)
-        top_e, top_w = route_sorted(p, cfg, xf)
+        top_e, top_w = route_sorted(pe, cfg, xf)
         flat_e = top_e.reshape(-1).long()
         dst = flat_e // E_l                            # the owning rank
         order = torch.argsort(dst, stable=True)

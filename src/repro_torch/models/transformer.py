@@ -74,8 +74,12 @@ stays whole (``spec_for``), and the layer computes the same function: KV
 heads the axis does not divide are sliced per query-head block
 (``attention.group_kv``).  ``decode_impl="flash"`` decodes over a cache
 whose rows are cut over ``model`` (``attention.flash_decode_shardmap``).
-MLA, the recurrent and the context families and :func:`loss_fn` refuse a
-mesh (later slices).
+:func:`loss_fn` trains on the same blocks (``TRAIN_RULES`` in
+``launch/steps.py``): the collectives are differentiable (``dist``), a
+replicated value entering a cut product goes through ``dist.enter`` (its
+cotangent summed over the axis), and the cross-entropy runs on the
+vocab-cut logits.  MLA, the recurrent and the context families refuse a
+mesh (a later slice).
 """
 from __future__ import annotations
 
@@ -132,9 +136,10 @@ class RunCtx:
                              f"{self.decode_impl!r}")
 
 
-_MESH_FAMILIES = ("the mesh tier serves the dense and MoE families; MLA, "
-                  "the recurrent and the context-conditioned families under "
-                  "a mesh are a later slice of the port (ROADMAP §1 item 4)")
+_MESH_FAMILIES = ("the mesh tier serves and trains the dense and MoE "
+                  "families; MLA, the recurrent and the context-conditioned "
+                  "families under a mesh are a later slice of the port "
+                  "(ROADMAP §1)")
 
 
 def _mesh_of(ctx: RunCtx):
@@ -570,9 +575,9 @@ def _embed(params: Pytree, cfg: ModelConfig,
     if cut:       # this rank's rows: the ids it holds, zeros elsewhere
         idx = tokens.long() - shd.block_start(cut, cfg.vocab_size)
         mine = (idx >= 0) & (idx < emb.shape[0])
-        x = embed_lookup(emb, idx.clamp(0, emb.shape[0] - 1))
-        x = x.masked_fill(~mine[..., None], 0)
-        # one nonzero term per entry: the float32 sum is the row exactly
+        x = embed_lookup(emb, idx.clamp(0, emb.shape[0] - 1), mine)
+        # one nonzero term per entry: the float32 sum is the row exactly;
+        # backward, each rank adds the cotangent rows of its own ids
         x = dist.psum(x.to(torch.float32), cut).to(emb.dtype)
     else:
         x = embed_lookup(emb, tokens)
@@ -584,13 +589,18 @@ def _embed(params: Pytree, cfg: ModelConfig,
 
 def _remat_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
                  x: torch.Tensor, window: Optional[int],
-                 stats: Optional[Dict], context):
+                 stats: Optional[Dict], context, ctx: RunCtx = RunCtx()):
     """One layer under ``torch.utils.checkpoint``: its activations are
     dropped after the forward and recomputed in the backward (the JAX
-    package's ``remat="full"``, which wraps each period)."""
+    package's ``remat="full"``, which wraps each period).  The recompute
+    reopens the forward's mesh scope: autograd may run it on a thread that
+    does not see the caller's."""
+    scope = shd.capture()
+
     def run(x, stats, context):
-        x, _, stats = _full_layer(p, cfg, ltype, ftype, x, window, stats,
-                                  context)
+        with shd.use_scope(scope):
+            x, _, stats = _full_layer(p, cfg, ltype, ftype, x, window, stats,
+                                      context, ctx=ctx)
         return x, stats
     return checkpoint(run, x, stats, context, use_reentrant=False)
 
@@ -625,7 +635,7 @@ def _forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             cfg.ffn_type(i)
         if remat:
             x, stats = _remat_layer(p, cfg, ltype, ftype, x, window, stats,
-                                    context)
+                                    context, ctx)
             continue
         if prefix_len is not None:
             x, _, stats = _full_layer(p, cfg, ltype, ftype, x, window, stats,
@@ -772,6 +782,36 @@ def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor,
     return loss.sum(), correct.sum().to(torch.int32)
 
 
+def _ce(params: Pytree, cfg: ModelConfig, h: torch.Tensor,
+        labels: torch.Tensor, mask: torch.Tensor):
+    """:func:`_ce_from_logits` of h's logits.  With the vocab cut over a
+    mesh's axes the logits stay cut, never gathered: the row max is a
+    ``pmax``, the sum of exponentials and the gold logit are ``psum``s
+    (differentiable: each rank's cotangent reaches its own columns), and
+    the argmax is the lowest vocab id holding the global max."""
+    cut = shd.cut(_top_axes("lm_head"), (cfg.d_model, cfg.vocab_size), 1)
+    if not cut:
+        return _ce_from_logits(unembed(params, cfg, h), labels, mask)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    lf = torch.matmul(dist.enter(h, cut).to(torch.float32),
+                      w.to(torch.float32))
+    Vl, v0 = lf.shape[-1], shd.block_start(cut, cfg.vocab_size)
+    with torch.no_grad():
+        mx_l, arg_l = torch.max(lf, dim=-1)
+        mx = dist.pmax(mx_l, cut)
+        top = dist.pmin(torch.where(mx_l == mx, arg_l + v0,
+                                    cfg.vocab_size), cut)
+    lse = mx + torch.log(dist.psum(torch.exp(lf - mx[..., None]).sum(-1),
+                                   cut))
+    idx = labels.long() - v0
+    mine = (idx >= 0) & (idx < Vl)
+    gold = torch.gather(lf, -1, idx.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = dist.psum(torch.where(mine, gold, torch.zeros_like(gold)), cut)
+    loss = (lse - gold) * mask
+    correct = (top == labels) & (mask > 0)
+    return loss.sum(), correct.sum().to(torch.int32)
+
+
 def loss_fn(params: Pytree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ctx: RunCtx = RunCtx()) -> Tuple[torch.Tensor, Dict]:
     """Mean cross-entropy and its metrics, a Sum-monoid dict (``loss_sum``,
@@ -782,39 +822,50 @@ def loss_fn(params: Pytree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     ``ctx.ce_chunk > 0`` (dividing S) produces and folds the logits chunk
     by chunk of the sequence -- in-mapper combining of ``(loss_sum,
     correct)`` -- each chunk's logits recomputed in the backward, so the
-    full (B, S, V) logits are never live."""
-    if _mesh_of(ctx) is not None:
-        raise NotImplementedError(
-            "loss_fn with a mesh: the mesh tier's train half (the gradient "
-            "sync across ranks, make_train_step(mesh=)) is slice 17 of the "
-            "port (ROADMAP §1 item 4)")
+    full (B, S, V) logits are never live.
+
+    Under a mesh (``ctx.mesh`` or an open rules scope) ``params`` are this
+    rank's blocks and ``batch`` its rows: the cross-entropy runs on the
+    vocab-cut logits (:func:`_ce`), the metrics are this rank's (the MoE
+    stats summed over the model axis only), and the mean divides by the
+    token count summed over ``ctx.batch_axes``, so that the sum of the
+    ranks' gradients over those axes is the gradient of the global mean.
+    MLA, the recurrent and the context families refuse a mesh."""
     tokens = batch["tokens"]
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     labels_safe = torch.clamp(labels, min=0)
-    h, stats = _forward(params, cfg, tokens, context=batch.get("context"),
-                        remat=ctx.remat == "full")
     S = tokens.shape[1]
-    if ctx.ce_chunk and S % ctx.ce_chunk == 0:
-        def chunk(hc, lc, mc):
-            return _ce_from_logits(unembed(params, cfg, hc), lc, mc)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-        correct = torch.zeros((), dtype=torch.int32, device=h.device)
-        for c0 in range(0, S, ctx.ce_chunk):
-            sl = slice(c0, c0 + ctx.ce_chunk)
-            ls, cr = checkpoint(chunk, h[:, sl], labels_safe[:, sl],
-                                mask[:, sl], use_reentrant=False)
-            loss_sum, correct = loss_sum + ls, correct + cr
-    else:
-        loss_sum, correct = _ce_from_logits(unembed(params, cfg, h),
-                                            labels_safe, mask)
-    ntok = mask.sum()
+    with _mesh_scope(cfg, ctx):
+        meshed = shd.current_rules() is not None
+        fctx = dataclasses.replace(ctx, batch_axes=()) if meshed else ctx
+        h, stats = _forward(params, cfg, tokens,
+                            context=batch.get("context"),
+                            remat=ctx.remat == "full", ctx=fctx)
+        if ctx.ce_chunk and S % ctx.ce_chunk == 0:
+            scope = shd.capture()
+
+            def chunk(hc, lc, mc):
+                with shd.use_scope(scope):
+                    return _ce(params, cfg, hc, lc, mc)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+            correct = torch.zeros((), dtype=torch.int32, device=h.device)
+            for c0 in range(0, S, ctx.ce_chunk):
+                sl = slice(c0, c0 + ctx.ce_chunk)
+                ls, cr = checkpoint(chunk, h[:, sl], labels_safe[:, sl],
+                                    mask[:, sl], use_reentrant=False)
+                loss_sum, correct = loss_sum + ls, correct + cr
+        else:
+            loss_sum, correct = _ce(params, cfg, h, labels_safe, mask)
+        ntok = mask.sum()
+        denom = dist.psum(ntok, ctx.batch_axes) if meshed and \
+            ctx.batch_axes else ntok
     metrics = {"loss_sum": loss_sum, "tokens": ntok,
                "correct": correct.to(torch.float32)}
     if stats is not None:
         metrics["expert_load"] = stats["expert_load"].to(torch.float32)
         metrics["moe_dropped"] = stats["dropped"].to(torch.float32)
-    return loss_sum / torch.clamp(ntok, min=1.0), metrics
+    return loss_sum / torch.clamp(denom, min=1.0), metrics
 
 
 @torch.no_grad()

@@ -15,14 +15,18 @@ Master weights, ``m`` and ``v`` are float32 on the parameters' device; the
 update returns the new parameters cast to bfloat16, as the JAX package's
 does, whatever the parameters' dtype was.  The state is a dict of tensors
 (``step`` an int32 0-d tensor), so it checkpoints like the parameters.
-``opt_state_shapes`` (the dry-run's abstract state) waits for the port's
-``launch/dryrun.py``.
+:func:`opt_state_shapes` is the abstract state on the meta device (the
+dry run's).
+
+Under a mesh each rank holds its blocks of the parameters and of the
+state; AdamW stays elementwise on the blocks, and only the global norm
+that clipping reads crosses ranks (``norm_axes``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -82,20 +86,55 @@ def init_opt_state(params: Pytree, *, with_ef: bool = False
     return state
 
 
-def global_norm(tree: Pytree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in pytree.tree_leaves(tree)))
+def opt_state_shapes(param_shapes: Pytree, *, with_ef: bool = False
+                     ) -> Dict[str, Pytree]:
+    """The abstract optimizer state (the dry run's): :func:`init_opt_state`'s
+    tree with float32 ``m`` / ``v`` / ``master`` (and ``ef``) shaped like
+    ``param_shapes`` and an int32 0-d ``step``, on the meta device."""
+    def f32(t):
+        return pytree.tree_map(lambda x: torch.empty(
+            x.shape, dtype=torch.float32, device="meta"), t)
+
+    state = {"step": torch.empty((), dtype=torch.int32, device="meta"),
+             "m": f32(param_shapes), "v": f32(param_shapes),
+             "master": f32(param_shapes)}
+    if with_ef:
+        state["ef"] = f32(param_shapes)
+    return state
 
 
-def clip_by_global_norm(grads: Pytree, max_norm: float
+def global_norm(tree: Pytree,
+                norm_axes: Optional[Sequence[Tuple[str, ...]]] = None
+                ) -> torch.Tensor:
+    """The float32 2-norm over every leaf.  Under a mesh, where each leaf
+    is this rank's block, ``norm_axes`` gives per leaf (in
+    ``tree_leaves`` order) the mesh axes its block is cut over: the
+    squares of the blocks cut over the same axes are summed and psummed
+    over them, and a replicated leaf (``()``) counts once."""
+    squares = [torch.sum(torch.square(x.to(torch.float32)))
+               for x in pytree.tree_leaves(tree)]
+    if norm_axes is None:
+        return torch.sqrt(sum(squares))
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for sq, axes in zip(squares, norm_axes):
+        axes = tuple(axes)
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    from .. import dist
+    return torch.sqrt(sum(dist.psum(v, axes) if axes else v
+                          for axes, v in groups.items()))
+
+
+def clip_by_global_norm(grads: Pytree, max_norm: float,
+                        norm_axes: Optional[Sequence[Tuple[str, ...]]] = None
                         ) -> Tuple[Pytree, torch.Tensor]:
-    norm = global_norm(grads)
+    norm = global_norm(grads, norm_axes)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return pytree.tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
 def adamw_update(grads: Pytree, opt_state: Dict[str, Pytree], cfg: OptConfig,
-                 *, grad_scale: float = 1.0
+                 *, grad_scale: float = 1.0,
+                 norm_axes: Optional[Sequence[Tuple[str, ...]]] = None
                  ) -> Tuple[Pytree, Dict[str, Pytree], Dict[str, torch.Tensor]]:
     """One AdamW step -> (new bf16 params, new state, ``{"lr",
     "grad_norm"}``).  The new state holds ``step``, ``m``, ``v`` and
@@ -103,11 +142,12 @@ def adamw_update(grads: Pytree, opt_state: Dict[str, Pytree], cfg: OptConfig,
 
     ``grad_scale`` multiplies the summed gradients (the ``extract`` of the
     gradient Sum monoid: 1 / num_microbatches after ``grad_accum_fold``).
+    ``norm_axes`` (blocks under a mesh) is :func:`global_norm`'s.
     """
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
     grads = pytree.tree_map(lambda g: g.to(torch.float32) * grad_scale, grads)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm_axes)
     stepf = step.to(torch.float32)
     b1c = 1 - cfg.b1 ** stepf
     b2c = 1 - cfg.b2 ** stepf

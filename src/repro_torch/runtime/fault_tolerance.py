@@ -96,8 +96,9 @@ class ElasticController:
 
     ``on_remesh(plan)`` is the integration point: rebuild the mesh and the
     step (same code; only the mesh changes), and restore state from the
-    latest checkpoint (the layout is mesh-agnostic; restoring onto a new
-    mesh waits for the port's mesh tier).
+    latest checkpoint (the layout is mesh-agnostic:
+    ``CheckpointStore.restore(shardings=)`` keeps each rank's block of the
+    new mesh).
     """
 
     def __init__(self, total_devices: int, *, model_parallel: int = 16,

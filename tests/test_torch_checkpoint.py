@@ -1,8 +1,10 @@
 """The port's checkpoint store against the JAX package's: twins of
 ``tests/test_checkpoint.py`` (atomicity, async, GC, restart exactness by
-monoid merge; restoring onto another sharding waits for the mesh tier),
+monoid merge, restoring onto another sharding: per-rank blocks of a
+simulated ``{axis: size}`` mesh, through ``gather_params`` / ``block_of``),
 and aggregates of plain arrays (f32, bf16, int32) written by either
-package and restored by the other, bit for bit."""
+package and restored by the other, bit for bit.  The save and restore on a
+world of ranks are in ``tests/test_torch_tp_train.py``."""
 import os
 
 import jax
@@ -108,6 +110,68 @@ def test_restore_places_leaves_on_the_template_device(tmp_path):
         store.restore({"w": torch.zeros(4, 8)})
     with pytest.raises(FileNotFoundError):
         CheckpointStore(str(tmp_path / "empty")).restore(_tree())
+
+
+def _ranks(sizes):
+    """Every rank's {axis: index} of a row-major ``{axis: size}`` mesh."""
+    names, out = list(sizes), []
+    for r in range(int(np.prod(list(sizes.values())))):
+        coords, rest = {}, r
+        for n in reversed(names):
+            coords[n] = rest % sizes[n]
+            rest //= sizes[n]
+        out.append(coords)
+    return out
+
+
+def test_restore_onto_different_sharding(tmp_path):
+    """Elastic-remesh path: the on-disk layout is mesh-agnostic.  The
+    reference's case (a replicated spec on a 1-axis mesh), then the blocks
+    of the smoke qwen3 under ``TRAIN_RULES`` at mesh (data 2, model 2),
+    assembled (``gather_params``) and saved, restored onto (1, 4) and onto
+    no mesh: every block, and the whole tree, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import param_axes, param_shapes
+
+    store = CheckpointStore(str(tmp_path))
+    t = _tree()
+    store.save(1, t)
+    shardings = {"w": (), "b16": (), "step": (), "nested": {"m": ()}}
+    step, r = store.restore(t, shardings=shardings, mesh={"data": 1},
+                            coords={"data": 0})
+    assert step == 1 and torch.equal(r["w"], t["w"])
+
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    params = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    axes, shapes = param_axes(cfg), param_shapes(cfg)
+    m22, m14 = {"data": 2, "model": 2}, {"data": 1, "model": 4}
+    blocks = [shd.shard_params(params, axes, m22, shd.TRAIN_RULES, coords=c)
+              for c in _ranks(m22)]
+    assert blocks[1]["layers"][0]["mix"]["wq"].shape[1] == \
+        cfg.num_heads // 2
+    saved = shd.gather_params(blocks, axes, m22, shd.TRAIN_RULES, shapes)
+    store.save(2, saved)
+    specs = shd.param_shardings(shapes, axes, m14,
+                                shd.trim_rules(shd.TRAIN_RULES, m14))
+    got = []
+    for c in _ranks(m14):
+        _, b = store.restore(params, step=2, shardings=specs, mesh=m14,
+                             coords=c)
+        want = shd.shard_params(params, axes, m14, shd.TRAIN_RULES, coords=c)
+        for x, y in zip(pytree.tree_leaves(b), pytree.tree_leaves(want)):
+            assert x.shape == y.shape and torch.equal(x, y)
+        # a cut block owns its storage: the whole leaf can go
+        leaf = b["layers"][0]["mix"]["wq"]
+        assert leaf.untyped_storage().nbytes() == \
+            leaf.numel() * leaf.element_size()
+        got.append(b)
+    back = shd.gather_params(got, axes, m14, shd.TRAIN_RULES, shapes)
+    _, whole = store.restore(params, step=2)
+    for x, y, z in zip(pytree.tree_leaves(back), pytree.tree_leaves(whole),
+                       pytree.tree_leaves(params)):
+        assert torch.equal(x, z) and torch.equal(y, z)
 
 
 def _agg_np(seed):

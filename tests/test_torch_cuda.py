@@ -1270,3 +1270,81 @@ def test_cuda_run_sharded_max_by_key_on_two_gloo_ranks(cuda_device,
             assert equal, (rank, strategy)
             assert tier == "kernel" and launches == 1, (rank, strategy,
                                                         launches)
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_backward_is_deterministic(cuda_device):
+    """Two backwards of the same batch through the bf16 qwen3 smoke model
+    on the card give bit-equal gradients (the embedding's rows are added
+    in a fixed order, ``add_rows``), and ``add_rows`` on the card equals
+    ``add_rows`` on the CPU bit for bit, a hot id included."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import _grad_fn
+    from repro_torch.models import RunCtx, init_params
+    from repro_torch.models.common import add_rows
+
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    toks[:, ::3] = 7
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    grad = _grad_fn(cfg, RunCtx())
+    first, second = grad(params, batch)[1], grad(params, batch)[1]
+    for a, b in zip(pytree.tree_leaves(first), pytree.tree_leaves(second)):
+        assert torch.equal(a, b)
+    rows = torch.randn((toks.numel(), 64), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    assert torch.equal(add_rows(cfg.vocab_size, toks, rows).cpu(),
+                       add_rows(cfg.vocab_size, toks.cpu(), rows.cpu()))
+
+
+def _mesh_train_rank(rank, world, store_path):
+    """One rank of a (1, 2) gloo world on cuda:0: the f32 smoke qwen3's
+    step at mesh (1, 2) and on one rank, the same weights and batch."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import RunCtx, init_params
+    from repro_torch.optim import init_opt_state
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("gloo", rank, world,
+                     torch.distributed.FileStore(store_path, world),
+                     device=dev)
+    mesh = make_mesh((1, 2), ("data", "model"), device=dev)
+    cfg = dc.replace(get_config("qwen3-0.6b", smoke=True),
+                     dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    ctx = RunCtx(remat="full", ce_chunk=16)
+    built = make_train_step(cfg, mesh, ctx=ctx, num_microbatches=2)
+    _, _, one = make_train_step(cfg, ctx=ctx, num_microbatches=2)(
+        params, init_opt_state(params), batch)
+    p, o, b = built.local(params, init_opt_state(params), batch)
+    _, _, got = built.fn(p, o, b)
+    return {k: (float(got[k]), float(one[k])) for k in ("loss",
+                                                         "grad_norm")}
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_train_step_matches_one_rank(cuda_device, tmp_path):
+    """The train step at mesh (1, 2) on two gloo ranks sharing the card
+    (autograd runs its backward, and the checkpointed layers' recompute, on
+    the card's own thread, which sees no mesh scope): loss and grad_norm
+    within 1e-5 relative of one rank's step."""
+    from repro_torch.launch.mesh import run_world
+
+    for res in run_world(_mesh_train_rank, 2, timeout_s=300,
+                         store_dir=str(tmp_path)):
+        for k, (got, want) in res.items():
+            assert abs(got - want) <= 1e-5 * abs(want), (k, got, want)

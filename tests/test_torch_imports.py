@@ -55,7 +55,11 @@ def test_scan_sees_the_whole_port():
                    "dist/__init__.py", "dist/collectives.py",
                    "launch/mesh.py",
                    # its serve half
-                   "dist/sharding.py", "models/moe.py", "launch/serve.py"):
+                   "dist/sharding.py", "models/moe.py", "launch/serve.py",
+                   # its train half
+                   "models/common.py", "models/transformer.py",
+                   "optim/adamw.py", "checkpoint/store.py",
+                   "launch/train.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) >= 30
     assert _forbidden("jax.numpy") and _forbidden("repro.core.plan")
@@ -81,7 +85,10 @@ def test_mesh_tier_loads_neither_jax_nor_repro():
             "from repro_torch.models.attention import "
             "flash_decode_shardmap, ring_attention_shardmap\n"
             "from repro_torch.launch.steps import make_decode_step, "
-            "make_prefill_step\n"
+            "make_prefill_step, make_train_step\n"
+            "import repro_torch.launch.train, repro_torch.checkpoint.store\n"
+            "from repro_torch.optim import opt_state_shapes\n"
+            "from repro_torch.models.common import add_rows\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -103,6 +103,46 @@ def test_schedule_matches_jax_and_warms_then_decays():
                                rtol=1e-3)
 
 
+def test_opt_state_shapes_match_jax():
+    """``opt_state_shapes`` of the smoke qwen3's parameter shapes (meta
+    tensors) against the reference's ``ShapeDtypeStruct`` tree, leaf for
+    leaf (the port's per-layer list against the reference's stacked
+    leaves through ``to_jax_layout``), with and without ``ef``; and the
+    real state's shapes and dtypes."""
+    import dataclasses as dc
+    from repro.configs import get_config as jax_get_config
+    from repro.models import param_shapes as jax_param_shapes
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import to_jax_layout
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import init_opt_state, opt_state_shapes
+
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    jcfg = jax_get_config("qwen3-0.6b", smoke=True)
+    for with_ef in (False, True):
+        got = opt_state_shapes(param_shapes(cfg), with_ef=with_ef)
+        want = jo.opt_state_shapes(jax_param_shapes(jcfg), with_ef=with_ef)
+        assert set(got) == set(want)
+        assert got["step"].dtype == torch.int32 and got["step"].shape == ()
+        assert want["step"].dtype == jnp.int32 and want["step"].shape == ()
+        for part in set(got) - {"step"}:
+            stacked = to_jax_layout(got[part], cfg)
+            gl = jax.tree_util.tree_flatten_with_path(stacked)[0]
+            wl = jax.tree_util.tree_flatten_with_path(want[part])[0]
+            assert [p for p, _ in gl] == [p for p, _ in wl]
+            for (_, g), (_, w) in zip(gl, wl):
+                assert g.device.type == "meta" and g.dtype == torch.float32
+                assert tuple(g.shape) == tuple(w.shape) and \
+                    w.dtype == jnp.float32
+    from repro_torch.models import init_params
+    real = init_opt_state(init_params(dc.replace(cfg, dtype=torch.bfloat16),
+                                      torch.Generator(), device="cpu"),
+                          with_ef=True)
+    abstract = opt_state_shapes(param_shapes(cfg), with_ef=True)
+    for a, b in zip(pytree.tree_leaves(real), pytree.tree_leaves(abstract)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+
+
 def test_clip_by_global_norm():
     g = {"a": torch.full((4,), 3.0), "b": torch.full((4,), 4.0)}
     clipped, norm = clip_by_global_norm(g, 1.0)
