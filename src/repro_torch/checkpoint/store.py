@@ -54,13 +54,6 @@ _TORCH_OF = {
 _NAME_OF = {v: k for k, v in _TORCH_OF.items()}
 
 
-class _Spec:
-    """A spec as a leaf of :func:`_flatten` (a tuple would be walked)."""
-
-    def __init__(self, spec):
-        self.spec = spec
-
-
 def _flatten(tree: Pytree, prefix: str = "") -> List[Tuple[str, Any]]:
     """(key string, leaf) pairs in the JAX package's order: dict keys
     sorted, sequences by position; anything else is a leaf."""
@@ -107,17 +100,6 @@ def _to_host(tree: Pytree) -> List[Tuple[str, np.ndarray, str]]:
     return out
 
 
-def _walk_specs(fn, tree: Pytree, specs: Pytree) -> Pytree:
-    """``fn(leaf, spec)`` over ``tree``'s leaves, ``specs`` shaped like
-    ``tree`` with a spec (a tuple) at each leaf."""
-    if isinstance(tree, dict):
-        return {k: _walk_specs(fn, v, specs[k]) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_walk_specs(fn, v, sp) for v, sp in
-                          zip(tree, specs))
-    return fn(tree, specs)
-
-
 def _step_dir(base: str, step: int) -> str:
     return os.path.join(base, f"step_{step:08d}")
 
@@ -138,13 +120,13 @@ class CheckpointStore:
         writes = True
         if shardings is not None:
             import torch.distributed as tdist
-            from ..dist.sharding import gather_leaf
+            from ..dist.sharding import _walk, gather_leaf
             writes = not tdist.is_initialized() or tdist.get_rank() == 0
 
             def whole(t, spec):     # on the host leaf by leaf: one whole
                 t = gather_leaf(torch.as_tensor(t).detach(), spec, mesh)
                 return t.to("cpu") if writes else None  # leaf on the card
-            tree = _walk_specs(whole, tree, shardings)
+            tree = _walk(whole, tree, shardings)
         if not writes:
             return False, None, None
         return True, _to_host(tree), {
@@ -249,20 +231,19 @@ class CheckpointStore:
         with open(p) as f:
             return int(f.read().strip())
 
-    def _read_leaves(self, d: str, entries: List[dict],
-                     each=lambda t, i: t) -> List[torch.Tensor]:
-        """The leaves of ``entries`` on the host, ``each(leaf, i)`` applied
-        as each is read."""
-        out = []
-        for i, e in enumerate(entries):
-            with open(os.path.join(d, "arrays", e["file"]), "rb") as f:
-                buf = bytearray(f.read())
-            dt = _TORCH_OF[e["dtype"]]
-            raw = torch.uint16 if dt == torch.bfloat16 else dt
-            t = torch.frombuffer(buf, dtype=raw) if buf else \
-                torch.empty((0,), dtype=raw)
-            out.append(each(t.view(dt).reshape(e["shape"]), i))
-        return out
+    @staticmethod
+    def _read_leaf(d: str, e: dict) -> torch.Tensor:
+        """The leaf of manifest entry ``e`` on the host."""
+        with open(os.path.join(d, "arrays", e["file"]), "rb") as f:
+            buf = bytearray(f.read())
+        dt = _TORCH_OF[e["dtype"]]
+        raw = torch.uint16 if dt == torch.bfloat16 else dt
+        t = torch.frombuffer(buf, dtype=raw) if buf else \
+            torch.empty((0,), dtype=raw)
+        return t.view(dt).reshape(e["shape"])
+
+    def _read_leaves(self, d: str, entries: List[dict]) -> List[torch.Tensor]:
+        return [self._read_leaf(d, e) for e in entries]
 
     @staticmethod
     def _place(like: Pytree, leaves: List[torch.Tensor]) -> Pytree:
@@ -301,17 +282,19 @@ class CheckpointStore:
             return step, self._place(like, self._read_leaves(
                 d, manifest["leaves"]))
         from .. import dist
-        from ..dist.sharding import block_of
+        from ..dist.sharding import _walk, block_of
         mesh = dist.current_mesh() if mesh is None else mesh
-        specs = [sp.spec for _, sp in _flatten(_walk_specs(
-            lambda t, sp: _Spec(sp), like, shardings))]
-        if len(specs) != len(manifest["leaves"]):
-            raise ValueError(f"checkpoint has {len(manifest['leaves'])} "
-                             f"leaves, expected {len(specs)}")
+        entries = manifest["leaves"]
+        n = len(_flatten(like))
+        if n != len(entries):
+            raise ValueError(f"checkpoint has {len(entries)} leaves, "
+                             f"expected {n}")
         # each leaf's block as it is read: the whole leaf is freed at once
-        return step, self._place(like, self._read_leaves(
-            d, manifest["leaves"],
-            lambda t, i: block_of(t, specs[i], mesh, coords)))
+        read = _unflatten(like, [lambda e=e: self._read_leaf(d, e)
+                                 for e in entries])
+        blocks = _walk(lambda r, sp: block_of(r(), sp, mesh, coords), read,
+                       shardings)
+        return step, self._place(like, [t for _, t in _flatten(blocks)])
 
     def restore_aggregate(self, name: str, like: Pytree, *,
                           step: Optional[int] = None) -> Optional[Pytree]:

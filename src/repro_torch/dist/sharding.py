@@ -152,14 +152,15 @@ def block_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
 
 
 def _walk(fn: Callable, tree, *others):
-    """``fn`` over the leaves of a params-like tree (dicts and lists of
-    leaves), zipped with trees of the same structure."""
+    """``fn`` over the leaves of a params-like tree (dicts, lists and tuples
+    of leaves), zipped with trees of the same structure (a spec tree among
+    them: its tuples are leaves, so it never comes first)."""
     if isinstance(tree, dict):
         return {k: _walk(fn, v, *(o[k] for o in others))
                 for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_walk(fn, v, *(o[i] for o in others))
-                for i, v in enumerate(tree)]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
     return fn(tree, *others)
 
 
@@ -281,8 +282,8 @@ def gather_params(local: Pytree, axes: Pytree, mesh, rules: Rules,
     rules = trim_rules(rules, mesh)
     specs = param_shardings(shapes, axes, mesh, rules)
     if not getattr(mesh, "mesh_dim_names", None):
-        return _walk(lambda spec, s, *blocks: _assemble_leaf(
-            list(blocks), spec, mesh, tuple(s.shape)), specs, shapes,
+        return _walk(lambda s, spec, *blocks: _assemble_leaf(
+            list(blocks), spec, mesh, tuple(s.shape)), shapes, specs,
             *local)
     from . import use_mesh
     with use_mesh(mesh):
