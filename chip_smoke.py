@@ -2,7 +2,8 @@
 
   python3 chip_smoke.py [--seed 0] [--requests 16] [--serve-only]
                         [--train-only] [--mla-only] [--mesh-only]
-                        [--tp-only] [--tp-layers 24] [--train-mesh-only]
+                        [--tp-only] [--tp-layers 8] [--train-mesh-only]
+                        [--tp-families-only]
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -222,7 +223,7 @@ Phases, each of which must pass or the script exits non-zero:
    ``ring_attention_shardmap`` at B 1, S 8192, 16 x 128 against
    ``flash_attention`` on one rank (each within 2e-2 of the largest output,
    timed beside the one-rank call, collectives counted); (b)
-   qwen2-moe-a2.7b at full width and ``--tp-layers`` (24, the whole model)
+   qwen2-moe-a2.7b at full width and ``--tp-layers`` (8 of its 24)
    through ``build_engine`` at model_parallel 4 with phase 3's traffic,
    after the one-rank engine served the same traffic and was freed: on
    every rank ``flash_attention`` == layers x prefill calls and
@@ -250,17 +251,45 @@ Phases, each of which must pass or the script exits non-zero:
    one ``lossy="int8"`` and one ``"topk:0.01"`` step; qwen3's state saved
    at (2, 2) and restored onto (1, 4) and onto no mesh, every leaf
    bit-equal to the saved one; (b) qwen3-0.6b at full width and depth
-   (28 layers) at mesh (data 2, model 2): 8 x 1024 Zipf tokens a step, 2
+   (8 of 28 layers) at mesh (data 2, model 2): 8 x 1024 Zipf tokens a step, 2
    microbatches a rank, remat, the vocab-cut cross-entropy in chunks of
    256, 5 steps, a checkpoint, a resume onto (1, 4) for 2 steps (each
    restored block bit-equal to the saved leaf), after one rank's first
    step (run first and freed): the first loss within 1e-3 and grad_norm
    within 1e-2 relative of one rank's (one rank's step in one microbatch
    printed beside them), every loss finite and equal on every rank,
-   ``flash_attention`` 28 x 2 x 2 and its backward 28 x 2 launches a step
+   ``flash_attention`` 8 x 2 x 2 and its backward 8 x 2 launches a step
    on every rank; step ms, tokens/s, the gradient
    sync alone, collective calls and wire bytes a step per axis, peak
    memory a rank.  ``--train-mesh-only`` runs phases 1 and 18 alone.
+19. the mesh tier's serve half for MLA, the recurrent and the context
+   families (gloo, 4 ranks on cuda:0): first ``flash_attention`` at the
+   shapes a rank at model_parallel 4 gives it (v1 whisper's encoder, 3 /
+   3 x 64 over 1500 frames; v2 llama-3.2-vision's cross-attention, 16 / 2
+   x 128, Sq 64 / Sk 1600; v3 jamba's attention, 8 / 2 x 128; v4 MLA at
+   d 192 / dv 128 on 32 heads) against its plain version with phase 2's
+   tolerances; then the one-rank runs of (b)-(e), each freed; then one
+   world: (a) the f32 smoke deepseek-v2-236b, xlstm-1.3b, jamba-v0.1-52b,
+   whisper-small and llama-3.2-vision-90b (gates 0.5) at model_parallel
+   2 and 4 against one rank: ``forward`` logits (with the context) and
+   the decode step's logits within 1e-4, every decode-cache leaf's block
+   within 1e-4 of one rank's cache cut by its spec, the engine's tokens
+   (MLA, recurrent) or ``build_serve_step``'s greedy tokens (context)
+   equal, ``flash_attention`` == attention layers per forward and x
+   prefill calls, ``segment_fold`` == steps; (b) deepseek-v2-236b at full
+   width, 4 of 60 layers, and (c) xlstm-1.3b at full width, one period (8
+   of 48 layers), through the engine at model_parallel 4, built from
+   ``build_engine``'s parts with the weights drawn one rank at a time (8
+   requests, 16 new tokens, greedy); (d) whisper-small through
+   ``build_serve_step`` (``make_cache`` over 8 x 1500 frames = 12
+   launches, greedy steps with none); (e) jamba-v0.1-52b and
+   llama-3.2-vision-90b at one period through ``make_prefill_step`` (4 x
+   64; 1 and 5 launches) and ``make_decode_step``.  For (b)-(e): every
+   rank's parameter bytes within 10% of (model - replicated) / 4 +
+   replicated, every rank's tokens equal, the first greedy token equal to
+   one rank's; tokens/s, TTFT, step ms, collectives and wire bytes a step
+   per axis, peak memory a rank and the bf16 logits' drift from one rank
+   printed.  ``--tp-families-only`` runs phases 1 and 19 alone.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  The exit code
@@ -4372,8 +4401,10 @@ def mesh_phase(args, dev) -> dict:
 TP_WORLD = 4
 TP_SMOKE_ARCHS = ("qwen3-0.6b", MOE_ARCH)
 # 17(b): qwen2-moe-a2.7b's depth served at model_parallel 4 (24: the whole
-# model); a smaller --tp-layers is printed as a cut
+# model); a smaller --tp-layers is printed as a cut.  The default is 8 (the
+# whole model until phase 19 needed the script's time, PERF.md section 4)
 TP_FULL_LAYERS = 24
+TP_LAYERS = 8
 # 17(c): flash decoding over qwen3-0.6b's attention and a 32768-row cache;
 # ring attention at B 1, S 8192, 16 heads x 128
 TP_DECODE_ROWS, TP_DECODE_SLOTS, TP_DECODE_POS = 32768, 8, 20000
@@ -4991,14 +5022,16 @@ TRAIN_MESH_BWD_CASES = [case + (None, "wgmma" if case[7] == torch.bfloat16
 TRAIN_MESH_SMOKE = (("qwen3-0.6b", "replicated"), (MOE_ARCH, "replicated"),
                     (MOE_ARCH, "a2a"))
 TRAIN_MESH_SMOKE_OPT = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=100)
-# 18(b): qwen3-0.6b's depth trained at mesh (2, 2) (28: the whole model)
-TRAIN_MESH_LAYERS = 28
+# 18(b): qwen3-0.6b's depth trained at mesh (2, 2) (28, the whole model,
+# until phase 19 needed the script's time: PERF.md section 4)
+TRAIN_MESH_LAYERS = 8
 TRAIN_MESH_STEPS, TRAIN_MESH_RESUMED = 5, 2
 TRAIN_MESH_CE_CHUNK = 256
 # the first step's loss and grad_norm against one rank's, relative: the
 # same bf16 products summed in other orders, each rounded once (17(b)'s
-# drift trace), the differences grown through 28 layers forward and back.
-# Read on the H100 (PERF.md section 6): loss 4.2e-5, grad_norm 2.4e-3; one
+# drift trace), the differences grown through the layers forward and back.
+# Read on the H100 at 28 layers (PERF.md section 6): loss 4.2e-5,
+# grad_norm 2.4e-3; one
 # rank's own grad_norm moves as far when only its microbatch split changes
 # (printed beside it)
 TRAIN_MESH_FIRST_RTOL = {"loss": 1e-3, "grad_norm": 1e-2}
@@ -5404,6 +5437,10 @@ def train_mesh_phase(args, dev) -> None:
           f"{[s['loss'] for s in r0['steps']]} (steps {TRAIN_MESH_STEPS + 1}"
           f"-{steps_all} resumed onto (1, 4)) grad_norms="
           f"{[s['grad_norm'] for s in r0['steps']]}", flush=True)
+    from repro_torch.configs import get_config
+    print(f"train mesh (b): reduced: num_layers "
+          f"{get_config(TRAIN_ARCH).num_layers} -> {layers} (the script's "
+          f"time)", flush=True)
     print(f"  first step {first} against one rank's {ref}: relative "
           f"{rel} (<= {TRAIN_MESH_FIRST_RTOL})"
           f"; step_ms={ms} median (steps 2-{TRAIN_MESH_STEPS}) {med} ms, "
@@ -5417,6 +5454,807 @@ def train_mesh_phase(args, dev) -> None:
           f"{[r['save_s'] for r in ranks]} s, restore onto (1, 4) "
           f"{[r['restore_s'] for r in ranks]} s, {r0['restored_leaves']} "
           f"restored leaves bit-equal on every rank", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the mesh tier's serve half for MLA, the recurrent and the
+# context families
+# ---------------------------------------------------------------------------
+
+TPF_WORLD = 4
+TPF_SMOKE = (DEEPSEEK, XLSTM, JAMBA, WHISPER, VISION)
+# flash_attention at the shapes a rank at model_parallel 4 gives it
+# (run_flash_case's tuple): whisper-small's encoder (8 x 1500 frames, 3 / 3
+# x 64), llama-3.2-vision's cross-attention in a (4, 64) prefill (16 / 2 x
+# 128 over 1600 patches, Sq != Sk), jamba's GQA layer in a (4, 64) prefill
+# (8 / 2 x 128)
+TPF_FLASH_CASES = [
+    ("v1: whisper-small encoder at model_parallel 4 B8 S1500 H3/KV3 d64 "
+     "bf16 non-causal", 8, 3, 3, 1500, 1500, 64, torch.bfloat16, False),
+    ("v2: llama-3.2-vision cross-attention at model_parallel 4 B4 Sq64 "
+     "Sk1600 H16/KV2 d128 bf16 non-causal", 4, 16, 2, 64, 1600, 128,
+     torch.bfloat16, False),
+    ("v3: jamba attention at model_parallel 4 B4 S64 H8/KV2 d128 bf16 "
+     "causal", 4, 8, 2, 64, 64, 128, torch.bfloat16, True),
+]
+# run_mla_flash_case's tuple: deepseek-v2's (4, 64) prefill bucket at
+# model_parallel 4, 32 of the 128 heads a rank
+TPF_MLA_CASE = ("v4: deepseek-v2 prefill bucket at model_parallel 4 B4 S64 "
+                "H32/KV32 d192 dv128 bf16 causal", 4, 32, 32, 64, 64, 192,
+                128, torch.bfloat16, None)
+# (b)-(e): the depth each full-width model runs at (deepseek: 15(c)'s cut;
+# xlstm: one period of its 48 layers, for the gloo world's time; jamba and
+# the vision model: one period, as 12(d) and 13(d))
+TPF_LAYERS = {DEEPSEEK: DEEPSEEK_LAYERS, XLSTM: 8, JAMBA: 8, VISION: 5}
+TPF_REQUESTS, TPF_NEW = 8, 16
+TPF_BUCKETS = {DEEPSEEK: (16, 32, 64), XLSTM: (16, 32)}
+TPF_PREFILL = (4, 64)        # (e)'s prefill step: 4 rows of 64 tokens
+TPF_DECODE_ROWS, TPF_DECODE_SEQ = 8, 128    # (e)'s decode step
+TPF_WHISPER_PROMPT, TPF_WHISPER_STEPS = 8, 16
+TPF_TIMED = 3                # timed calls behind each (e) median
+
+
+def _tpf_config(arch: str):
+    """``arch``'s full config at phase 19's depth (whisper whole)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    layers = TPF_LAYERS.get(arch, cfg.num_layers)
+    return cfg if layers == cfg.num_layers else \
+        dataclasses.replace(cfg, num_layers=layers)
+
+
+def _tpf_reduced(arch: str) -> str:
+    from repro_torch.configs import get_config
+
+    full, cfg = get_config(arch), _tpf_config(arch)
+    return "nothing cut" if cfg.num_layers == full.num_layers else \
+        f"reduced: num_layers {full.num_layers} -> {cfg.num_layers}"
+
+
+def _tpf_gates(params) -> None:
+    """Every cross-attention gate at CONTEXT_GATE (a replicated leaf)."""
+    for layer in params["layers"]:
+        for key in ("mix", "xattn"):
+            if "gate" in layer.get(key, {}):
+                layer[key]["gate"].fill_(CONTEXT_GATE)
+
+
+def _tpf_bytes(cfg, mesh_sizes) -> tuple:
+    """(the model's parameter bytes, its replicated leaves' bytes) by the
+    shapes and the specs SERVE_RULES gives them on ``mesh_sizes``."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models.transformer import param_axes, param_shapes
+
+    shapes = param_shapes(cfg)
+    specs = shd.param_shardings(shapes, param_axes(cfg), mesh_sizes,
+                                shd.trim_rules(shd.SERVE_RULES, mesh_sizes))
+    total, rep = [0], [0]
+
+    def one(t, spec):
+        n = t.numel() * t.element_size()
+        total[0] += n
+        if not any(e is not None for e in spec):
+            rep[0] += n
+    shd._walk(one, shapes, specs)
+    return total[0], rep[0]
+
+
+def _in_turns(fn):
+    """``fn()`` on one rank of the bound world at a time, each rank's
+    allocator cache emptied before the next starts: the whole layers a
+    rank draws before it keeps its blocks (deepseek's MoE layer: 7.5 GB,
+    and 5 GB more of float32 while one leaf is drawn) must not be live on
+    4 ranks of one card at once.  Without a world, ``fn()``."""
+    import torch.distributed as tdist
+
+    if not tdist.is_initialized():
+        return fn()
+    out = None
+    for r in range(tdist.get_world_size()):
+        if r == tdist.get_rank():
+            out = fn()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        tdist.barrier()
+    return out
+
+
+def _tpf_engine(arch: str, mp: int, seed: int, dev):
+    """``arch``'s engine at model_parallel ``mp``, built as
+    ``launch.serve.build_engine`` builds it (``serve_mesh``, the seeded
+    ``init_params`` keeping this rank's blocks, ``make_backend``, rank 0's
+    clock), but for the weights drawn one rank at a time
+    (:func:`_in_turns`; ``build_engine`` makes the mesh, a collective, so
+    it cannot run in turns itself)."""
+    from repro_torch.launch.serve import (agreed_clock, make_backend,
+                                          serve_mesh, shard_for)
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousEngine, ServeConfig
+
+    config = ServeConfig(arch=arch, full=True, num_slots=8,
+                         prefill_buckets=TPF_BUCKETS[arch],
+                         max_new_tokens=TPF_NEW, prefill_batch=4, seed=seed,
+                         model_parallel=mp)
+    cfg = _tpf_config(arch)
+    t0 = time.perf_counter()
+    mesh = serve_mesh(config, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(config.seed)
+    params = _in_turns(lambda: init_params(cfg, gen, device=dev,
+                                           shard=shard_for(cfg, mesh)))
+    engine = ContinuousEngine(
+        make_backend(cfg, params, config, dev, mesh), config,
+        clock=time.perf_counter if mesh is None else
+        agreed_clock(time.perf_counter))
+    torch.cuda.synchronize()
+    return engine, time.perf_counter() - t0
+
+
+def _tpf_serve(engine, arch: str, seed: int) -> dict:
+    """A warm-up request, then ``TPF_REQUESTS`` requests of 8 to the
+    largest bucket's tokens at t = 0, ``TPF_NEW`` new tokens, greedy,
+    with the counters set to 0 just before them: -> what the run measured
+    and the logits of the run's first model call (a prefill, or a
+    recurrent arch's first decode step of its prefill loop)."""
+    from repro_torch import dist
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.segment_fold import segment_fold
+    from repro_torch.serving import poisson_trace, serve_trace
+
+    be = engine.backend
+    engine.submit(list(range(1, 9)), max_new_tokens=2)
+    for _ in engine.run(max_steps=64):
+        pass
+    torch.cuda.synchronize()
+    first, calls = {}, {}
+
+    def recording(name, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            first.setdefault("logits", out[0].float().cpu())
+            calls[name] = calls.get(name, 0) + 1
+            return out
+        return call
+    orig = (be.decode, be.prefill)
+    be.decode = recording("decode", be.decode)
+    if be.prefill is not None:
+        be.prefill = recording("prefill", be.prefill)
+    trace = poisson_trace(np.random.default_rng(seed), TPF_REQUESTS, 0.0, 8,
+                          TPF_BUCKETS[arch][-1], be.vocab_size, TPF_NEW)
+    steps0, prefills0 = engine.stats.steps, engine.stats.prefill_calls
+    torch.cuda.reset_peak_memory_stats()
+    dist.reset_counts()
+    segment_fold.launches = flash_attention.launches = 0
+    results, wall = serve_trace(engine, trace, clock=engine.clock)
+    torch.cuda.synchronize()
+    be.decode, be.prefill = orig
+    return dict(wall=wall, logits=first["logits"],
+                tokens=[r.tokens for r in results],
+                ttft=[r.ttft_s for r in results],
+                steps=engine.stats.steps - steps0,
+                prefills=engine.stats.prefill_calls - prefills0,
+                decode_calls=calls.get("decode", 0),
+                flash=flash_attention.launches, fold=segment_fold.launches,
+                counts=dist.counts(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _tpf_whisper(mp: int, seed: int, dev) -> dict:
+    """(d): whisper-small through ``build_serve_step`` at ``mp``:
+    ``make_cache`` (encode 8 x 1500 frames and project the cross K/V;
+    warm, then timed), a prompt of ``TPF_WHISPER_PROMPT`` tokens, then
+    ``TPF_WHISPER_STEPS`` greedy steps (their median step ms)."""
+    from repro_torch import dist
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import num_params
+    from repro_torch.serving import ServeConfig, build_serve_step
+
+    config = ServeConfig(arch=WHISPER, full=True, num_slots=8,
+                         prefill_buckets=(16,), max_new_tokens=32,
+                         seed=seed, model_parallel=mp)
+    t0 = time.perf_counter()
+    cfg, built, params, make_cache = build_serve_step(
+        config, device=dev, model_config=_tpf_config(WHISPER))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    make_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    dist.reset_counts()
+    t0 = time.perf_counter()
+    cache = make_cache()
+    torch.cuda.synchronize()
+    cache_ms = (time.perf_counter() - t0) * 1e3
+    cache_launches, cache_counts = flash_attention.launches, dist.counts()
+    prompt = torch.from_numpy(np.random.default_rng(seed + 19).integers(
+        1, cfg.vocab_size, (built.num_slots, TPF_WHISPER_PROMPT)).astype(
+            np.int32)).to(dev)
+    flash_attention.launches = 0
+    for i in range(TPF_WHISPER_PROMPT):
+        logits, cache = built.fn(params, cache, prompt[:, i:i + 1])
+    first_logits = logits[:, -1].float().cpu()
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    toks, ms = [tok.cpu()], []
+    dist.reset_counts()
+    for _ in range(TPF_WHISPER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = built.fn(params, cache, tok)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok.cpu())
+    return dict(init_s=init_s, cache_ms=cache_ms,
+                cache_launches=cache_launches, cache_counts=cache_counts,
+                step_launches=flash_attention.launches,
+                step_counts=dist.counts(), step_ms=float(np.median(ms)),
+                tokens=torch.cat(toks, 1), logits=first_logits,
+                params_local=num_params(params),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _tpf_steps(arch: str, mesh, seed: int, dev) -> dict:
+    """(e): ``arch`` at phase 19's depth through ``make_prefill_step`` (a
+    ``TPF_PREFILL`` bucket, the context of ``context_spec``) and
+    ``make_decode_step`` (``TPF_DECODE_ROWS`` rows over a
+    ``TPF_DECODE_SEQ``-row cache, a scalar position), on ``mesh`` or on
+    one rank (None): the prefill's last-position logits, its wall ms and
+    launches, and the decode step's median ms.  An MoE model's expert
+    capacity on the mesh holds every routed pair, as the engine's does."""
+    from repro_torch import dist
+    from repro_torch.configs import ShapeCell, context_spec
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import shard_for
+    from repro_torch.launch.steps import (make_cache, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, num_params, unembed)
+
+    cfg = _tpf_config(arch)
+    if mesh is not None and cfg.num_experts:
+        # the expert capacity the engine serves with (launch/serve.py):
+        # every routed pair, so the cut model computes one rank's function
+        # (the reference's 1.25 drops pairs of a (4, 64) bucket)
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=max(
+            cfg.moe_capacity_factor, float(TPF_WORLD)))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = _in_turns(lambda: init_params(cfg, gen, device=dev,
+                                           shard=shard_for(cfg, mesh)))
+    _tpf_gates(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S = TPF_PREFILL
+    dgen = torch.Generator(device=dev).manual_seed(seed + 19)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, S),
+                                     generator=dgen, device=dev,
+                                     dtype=torch.int32)}
+    spec = context_spec(cfg, B)
+    if spec is not None:
+        batch["context"] = torch.randn(spec.shape, generator=dgen,
+                                       device=dev).to(spec.dtype)
+    if mesh is not None:
+        pstep = make_prefill_step(cfg, mesh, ShapeCell("p", "prefill", S, B))
+        dstep = make_decode_step(cfg, mesh, ShapeCell(
+            "d", "decode", TPF_DECODE_SEQ, TPF_DECODE_ROWS))
+
+        def prefill():
+            return pstep.fn(params, batch)
+
+        state = {"cache": make_cache(dstep, cfg, params, TPF_DECODE_ROWS,
+                                     TPF_DECODE_SEQ)}
+
+        def decode(tok):
+            logits, state["cache"] = dstep.fn(params, state["cache"], tok)
+            return logits
+    else:
+        def prefill():
+            with torch.no_grad():
+                h = forward(params, cfg, batch["tokens"],
+                            context=batch.get("context"))
+                return unembed(params, cfg, h[:, -1:])
+
+        state = {"cache": init_cache(params, cfg, TPF_DECODE_ROWS,
+                                     TPF_DECODE_SEQ)}
+
+        def decode(tok):
+            logits, state["cache"] = decode_step(params, cfg,
+                                                 state["cache"], tok)
+            return logits
+    prefill()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    dist.reset_counts()
+    t0 = time.perf_counter()
+    logits = prefill()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches, prefill_counts = flash_attention.launches, \
+        dist.counts()
+    tok = torch.ones((TPF_DECODE_ROWS, 1), dtype=torch.int32, device=dev)
+    decode(tok)
+    flash_attention.launches = 0
+    dist.reset_counts()
+    ms = []
+    for _ in range(TPF_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(tok)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {ax: {k: c[k] / TPF_TIMED for k in ("calls", "wire_bytes")}
+              for ax, c in dist.counts().items()}
+    return dict(init_s=init_s, logits=logits[:, -1].float().cpu(),
+                prefill_ms=prefill_ms, prefill_launches=prefill_launches,
+                prefill_counts=prefill_counts, decode_ms=float(np.median(ms)),
+                decode_launches=flash_attention.launches,
+                decode_counts=counts, params_local=num_params(params),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _tpf_smoke_trace(vocab: int, seed: int):
+    """(a)'s engine trace: 4 requests of 5-12 tokens, 6 new tokens each."""
+    rng = np.random.default_rng(seed)
+    return [(i // 2, rng.integers(1, vocab, int(rng.integers(5, 13))
+                                  ).tolist(), 6) for i in range(4)]
+
+
+def _tpf_smoke_tokens(arch, cfg, params, context, mp: int, seed: int, dev):
+    """(a)'s tokens at model_parallel ``mp`` (1: this rank alone) and the
+    launches they made: the engine's (MLA, recurrent) or
+    ``build_serve_step``'s greedy steps from a fixed token (context)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.segment_fold import segment_fold
+    from repro_torch.serving import (ServeConfig, build_engine,
+                                     build_serve_step)
+
+    segment_fold.launches = flash_attention.launches = 0
+    if context is None:
+        config = ServeConfig(arch=arch, num_slots=2,
+                             prefill_buckets=(16,), max_new_tokens=6,
+                             prefill_batch=2, temperature=0.0, eos_id=-1,
+                             model_parallel=mp, seed=seed)
+        eng = build_engine(config, device=dev, params=params,
+                           model_config=cfg)
+        toks = _tp_serve(eng, _tpf_smoke_trace(cfg.vocab_size, seed))
+        return toks, dict(fold=segment_fold.launches, steps=eng.stats.steps,
+                          flash=flash_attention.launches,
+                          prefills=eng.stats.prefill_calls)
+    config = ServeConfig(arch=arch, num_slots=context.shape[0],
+                         prefill_buckets=(16,), max_new_tokens=8,
+                         model_parallel=mp, seed=seed)
+    _, built, p_m, make_cache = build_serve_step(
+        config, device=dev, params=params, model_config=cfg, context=context)
+    cache = make_cache()
+    cache_flash = flash_attention.launches
+    tok = torch.ones((context.shape[0], 1), dtype=torch.int32, device=dev)
+    out = []
+    for _ in range(6):
+        logits, cache = built.fn(p_m, cache, tok)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        out.append(tok)
+    return torch.cat(out, 1).tolist(), dict(
+        cache_flash=cache_flash,
+        step_flash=flash_attention.launches - cache_flash)
+
+
+def _tpf_smoke(meshes: dict, seed: int, dev) -> list:
+    """(a): each f32 smoke model on each mesh of ``meshes`` ({model
+    parallel: mesh}) against this rank alone (no mesh), the same weights:
+    ``forward`` logits (with the context), the decode step's logits and
+    cache after 8 tokens (every leaf's block against one rank's cache cut
+    by its spec), the tokens of :func:`_tpf_smoke_tokens` and the launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import cache_shardings
+    from repro_torch.models import (RunCtx, context_conditioned, decode_step,
+                                    forward, init_cache, init_params,
+                                    unembed)
+    from repro_torch.models.transformer import param_axes
+
+    rows = []
+    for arch in TPF_SMOKE:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype=torch.float32)
+        if context_conditioned(cfg):
+            cfg, params, context = context_model(arch, seed,
+                                                 dtype=torch.float32,
+                                                 device=dev, batch=4)
+        else:
+            params = init_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(seed), device=dev)
+            context = None
+        toks = torch.from_numpy(np.random.default_rng(seed).integers(
+            1, cfg.vocab_size, (4, 8)).astype(np.int32)).to(dev)
+        with torch.no_grad():
+            want = unembed(params, cfg, forward(params, cfg, toks,
+                                                context=context))
+        c1 = init_cache(params, cfg, 4, 16, context=context)
+        dec1 = []
+        for t in range(toks.shape[1]):
+            logits, c1 = decode_step(params, cfg, c1, toks[:, t:t + 1])
+            dec1.append(logits)
+        one_toks, one_counts = _tpf_smoke_tokens(arch, cfg, params, context,
+                                                 1, seed, dev)
+        for mp, mesh in meshes.items():
+            ctx = RunCtx(mesh=mesh)
+            local = shd.shard_params(params, param_axes(cfg), mesh,
+                                     shd.SERVE_RULES)
+            # the expert capacity the engine serves with: every routed
+            # pair (one rank routes with none; the reference's 1.25 drops
+            # some)
+            cfg_tp = dataclasses.replace(cfg,
+                                         moe_capacity_factor=float(mp))
+            with torch.no_grad():
+                flash_attention.launches = 0
+                h = forward(local, cfg_tp, toks, context=context, ctx=ctx)
+                with shd.use_rules(mesh, shd.SERVE_RULES):
+                    got = unembed(local, cfg_tp, h)
+            row = dict(mp=mp, arch=arch, logits_err=max_err(got, want),
+                       forward_flash=flash_attention.launches)
+            cm = init_cache(local, cfg, 4, 16, context=context, ctx=ctx)
+            errs = []
+            for t in range(toks.shape[1]):
+                logits, cm = decode_step(local, cfg_tp, cm, toks[:, t:t + 1],
+                                         ctx=ctx)
+                errs.append(max_err(logits, dec1[t]))
+            row["decode_err"] = max(errs)
+            rules = dict(shd.trim_rules(shd.SERVE_RULES, mesh), batch=None)
+            specs = cache_shardings(c1, mesh, rules)
+            cache_err = 0.0
+            for layer1, layerm, sp in zip(c1["layers"], cm["layers"],
+                                          specs["layers"]):
+                for k, t1 in layer1.items():
+                    block = shd.block_of(t1, sp[k], mesh)
+                    if tuple(block.shape) != tuple(layerm[k].shape):
+                        raise RuntimeError(
+                            f"{arch} mp={mp}: cache leaf {k} "
+                            f"{tuple(layerm[k].shape)} where one rank's "
+                            f"block is {tuple(block.shape)}")
+                    cache_err = max(cache_err, max_err(layerm[k], block))
+            row["cache_err"] = cache_err
+            mp_toks, mp_counts = _tpf_smoke_tokens(arch, cfg, params,
+                                                   context, mp, seed, dev)
+            row["tokens_equal"] = one_toks == mp_toks
+            row.update({f"{k}_1": v for k, v in one_counts.items()})
+            row.update({f"{k}_{mp}": v for k, v in mp_counts.items()})
+            rows.append(row)
+    return rows
+
+
+def _tpf_rank(rank, world, store_path, args, ref_path, device="cuda:0"):
+    """Phase 19 on ``world`` gloo ranks sharing cuda:0: (a) the smoke
+    models at model_parallel 2 and 4, then (b)-(e) at full width on model
+    4, each freed before the next."""
+    import gc
+
+    from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
+                                         make_mesh)
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("gloo", rank, world, _store(store_path, world),
+                     device=dev)
+    from repro_torch.models import num_params
+
+    def done(part, t0):
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            print(f"tpf rank 0: {part} took {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = {"smoke": _tpf_smoke(
+        {mp: make_mesh((world // mp, mp), ("data", "model"), device=dev)
+         for mp in (2, 4)}, args.seed, dev)}
+    out["smoke_s"] = done("(a)", t0)
+    for arch in (DEEPSEEK, XLSTM):
+        t0 = time.perf_counter()
+        engine, init_s = _tpf_engine(arch, world, args.seed, dev)
+        out[arch] = _tpf_serve(engine, arch, args.seed)
+        out[arch].update(init_s=init_s,
+                         params_local=num_params(engine.backend.params))
+        del engine
+        out[arch]["part_s"] = done(arch, t0)
+    t0 = time.perf_counter()
+    out[WHISPER] = _tpf_whisper(world, args.seed, dev)
+    out[WHISPER]["part_s"] = done(WHISPER, t0)
+    mesh = make_host_mesh(model=world, device=dev)
+    for arch in (JAMBA, VISION):
+        t0 = time.perf_counter()
+        out[arch] = _tpf_steps(arch, mesh, args.seed, dev)
+        out[arch]["part_s"] = done(arch, t0)
+    return out
+
+
+def _tpf_references(args, dev, path: str) -> dict:
+    """The one-rank runs (b)-(e) are held against, in this process, each
+    freed before the next (the one-rank models and a rank's blocks do not
+    all fit 80 GB at once)."""
+    import gc
+
+    from repro_torch.models import num_params
+
+    ref = {}
+    for arch in (DEEPSEEK, XLSTM):
+        engine, init_s = _tpf_engine(arch, 1, args.seed, dev)
+        ref[arch] = _tpf_serve(engine, arch, args.seed)
+        ref[arch].update(init_s=init_s,
+                         params=num_params(engine.backend.params))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref[WHISPER] = _tpf_whisper(1, args.seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in (JAMBA, VISION):
+        ref[arch] = _tpf_steps(arch, None, args.seed, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(ref, path)
+    return ref
+
+
+def _tpf_check_smoke(rank: int, rows: list) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import context_conditioned
+
+    for row in rows:
+        cfg = get_config(row["arch"], smoke=True)
+        what = f"rank {rank} {row['arch']} smoke f32 mp={row['mp']}"
+        bad = []
+        for key in ("logits_err", "decode_err", "cache_err"):
+            if not row[key] <= 1e-4:
+                bad.append(f"{key} {row[key]}")
+        if not row["tokens_equal"]:
+            bad.append("greedy tokens differ from one rank's")
+        attn = sum(cfg.block_type(i) in ("attn", "local", "xattn")
+                   for i in range(cfg.num_layers)) + cfg.encoder_layers
+        if cfg.decoder_cross_attn:
+            attn += sum(cfg.block_type(i) in ("attn", "local")
+                        for i in range(cfg.num_layers))
+        if row["forward_flash"] != attn:
+            bad.append(f"flash_attention {row['forward_flash']} launches in "
+                       f"one forward; {attn} attention layers")
+        for m in (1, row["mp"]):
+            if context_conditioned(cfg):
+                if row[f"cache_flash_{m}"] != cfg.encoder_layers or \
+                        row[f"step_flash_{m}"] != 0:
+                    bad.append(f"flash_attention {row[f'cache_flash_{m}']} "
+                               f"launches in make_cache, "
+                               f"{row[f'step_flash_{m}']} in the steps "
+                               f"(mp={m})")
+                continue
+            if row[f"fold_{m}"] != row[f"steps_{m}"]:
+                bad.append(f"segment_fold {row[f'fold_{m}']} over "
+                           f"{row[f'steps_{m}']} steps (mp={m})")
+            n_attn = 0 if any(cfg.block_type(i) in ("mamba", "mlstm",
+                                                    "slstm")
+                              for i in range(cfg.num_layers)) else attn
+            if row[f"flash_{m}"] != n_attn * row[f"prefills_{m}"]:
+                bad.append(f"flash_attention {row[f'flash_{m}']} over "
+                           f"{row[f'prefills_{m}']} prefill calls (mp={m})")
+        if bad:
+            raise RuntimeError(f"{what}: {'; '.join(bad)}")
+        print(f"  {what}: forward logits max_abs_err={row['logits_err']} "
+              f"decode logits {row['decode_err']} cache blocks "
+              f"{row['cache_err']} (<= 1e-4) tokens == one rank's "
+              f"flash_attention.launches={row['forward_flash']} a forward",
+              flush=True)
+
+
+def _tpf_check_bytes(arch: str, cfg, ranks, key: str, one_params) -> str:
+    total, rep = _tpf_bytes(cfg, {"data": 1, "model": TPF_WORLD})
+    itemsize = torch.finfo(cfg.dtype).bits // 8
+    want = (total - rep) / TPF_WORLD + rep
+    got = [r[arch][key] * itemsize for r in ranks]
+    if one_params * itemsize != total:
+        raise RuntimeError(f"{arch}: one rank's {one_params * itemsize} "
+                           f"parameter bytes != the shapes' {total}")
+    for r, b in enumerate(got):
+        if abs(b - want) > 0.1 * want:
+            raise RuntimeError(f"{arch}: rank {r} holds {b} parameter bytes;"
+                               f" (model {total} - replicated {rep}) / "
+                               f"{TPF_WORLD} + replicated = {want}")
+    return (f"parameter bytes a rank {got} (want (model {total} - "
+            f"replicated {rep}) / {TPF_WORLD} + replicated = {want}, "
+            f"within 10%)")
+
+
+def _tpf_per_step(counts: dict, steps: int) -> dict:
+    return {ax: {k: c[k] / max(steps, 1) for k in ("calls", "wire_bytes")}
+            for ax, c in counts.items()}
+
+
+def tp_families_phase(args, gen, dev) -> None:
+    """Phase 19: the mesh tier's serve half for MLA, the recurrent and the
+    context families.  ``flash_attention`` at the shapes a rank at
+    model_parallel 4 gives it (v1-v4) against its plain version; then the
+    one-rank runs (b)-(e) in this process; then ONE world of 4 gloo ranks
+    on cuda:0 (NCCL refuses two ranks on one card): (a) the five f32 smoke
+    models at model_parallel 2 and 4 against one rank (logits, cache
+    blocks, tokens, launches), (b) deepseek-v2-236b at 4 of 60 layers
+    and (c) xlstm-1.3b at one period through the engine (``build_engine``'s
+    parts, :func:`_tpf_engine`), (d)
+    whisper-small through ``build_serve_step``, (e) jamba one period and
+    llama-3.2-vision one period through the prefill and decode steps, all
+    at full width on model 4.  The wires are host loopback: no time here
+    is a speed claim."""
+    from repro_torch.launch.mesh import run_world
+
+    rows = path_flash_cases(TPF_FLASH_CASES, "a rank's shapes (phase 19)",
+                            gen, dev)
+    mla = run_mla_flash_case(TPF_MLA_CASE, gen, dev)
+    print_row("flash_attention", mla)
+    print(f"  launches={mla['launches']} cuda_launches="
+          f"{mla['cuda_launches']} device_ms={mla['device_ms']} (graph "
+          f"replay) SDPA: library_device_ms={mla['library_device_ms']} "
+          f"backend={mla['library_backend']} flops={mla['flops']} bytes="
+          f"{mla['bound_bytes']}"
+          + "".join(f" {k}={v}" for k, v in mla["controls"].items()),
+          flush=True)
+    if not mla["ok"]:
+        raise RuntimeError(f"flash_attention at {mla['name']}")
+    del rows
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(_HERE, "build"), exist_ok=True)
+    ref_path = os.path.join(_HERE, "build", f"tpf_ref_{os.getpid()}.pt")
+    ref = _tpf_references(args, dev, ref_path)
+    print(f"tpf one-rank references (b)-(e): {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = run_world(_tpf_rank, TPF_WORLD, args=(args, ref_path),
+                          timeout_s=900)
+    finally:
+        os.remove(ref_path)
+    print(f"tpf world of {TPF_WORLD} gloo ranks on one card: spawn + run "
+          f"{time.perf_counter() - t0:.1f}s (smoke "
+          f"{ranks[0]['smoke_s']:.1f}s)", flush=True)
+    for rank, res in enumerate(ranks):
+        _tpf_check_smoke(rank, res["smoke"])
+
+    # (b), (c): the engines
+    for arch in (DEEPSEEK, XLSTM):
+        cfg = _tpf_config(arch)
+        one, r0 = ref[arch], ranks[0][arch]
+        n_attn = 0 if arch == XLSTM else cfg.num_layers
+        for rank, res in enumerate(ranks):
+            got = res[arch]
+            if got["flash"] != n_attn * got["prefills"]:
+                raise RuntimeError(f"rank {rank} {arch}: flash_attention "
+                                   f"{got['flash']} launches over "
+                                   f"{got['prefills']} prefill calls")
+            if got["fold"] <= 0 or got["fold"] != got["steps"]:
+                raise RuntimeError(f"rank {rank} {arch}: segment_fold "
+                                   f"{got['fold']} over {got['steps']} "
+                                   "decode steps")
+            if got["tokens"] != r0["tokens"]:
+                raise RuntimeError(f"rank {rank} {arch} sampled other "
+                                   "tokens than rank 0")
+        if r0["tokens"][0][0] != one["tokens"][0][0]:
+            raise RuntimeError(f"{arch}: the first greedy token "
+                               f"{r0['tokens'][0][0]} != one rank's "
+                               f"{one['tokens'][0][0]}")
+        bytes_line = _tpf_check_bytes(arch, cfg, ranks, "params_local",
+                                      one["params"])
+        gen_n = sum(map(len, r0["tokens"]))
+        ttft = np.array(r0["ttft"])
+        firsts = sum(a[0] == b[0] for a, b in zip(r0["tokens"],
+                                                  one["tokens"]))
+        whole = sum(a == b for a, b in zip(r0["tokens"], one["tokens"]))
+        print(f"tpf ({'b' if arch == DEEPSEEK else 'c'}) {arch} "
+              f"model_parallel={TPF_WORLD} ({_tpf_reduced(arch)}): "
+              f"init_s={[r[arch]['init_s'] for r in ranks]} "
+              f"part_s={r0['part_s']} generated_tokens={gen_n} wall_s="
+              f"{r0['wall']} tokens_per_s={gen_n / r0['wall']} "
+              f"ttft_p50_ms={np.percentile(ttft, 50) * 1e3} ttft_p99_ms="
+              f"{np.percentile(ttft, 99) * 1e3} step_ms="
+              f"{1e3 * r0['wall'] / r0['steps']} (wall / engine steps) "
+              f"steps={r0['steps']} model_calls={r0['decode_calls']} decode "
+              f"+ {r0['prefills']} prefill flash_attention.launches="
+              f"{r0['flash']} (== {n_attn} x prefill calls on every rank) "
+              f"segment_fold.launches={r0['fold']} (== steps) "
+              f"collectives_per_model_call="
+              f"{_tpf_per_step(r0['counts'], r0['decode_calls'] + r0['prefills'])}"
+              f" peak_mem_GiB={[r[arch]['peak_gib'] for r in ranks]}",
+              flush=True)
+        print(f"  one rank: tokens_per_s="
+              f"{sum(map(len, one['tokens'])) / one['wall']} ttft_p50_ms="
+              f"{np.percentile(np.array(one['ttft']), 50) * 1e3} step_ms="
+              f"{1e3 * one['wall'] / one['steps']} peak_mem_GiB="
+              f"{one['peak_gib']}; first greedy token equal in {firsts}/"
+              f"{len(one['tokens'])} requests (request 0 checked), whole "
+              f"sequences in {whole}/{len(one['tokens'])}; the first model "
+              f"call's logits max_abs_diff (bf16 drift)="
+              f"{max_err(r0['logits'], one['logits'])}; {bytes_line}",
+              flush=True)
+
+    # (d): whisper through build_serve_step
+    cfg = _tpf_config(WHISPER)
+    one, r0 = ref[WHISPER], ranks[0][WHISPER]
+    for rank, res in enumerate(ranks):
+        got = res[WHISPER]
+        if got["cache_launches"] != cfg.encoder_layers or \
+                got["step_launches"] != 0:
+            raise RuntimeError(f"rank {rank} whisper: flash_attention "
+                               f"{got['cache_launches']} launches in "
+                               f"make_cache (want {cfg.encoder_layers}), "
+                               f"{got['step_launches']} in the steps")
+        if not torch.equal(got["tokens"], r0["tokens"]):
+            raise RuntimeError(f"rank {rank} whisper: other tokens than "
+                               "rank 0")
+    if not torch.equal(r0["tokens"][:, 0], one["tokens"][:, 0]):
+        raise RuntimeError("whisper: the first greedy tokens differ from "
+                           "one rank's")
+    bytes_line = _tpf_check_bytes(WHISPER, cfg, ranks, "params_local",
+                                  one["params_local"])
+    print(f"tpf (d) {WHISPER} model_parallel={TPF_WORLD} (nothing cut, 8 "
+          f"slots over 8 x {cfg.encoder_seq} frames): make_cache wall_ms="
+          f"{r0['cache_ms']} (one rank {one['cache_ms']}) "
+          f"flash_attention.launches={r0['cache_launches']} (== "
+          f"{cfg.encoder_layers}) collectives={r0['cache_counts']}; step_ms "
+          f"(median of {TPF_WHISPER_STEPS} greedy) {r0['step_ms']} (one "
+          f"rank {one['step_ms']}) collectives_per_step="
+          f"{_tpf_per_step(r0['step_counts'], TPF_WHISPER_STEPS)} "
+          f"tokens_per_s={8 * 1e3 / r0['step_ms']}; first greedy tokens "
+          f"equal (8 slots), whole sequences equal in "
+          f"{int((r0['tokens'] == one['tokens']).all(1).sum())}/8; the "
+          f"prompt's last logits max_abs_diff (bf16 drift)="
+          f"{max_err(r0['logits'], one['logits'])}; peak_mem_GiB="
+          f"{[r[WHISPER]['peak_gib'] for r in ranks]} init_s="
+          f"{[r[WHISPER]['init_s'] for r in ranks]}; {bytes_line}",
+          flush=True)
+
+    # (e): jamba and the vision model through the steps
+    for arch in (JAMBA, VISION):
+        cfg = _tpf_config(arch)
+        one, r0 = ref[arch], ranks[0][arch]
+        attn = sum(cfg.block_type(i) in ("attn", "local", "xattn")
+                   for i in range(cfg.num_layers))
+        for rank, res in enumerate(ranks):
+            got = res[arch]
+            if got["prefill_launches"] != attn or got["decode_launches"]:
+                raise RuntimeError(f"rank {rank} {arch}: flash_attention "
+                                   f"{got['prefill_launches']} launches in "
+                                   f"the prefill (want {attn}), "
+                                   f"{got['decode_launches']} in the "
+                                   "decode steps")
+            if not torch.equal(got["logits"].argmax(-1),
+                               r0["logits"].argmax(-1)):
+                raise RuntimeError(f"rank {rank} {arch}: other greedy "
+                                   "tokens than rank 0")
+        if not torch.equal(r0["logits"].argmax(-1)[:1],
+                           one["logits"].argmax(-1)[:1]):
+            raise RuntimeError(f"{arch}: the first greedy token differs "
+                               "from one rank's")
+        same = int((r0["logits"].argmax(-1) == one["logits"].argmax(-1))
+                   .sum())
+        bytes_line = _tpf_check_bytes(arch, cfg, ranks, "params_local",
+                                      one["params_local"])
+        print(f"tpf (e) {arch} model_parallel={TPF_WORLD} "
+              f"({_tpf_reduced(arch)}): prefill {TPF_PREFILL} wall_ms="
+              f"{r0['prefill_ms']} (one rank {one['prefill_ms']}) "
+              f"flash_attention.launches={r0['prefill_launches']} (== "
+              f"{attn}) collectives={r0['prefill_counts']}; decode step "
+              f"({TPF_DECODE_ROWS} rows, {TPF_DECODE_SEQ}-row cache) ms="
+              f"{r0['decode_ms']} (one rank {one['decode_ms']}) "
+              f"collectives_per_step={r0['decode_counts']}; first greedy "
+              f"token equal, {same}/{TPF_PREFILL[0]} rows' greedy tokens "
+              f"equal; last-position logits max_abs_diff (bf16 drift)="
+              f"{max_err(r0['logits'], one['logits'])}; peak_mem_GiB="
+              f"{[r[arch]['peak_gib'] for r in ranks]} init_s="
+              f"{[r[arch]['init_s'] for r in ranks]}; {bytes_line}",
+              flush=True)
 
 
 def main(argv=None) -> int:
@@ -5441,11 +6279,15 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-only", action="store_true",
                     help="run phases 1 and 17 (the mesh tier's serve half) "
                          "only and print no record")
-    ap.add_argument("--tp-layers", type=int, default=TP_FULL_LAYERS,
+    ap.add_argument("--tp-layers", type=int, default=TP_LAYERS,
                     help="qwen2-moe-a2.7b layers served in phase 17(b)")
     ap.add_argument("--train-mesh-only", action="store_true",
                     help="run phases 1 and 18 (the mesh tier's train half) "
                          "only and print no record")
+    ap.add_argument("--tp-families-only", action="store_true",
+                    help="run phases 1 and 19 (MLA, the recurrent and the "
+                         "context families across ranks) only and print no "
+                         "record")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5515,6 +6357,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         train_mesh_phase(args, dev)
         print(f"phase 18 took {time.perf_counter() - t0:.1f}s", flush=True)
+        print(f"card: {card}")
+        return 0
+    if args.tp_families_only:
+        t0 = time.perf_counter()
+        tp_families_phase(args, gen, dev)
+        print(f"phase 19 took {time.perf_counter() - t0:.1f}s", flush=True)
         print(f"card: {card}")
         return 0
     rows = []
@@ -5669,6 +6517,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     train_mesh_phase(args, dev)
     print(f"phase 18 took {time.perf_counter() - t0:.1f}s", flush=True)
+    # phase 19: MLA, the recurrent and the context families across ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_families_phase(args, gen, dev)
+    print(f"phase 19 took {time.perf_counter() - t0:.1f}s", flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

@@ -26,6 +26,19 @@ activation block has the shape its logical names give it and moves no
 data.  A mesh is a ``DeviceMesh`` or, for the functions that need no
 world (:func:`trim_rules`, :func:`spec_for`, :func:`param_shardings`), a
 ``{axis name: size}`` mapping.
+
+A leaf may pack equal parts side by side along one dimension (Mamba's
+``w_in`` and mLSTM's ``w_up``: x, then the gate z, each ``d_inner``
+wide).  Its logical name is then :class:`Packed` (the plain name with a
+part count), and a cut of that dimension cuts every part alike: a rank's
+block holds its channels' x columns, then the same channels' z columns,
+so it lines up with the per-channel leaves (the conv, ``A_log``,
+``ln_g``, the state) and the model splits it with no collective.
+:func:`spec_for` gives such a dimension a spec entry that equals the plain
+one (so specs compare equal to the reference's) and carries the part
+count, which :func:`block_of`, :func:`gather_leaf` and
+:func:`gather_params` read: they stay inverse to each other, and the
+whole leaf (a checkpoint's layout) is the reference's.
 """
 from __future__ import annotations
 
@@ -36,7 +49,7 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 
 import torch
 
-from . import axis_index, axis_names, mesh_axis_sizes
+from . import axis_index, mesh_axis_sizes
 
 Pytree = Any
 Rules = Dict[str, Any]          # logical name -> mesh axis | tuple | None
@@ -71,13 +84,55 @@ TRAIN_RULES: Rules = {
 SERVE_RULES: Rules = dict(TRAIN_RULES, batch=("data",))
 
 
+class Packed(str):
+    """The logical name of a dimension that packs ``parts`` equal blocks
+    side by side: the plain name to the rule tables and to comparisons."""
+
+    def __new__(cls, name: str, parts: int):
+        out = super().__new__(cls, name)
+        out.parts = int(parts)
+        return out
+
+    def __reduce__(self):
+        return Packed, (str(self), self.parts)
+
+
+class _PackedAxis(str):
+    """A spec entry (one mesh axis) of a packed dimension."""
+
+    def __new__(cls, axis: str, parts: int):
+        out = super().__new__(cls, axis)
+        out.parts = parts
+        return out
+
+    def __reduce__(self):
+        return _PackedAxis, (str(self), self.parts)
+
+
+class _PackedAxes(tuple):
+    """A spec entry (a tuple of mesh axes) of a packed dimension."""
+
+    def __new__(cls, axes, parts: int):
+        out = super().__new__(cls, axes)
+        out.parts = parts
+        return out
+
+    def __reduce__(self):
+        return _PackedAxes, (tuple(self), self.parts)
+
+
+def parts_of(entry) -> int:
+    """How many packed parts a spec entry's dimension holds (1: none)."""
+    return getattr(entry, "parts", 1)
+
+
 def _axes_tuple(rule: Any) -> Tuple[str, ...]:
     """Normalize a rule value (str | tuple | None) to a tuple of mesh axes."""
     if rule is None:
         return ()
     if isinstance(rule, str):
-        return (rule,)
-    return tuple(rule)
+        return (str(rule),)
+    return tuple(str(a) for a in rule)
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:
@@ -116,7 +171,9 @@ def spec_for(names: Sequence[Optional[str]], rules: Rules, mesh, *,
       * if ``shape`` is given, the kept axes' product divides the dimension.
 
     ``names`` may be shorter than the tensor rank (unnamed trailing
-    dimensions are replicated).
+    dimensions are replicated).  A :class:`Packed` name's parts are cut
+    alike: the kept axes must divide one part, and the entry carries the
+    part count.
     """
     names = tuple(names)
     sizes = mesh_sizes(mesh)
@@ -126,16 +183,22 @@ def spec_for(names: Sequence[Optional[str]], rules: Rules, mesh, *,
     entries: List[Any] = []
     for i, name in enumerate(names):
         kept, prod = [], 1
+        parts = getattr(name, "parts", 1)
         for a in _axes_tuple(rules.get(name)) if name is not None else ():
             if a not in sizes or a in used:
                 continue
-            if shape is not None and shape[i] % (prod * sizes[a]) != 0:
+            if shape is not None and (shape[i] % parts or
+                                      (shape[i] // parts) %
+                                      (prod * sizes[a]) != 0):
                 continue
             kept.append(a)
             used.add(a)
             prod *= sizes[a]
-        entries.append(tuple(kept) if len(kept) > 1 else
-                       (kept[0] if kept else None))
+        entry = tuple(kept) if len(kept) > 1 else (kept[0] if kept else None)
+        if entry is not None and parts > 1:
+            entry = _PackedAxes(entry, parts) if len(kept) > 1 else \
+                _PackedAxis(entry, parts)
+        entries.append(entry)
     while entries and entries[-1] is None:   # trailing Nones are noise
         entries.pop()
     return tuple(entries)
@@ -200,15 +263,20 @@ def block_of(x: torch.Tensor, spec: Spec, mesh,
     """This rank's block of ``x`` under ``spec`` (a copy of its own when a
     dimension is cut, so the full tensor can be freed: a narrowed view
     would keep the whole storage); ``coords`` ({axis: index}) stands for
-    the rank on a mapping mesh."""
+    the rank on a mapping mesh.  A packed dimension gives the rank its
+    block of every part, the parts in order."""
     sizes, coords = mesh_sizes(mesh), _coords(mesh, coords)
     out = x
     for d, entry in enumerate(spec):
         if entry is None:
             continue
-        idx, parts = _block_index(entry, sizes, coords)
-        n = x.shape[d] // parts
-        out = out.narrow(d, idx * n, n)
+        idx, blocks = _block_index(entry, sizes, coords)
+        k = parts_of(entry)
+        part = x.shape[d] // k
+        n = part // blocks
+        out = torch.cat([out.narrow(d, j * part + idx * n, n)
+                         for j in range(k)], d) if k > 1 else \
+            out.narrow(d, idx * n, n)
     return out.clone(memory_format=torch.contiguous_format) \
         if out is not x else x
 
@@ -234,9 +302,15 @@ def gather_leaf(block: torch.Tensor, spec: Spec, mesh=None) -> torch.Tensor:
         for d, entry in enumerate(spec):
             if entry is None:
                 continue
-            names = axis_names(entry)
-            out = all_gather(out.movedim(d, 0), names,
-                             tiled=True).movedim(0, d)
+            k = parts_of(entry)
+            names = _axes_tuple(entry)
+            if k > 1:               # each part's blocks, then the parts
+                out = all_gather(out.unflatten(d, (k, -1)).movedim(d + 1, 0),
+                                 names, tiled=True).movedim(0, d + 1)
+                out = out.flatten(d, d + 1)
+            else:
+                out = all_gather(out.movedim(d, 0), names,
+                                 tiled=True).movedim(0, d)
     return out.contiguous()
 
 
@@ -250,13 +324,18 @@ def _assemble_leaf(blocks: List[torch.Tensor], spec: Spec, mesh,
         for n in reversed(names):             # row-major rank order
             coords[n] = rest % sizes[n]
             rest //= sizes[n]
-        view = out
+        view, shift = out, 0
         for d, entry in enumerate(spec):
             if entry is None:
                 continue
-            idx, parts = _block_index(entry, sizes, coords)
-            n = shape[d] // parts
-            view = view.narrow(d, idx * n, n)
+            idx, nb = _block_index(entry, sizes, coords)
+            k, dd = parts_of(entry), d + shift
+            if k > 1:              # the block of every part: one more dim
+                view = view.unflatten(dd, (k, -1))
+                block = block.unflatten(dd, (k, -1))
+                shift, dd = shift + 1, dd + 1
+            n = view.shape[dd] // nb
+            view = view.narrow(dd, idx * n, n)
         if r and _is_copy(spec, sizes, coords) and \
                 not torch.equal(view, block):
             raise ValueError(f"rank {r}'s replicated block differs")
@@ -362,6 +441,36 @@ def block_start(axes: Tuple[str, ...], size: int) -> int:
     return axis_index(axes) * (size // axis_size(axes))
 
 
+def local_shape(names: Sequence[Optional[str]],
+                shape: Sequence[int]) -> Tuple[int, ...]:
+    """The shape of this rank's block of a ``shape`` tensor with logical
+    ``names`` in the active scope (``shape`` outside one)."""
+    scope = _ACTIVE.get()
+    if scope is None:
+        return tuple(shape)
+    mesh, rules = scope
+    return block_shape(shape, spec_for(tuple(names), rules, mesh,
+                                       shape=tuple(shape)), mesh)
+
+
+def reblock(x: torch.Tensor, dim: int, size: int, have: Tuple[str, ...],
+            want: Tuple[str, ...]) -> torch.Tensor:
+    """``x``, this rank's block along ``dim`` of a ``size``-long dimension
+    cut over the mesh axes ``have`` (() when whole), as the block ``want``
+    gives this rank: ``x`` itself when the two agree, else gathered over
+    ``have`` and cut to ``want``'s block."""
+    have, want = tuple(have), tuple(want)
+    if have == want:
+        return x
+    from . import all_gather, axis_size
+    if have:
+        x = all_gather(x.movedim(dim, 0), have, tiled=True).movedim(0, dim)
+    if want:
+        n = size // axis_size(want)
+        x = x.narrow(dim, block_start(want, size), n)
+    return x
+
+
 def act(x: torch.Tensor, names: Sequence[Optional[str]], *,
         shape: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Check an activation block against its logical names (a no-op when
@@ -386,6 +495,7 @@ def act(x: torch.Tensor, names: Sequence[Optional[str]], *,
 __all__ = [
     "SERVE_RULES", "TRAIN_RULES", "act", "block_shape", "block_start",
     "block_of", "capture", "current_rules", "cut", "gather_leaf",
-    "gather_params", "mesh_sizes", "param_shardings", "shard_params",
-    "spec_for", "trim_rules", "use_rules", "use_scope",
+    "gather_params", "local_shape", "mesh_sizes", "Packed",
+    "param_shardings", "parts_of", "reblock", "shard_params", "spec_for",
+    "trim_rules", "use_rules", "use_scope",
 ]

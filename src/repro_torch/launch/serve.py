@@ -42,14 +42,17 @@ windows and fleet tumbling counters, which the CLI prints at the end (the
 keeps them; ``build_serve_step`` is the one path that serves the
 context-conditioned archs (whisper-small, llama-3.2-vision-90b), its cache
 holding the projected K/V of a random context, while the engine and the
-CLI refuse them as the JAX package's do.
+CLI refuse them as the JAX package's do; with ``model_parallel > 1`` it
+serves them across ranks, as the reference's does with a mesh.
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu``); there is no silent fallback.
 
 ``model_parallel > 1`` serves tensor and expert parallel across the ranks
-of a bound ``torch.distributed`` world (``launch.mesh``): every rank builds
+of a bound ``torch.distributed`` world (``launch.mesh``), every family the
+engine serves (MLA and the recurrent archs included): every rank builds
 the same engine from the same seed, holding its blocks of the weights and
-its KV heads (mesh ``(world / model_parallel, model_parallel)`` over
+of the cache (its KV heads, or a recurrent state's channels or heads; an
+MLA latent cache whole) (mesh ``(world / model_parallel, model_parallel)`` over
 ``('data', 'model')``, ``SERVE_RULES``), and runs the same schedule: the
 logits are gathered whole on every rank, so every rank samples the same
 tokens, and the engine's clock is rank 0's, broadcast at every reading,
@@ -224,7 +227,10 @@ class ServeStep:
     max_seq: int
 
 
-def build_serve_step(config: ServeConfig, *, device="cuda"):
+def build_serve_step(config: ServeConfig, *, device="cuda",
+                     params: Optional[Any] = None,
+                     model_config: Optional[ModelConfig] = None,
+                     context: Optional[torch.Tensor] = None):
     """(cfg, built, params, make_cache) for the FIXED-shape serve step.
 
     The pre-engine API, driven by the same :class:`ServeConfig`: one
@@ -237,21 +243,31 @@ def build_serve_step(config: ServeConfig, *, device="cuda"):
     normal in ``cfg.dtype`` from a ``torch.Generator`` seeded with
     ``config.seed`` (drawn once, the same for every cache).  With
     ``model_parallel > 1`` (in a bound world) ``params`` and the cache are
-    this rank's blocks and the step gathers the logits whole.
+    this rank's blocks and the step gathers the logits whole: every rank
+    encodes (whisper) and projects the whole context into its own blocks
+    of the cache (its KV heads of ``xk`` / ``xv``), as it runs every
+    family.  ``params`` (the whole weights, cut the same way under a mesh),
+    ``model_config`` and ``context`` take the place of the seeded ones, as
+    :func:`build_engine`'s do.
     """
     device = resolve_device(device)
-    cfg = get_config(config.arch, smoke=not config.full)
+    cfg = model_config if model_config is not None else \
+        get_config(config.arch, smoke=not config.full)
     mesh = serve_mesh(config, device)
     ctx = RunCtx(mesh=mesh)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(config.seed)
-    params = init_params(cfg, gen, device=device, shard=shard_for(cfg, mesh))
+    if params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(config.seed)
+        params = init_params(cfg, gen, device=device,
+                             shard=shard_for(cfg, mesh))
+    elif mesh is not None:
+        params = shd.shard_params(params, param_axes(cfg), mesh,
+                                  shd.SERVE_RULES)
     built = ServeStep(fn=lambda p, cache, tok: decode_step(p, cfg, cache,
                                                            tok, ctx=ctx),
                       num_slots=config.num_slots, max_seq=config.max_seq)
     spec = context_spec(cfg, config.num_slots)
-    context = None
-    if spec is not None:
+    if spec is not None and context is None:
         cgen = torch.Generator(device=device)
         cgen.manual_seed(config.seed)
         context = torch.randn(spec.shape, generator=cgen, device=device

@@ -17,16 +17,16 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
-from ..configs import ShapeCell, input_specs
+from ..configs import ShapeCell, context_spec, input_specs
 from ..core.aggregation import grad_accum_fold
 from ..dist import sharding as shd
 from ..dist.collectives import grad_sync, metrics_sync
 from ..models import (ModelConfig, RunCtx, decode_step, forward, init_cache,
                       loss_fn, unembed)
+from ..models.common import CACHE_AXES
 from ..models.convert import from_jax_layout, to_jax_layout
 from ..models.moe import _divisible_batch_axes
-from ..models.transformer import (_MESH_FAMILIES, context_conditioned,
-                                  param_shapes, recurrent)
+from ..models.transformer import param_shapes, refuse_mesh_training
 from ..optim import OptConfig, adamw_update, opt_state_shapes
 from ..optim.compress import LossySpec
 
@@ -54,30 +54,14 @@ def data_shardings(cfg: ModelConfig, mesh, rules, specs: Dict) -> Dict:
             for k, v in specs.items()}
 
 
-_CACHE_AXES = {
-    "k": ("batch", "kv_seq", "kv_heads", None),
-    "v": ("batch", "kv_seq", "kv_heads", None),
-    "xk": ("batch", None, "kv_heads", None),
-    "xv": ("batch", None, "kv_heads", None),
-    "lat_c": ("batch", "kv_seq", None),
-    "lat_r": ("batch", "kv_seq", None),
-    "ssm_h": ("batch", "mlp", None),
-    "ssm_conv": ("batch", None, "mlp"),
-    "ml_C": ("batch", "heads", None, None),
-    "ml_n": ("batch", "heads", None),
-    "sl_h": ("batch", "heads", None),
-    "sl_c": ("batch", "heads", None),
-    "pos": (),
-}
-
-
 def cache_shardings(cache_shapes: Pytree, mesh, rules) -> Pytree:
     """The spec of every leaf of a decode cache, by leaf name (see
-    ``_CACHE_AXES``; the port's cache is per layer, so no leaf carries the
+    ``models.common.CACHE_AXES``, by which the model allocates them; the
+    port's cache is per layer, so no leaf carries the
     reference's stacked period dim).  A per-slot ``pos`` follows the
     batch."""
     def one(name, leaf):
-        names = _CACHE_AXES.get(name, ())
+        names = CACHE_AXES.get(name, ())
         if name == "pos" and leaf.dim() == 1:
             names = ("batch",)
         return shd.spec_for(names, rules, mesh, shape=tuple(leaf.shape))
@@ -230,8 +214,7 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
                 "mesh: pass mesh= (launch.mesh.make_host_mesh(model=...) "
                 "in a bound world)")
         return _step_fn(cfg, opt, ctx or RunCtx(), num_microbatches, spec)
-    if cfg.use_mla or recurrent(cfg) or context_conditioned(cfg):
-        raise NotImplementedError(f"{cfg.name}: {_MESH_FAMILIES}")
+    refuse_mesh_training(cfg)
     return _mesh_train_step(cfg, mesh, opt, ctx, num_microbatches, spec,
                             shape, rules)
 
@@ -334,9 +317,9 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeCell, *,
                       ctx: Optional[RunCtx] = None,
                       rules: Optional[Dict[str, Any]] = None) -> BuiltStep:
     """Inference prefill: full-sequence forward + last-token logits.
-    ``fn(params, batch)`` takes this rank's blocks (the batch cut over the
-    ``batch`` rule's axes) and returns its rows' (B, 1, V) float32
-    logits."""
+    ``fn(params, batch)`` takes this rank's blocks (the batch, and a
+    context arch's ``context``, cut over the ``batch`` rule's axes) and
+    returns its rows' (B, 1, V) float32 logits."""
     rules = trim_rules(rules or shd.SERVE_RULES, mesh)
     ctx = _step_ctx(cfg, mesh, rules, ctx, shape.global_batch)
 
@@ -366,7 +349,11 @@ def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeCell, *,
     (the ``attn_state`` monoid over ``model``): the cache's rows are cut
     over ``model`` and the attention weights stay whole there (the rules'
     ``kv_seq`` is set to ``model``, ``heads`` / ``kv_heads`` to None),
-    where the JAX package reshards its cache inside ``shard_map``."""
+    where the JAX package reshards its cache inside ``shard_map``; a
+    recurrent state stays cut by its channels or heads.  A context arch's
+    cache holds the projected context (``xk`` / ``xv``, cut by KV heads):
+    ``abstract_args`` carry their shapes for ``context_spec(cfg, B)``, and
+    :func:`make_cache` builds them from a context."""
     rules = dict(rules or shd.SERVE_RULES)
     if ctx is not None and ctx.decode_impl == "flash":
         rules.update(kv_seq="model", heads=None, kv_heads=None)
@@ -379,7 +366,8 @@ def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeCell, *,
             return decode_step(params, cfg, cache, tokens, ctx=ctx)
 
     pshapes, pshard = _param_specs(cfg, mesh, rules)
-    cache_shapes = init_cache(pshapes, cfg, B, S)
+    cache_shapes = init_cache(pshapes, cfg, B, S,
+                              context=context_spec(cfg, B))
     cshard = cache_shardings(cache_shapes, mesh, rules)
     tok_spec = torch.empty((B, 1), dtype=torch.int32, device="meta")
     tshard = batch_sharding(mesh, rules, B)
@@ -391,12 +379,16 @@ def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeCell, *,
 
 
 def make_cache(built: BuiltStep, cfg: ModelConfig, params: Pytree,
-               batch: int, max_seq: int) -> Pytree:
+               batch: int, max_seq: int,
+               context: Optional[torch.Tensor] = None) -> Pytree:
     """This rank's decode cache for a :func:`make_decode_step` step:
     ``batch`` is this rank's block of the global batch, ``max_seq`` the
-    global length (the step's rules cut the rows for the flash decode)."""
+    global length (the step's rules cut the rows for the flash decode);
+    ``context`` (a context arch's) is this rank's rows of it, encoded and
+    projected into the rank's ``xk`` / ``xv``."""
     with shd.use_rules(built.mesh, built.rules):
-        return init_cache(params, cfg, batch, max_seq, ctx=built.ctx)
+        return init_cache(params, cfg, batch, max_seq, context=context,
+                          ctx=built.ctx)
 
 
 def build_step(cfg: ModelConfig, mesh, shape: ShapeCell, **kw) -> BuiltStep:

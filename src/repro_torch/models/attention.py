@@ -263,14 +263,16 @@ def attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     return out_proj(p, cfg, o), (k, v)
 
 
-def _flash_out(p: Dict, q: torch.Tensor, k: torch.Tensor,
+def _flash_out(p: Dict, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
     """(B, S, D): non-causal ``flash_attention`` of q (B, Sq, H, hd) over
-    k, v (B, Sk, KV, hd), read as (B, heads, S, hd) views, then ``wo``."""
-    B, S, H, hd = q.shape
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=False).transpose(1, 2)
-    return o.reshape(B, S, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd, -1)
+    k, v (B, Sk, KV, hd), read as (B, heads, S, hd) views, then ``wo``
+    (under a mesh the rank's heads over the KV heads they read, summed
+    over the axes the heads are cut over)."""
+    ka, va = group_kv(cfg, k, v)
+    o = flash_attention(q.transpose(1, 2), ka.transpose(1, 2),
+                        va.transpose(1, 2), causal=False).transpose(1, 2)
+    return out_proj(p, cfg, o)
 
 
 def attention_bidir(p: Dict, cfg: ModelConfig,
@@ -280,15 +282,16 @@ def attention_bidir(p: Dict, cfg: ModelConfig,
     non-causal ``flash_attention`` launch; the JAX package's takes
     ``positions`` and ignores them."""
     q, k, v = _project_qkv(p, cfg, x, None)
-    return _flash_out(p, q, k, v)
+    return _flash_out(p, cfg, q, k, v)
 
 
 def cross_kv(p: Dict, cfg: ModelConfig, context: torch.Tensor):
     """Project a context (B, Sk, D) to (k, v), each (B, Sk, KV, hd), once:
     the decode cache keeps them for every step.  ``k_norm`` when the config
-    has qk-norm; no RoPE."""
+    has qk-norm; no RoPE.  The KV heads are the weights' (this rank's
+    under a mesh)."""
     B, Sk, D = context.shape
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    KV, hd = p["wk"].shape[1], cfg.head_dim
     k = (context @ p["wk"].to(context.dtype).reshape(D, KV * hd)
          ).reshape(B, Sk, KV, hd)
     v = (context @ p["wv"].to(context.dtype).reshape(D, KV * hd)
@@ -312,21 +315,24 @@ def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     runs the JAX package's XLA form in plain PyTorch instead: float32
     scores and softmax, the weights cast to the activation dtype before the
     value product.
+
+    Under a mesh the queries are this rank's heads and ``context_kv`` its
+    KV heads (``cross_kv`` of its blocks); the output is summed over the
+    axes the heads are cut over, before the (replicated) gate.
     """
     B, S, D = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
+    H, hd = p["wq"].shape[1], cfg.head_dim
     q = (x @ p["wq"].to(x.dtype).reshape(D, H * hd)).reshape(B, S, H, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     k, v = context_kv
     if decode:
-        w = torch.softmax(_gqa_scores(q, k, 1.0 / math.sqrt(hd)),
+        ka, va = group_kv(cfg, k, v)
+        w = torch.softmax(_gqa_scores(q, ka, 1.0 / math.sqrt(hd)),
                           dim=-1).to(x.dtype)
-        o = _gqa_values(w, v)
-        out = o.reshape(B, S, H * hd) @ p["wo"].to(o.dtype).reshape(H * hd,
-                                                                     -1)
+        out = out_proj(p, cfg, _gqa_values(w, va))
     else:
-        out = _flash_out(p, q, k, v)
+        out = _flash_out(p, cfg, q, k, v)
     if gated:
         out = torch.tanh(p["gate"].to(out.dtype)) * out
     return out
@@ -566,9 +572,13 @@ def mla_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     indices when the caller has them), the cache's rows ``[0, k_rows)`` are
     up-projected (``k_rows`` defaults to ``max(q_offset) + S`` capped at
     ``max_seq``: the last key any query sees) and attended to under the
-    offset mask, and the cache is returned."""
+    offset mask, and the cache is returned.
+
+    Under a mesh the latent projections and the latent rows are whole on
+    every rank (replicated) and the heads are this rank's (``wq_b`` /
+    ``wq``, ``wk_b``, ``wv_b``, ``wo``): one launch on them, the output
+    summed over the axes they are cut over."""
     B, S, _ = x.shape
-    H, dn, dv = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
     derived = query_positions(B, S, q_offset, x.device)
     if positions is not None and not torch.equal(
             positions.to(torch.int32).expand(B, S), derived):
@@ -593,6 +603,7 @@ def mla_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                 min(size, int(q_offset.max()) + S)
         c, k_rope = cc[:, :k_rows], rc[:, :k_rows]
         latent = (cc, rc)
+    H = q_nope.shape[2]                  # this rank's heads under a mesh
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([_heads(c, p["wk_b"]),
                    k_rope[:, :, None].expand(-1, -1, H, -1)], dim=-1)
@@ -600,8 +611,7 @@ def mla_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=True,
                         q_offset=q_offset).transpose(1, 2)
-    out = o.reshape(B, S, H * dv) @ p["wo"].to(o.dtype).reshape(H * dv, -1)
-    return out, latent
+    return out_proj(p, cfg, o), latent
 
 
 def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -613,7 +623,9 @@ def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     wk_b`` (B, 1, H, kvl); the scores ``q_lat . c + q_rope . k_rope`` and
     the softmax are float32, the weights cast to the activation dtype; the
     output is ``(w . c) . wv_b . wo``.  No device value is read on the
-    host, so the step can be captured in a CUDA graph."""
+    host, so the step can be captured in a CUDA graph.  Under a mesh the
+    heads are this rank's (the latent rows whole) and the output is summed
+    over the axes they are cut over."""
     c_cache, r_cache = cache
     B, S = c_cache.shape[0], c_cache.shape[1]
     positions = decode_positions(pos, B)
@@ -634,6 +646,4 @@ def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     o_lat = torch.einsum("bhqs,bsl->bqhl", w, c_cache)           # (B,1,H,kvl)
     o = torch.einsum("bqhl,lhv->bqhv", o_lat, p["wv_b"].to(x.dtype))
-    H, dv = o.shape[2], o.shape[3]
-    out = o.reshape(B, 1, H * dv) @ p["wo"].to(o.dtype).reshape(H * dv, -1)
-    return out, (c_cache, r_cache)
+    return out_proj(p, cfg, o), (c_cache, r_cache)

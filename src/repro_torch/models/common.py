@@ -17,6 +17,44 @@ from typing import Optional, Tuple
 import torch
 
 from .. import dist
+from ..dist import sharding as shd
+
+# the logical axes of every decode-cache leaf, by leaf name (the JAX
+# package's ``launch/steps.py`` ``_CACHE_AXES``): ``launch.steps`` gives
+# them to the cache's specs and :func:`cache_leaf` allocates this rank's
+# block by them
+CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", None),
+    "v": ("batch", "kv_seq", "kv_heads", None),
+    "xk": ("batch", None, "kv_heads", None),
+    "xv": ("batch", None, "kv_heads", None),
+    "lat_c": ("batch", "kv_seq", None),
+    "lat_r": ("batch", "kv_seq", None),
+    "ssm_h": ("batch", "mlp", None),
+    "ssm_conv": ("batch", None, "mlp"),
+    "ml_C": ("batch", "heads", None, None),
+    "ml_n": ("batch", "heads", None),
+    "sl_h": ("batch", "heads", None),
+    "sl_c": ("batch", "heads", None),
+    "pos": (),
+}
+
+
+def cache_cut(name: str, shape, dim: int) -> Tuple[str, ...]:
+    """The mesh axes dimension ``dim`` of the decode-cache leaf ``name``
+    (global ``shape``) is cut over in the active rules scope (() outside
+    one).  The batch is this rank's already: it is never cut again."""
+    return shd.cut((None,) + CACHE_AXES[name][1:], shape, dim)
+
+
+def cache_leaf(name: str, shape, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    """A zeroed decode-cache leaf: this rank's block of a ``shape`` leaf
+    under ``CACHE_AXES[name]`` in the active rules scope (the whole leaf
+    outside one); ``shape[0]`` is this rank's batch."""
+    names = (None,) + CACHE_AXES[name][1:]
+    return torch.zeros(shd.local_shape(names, shape), dtype=dtype,
+                       device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,10 +169,17 @@ class ModelConfig:
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, axes: Tuple[str, ...] = ()) -> torch.Tensor:
     """RMSNorm: float32 for the variance reduction; the multiplies stay in
-    x's dtype (as ``common.py:rms_norm`` with ``_F32_CHAINS = False``)."""
-    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+    x's dtype (as ``common.py:rms_norm`` with ``_F32_CHAINS = False``).
+    With mesh ``axes``, x and gamma are this rank's block of a last
+    dimension cut over them: the sum of squares is summed over the axes."""
+    sq = torch.square(x.to(torch.float32))
+    if axes:
+        var = dist.psum(sq.sum(dim=-1, keepdim=True), axes) / (
+            x.shape[-1] * dist.axis_size(axes))
+    else:
+        var = torch.mean(sq, dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * gamma.to(x.dtype)
 

@@ -25,6 +25,27 @@ while the carried states stay float32.
 Shapes: x (B, S, D); Mamba's inner width ``cfg.d_inner``; mLSTM's inner
 width ``DI = int(mlstm_proj_factor * D)`` with head dim ``DI // H`` (not
 ``cfg.head_dim``); sLSTM's head dim ``D // H``.
+
+Under a mesh (an open ``dist.sharding`` rules scope) every block runs on
+this rank's blocks of its leaves (:data:`AXES` names their dimensions) and
+of its state (``CACHE_AXES``), and reads each cut from the rules, never
+assuming it.  Mamba: ``w_in`` is cut by its halves (``Packed``), so x and
+the gate z arrive as this rank's channels; the conv, ``dt``, ``A_log`` and
+``D_skip`` are per channel; ``w_bcdt``'s rows are cut, so B, C and dt's
+low-rank input are partial sums, summed over the axis once a layer before
+the split; ``w_out`` is row-parallel.  mLSTM: ``wq`` / ``wk`` / ``wv`` and
+``w_if`` are cut on their ``d_inner`` rows (the first dimension wins), so
+q, k, v and the gates are partial sums: one ``psum`` a layer of the four
+packed side by side (every rank then holds every head's, and slices its
+own; a reduce-scatter over heads would move half the bytes, but no
+layout of the four packs each rank's heads contiguously, and the psum is
+differentiable as it is), then ``b_if``, replicated, is added once; the
+cell runs on the state's heads, and the norm over all heads sums its
+squares over the axis.  sLSTM: ``w_x``'s columns are head-major (``xg``
+reshapes to (B, H, 4 hd)), so a contiguous cut of them is a cut by heads,
+which matches ``w_h``, ``b`` and the state; h is gathered over the axis
+before the FFN, whose ``embed`` rows are replicated, and the FFN's
+``w_up`` / ``w_down`` are cut when the axis divides their width.
 """
 from __future__ import annotations
 
@@ -34,10 +55,40 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import dist
 from ..core.monoids import affine_scan as _affine_monoid
-from .common import ModelConfig, dense, rms_norm
+from ..dist import sharding as shd
+from ..dist.sharding import Packed
+from .common import (ModelConfig, cache_cut, cache_leaf, dense, rms_norm,
+                     row_parallel)
 
 RECURRENT_BLOCKS = ("mamba", "mlstm", "slstm")
+
+# the logical axes of each block's leaves (the names of the JAX package's
+# ParamBuilder); w_in / w_up pack x and the gate z, each d_inner wide
+AXES = {
+    "mamba": {"A_log": ("d_inner", "d_state"), "D_skip": ("d_inner",),
+              "conv_b": ("d_inner",), "conv_w": (None, "d_inner"),
+              "dt_bias": ("d_inner",), "w_bcdt": ("d_inner", None),
+              "w_dt": (None, "d_inner"),
+              "w_in": ("embed", Packed("d_inner", 2)),
+              "w_out": ("d_inner", "embed")},
+    "mlstm": {"b_if": (None,), "ln_g": ("d_inner",),
+              "w_down": ("d_inner", "embed"), "w_if": ("d_inner", None),
+              "w_up": ("embed", Packed("d_inner", 2)),
+              "wq": ("d_inner", "heads", "head_dim"),
+              "wk": ("d_inner", "heads", "head_dim"),
+              "wv": ("d_inner", "heads", "head_dim")},
+    "slstm": {"b": ("d_inner",), "w_down": ("mlp", "embed"),
+              "w_h": ("heads", "head_dim", None), "w_up": ("embed", "mlp"),
+              "w_x": ("embed", "d_inner")},
+}
+
+
+def _cut(block: str, leaf: str, shape, dim: int) -> Tuple[str, ...]:
+    """The mesh axes dimension ``dim`` of ``block``'s leaf (global
+    ``shape``) is cut over in the active scope; () outside one."""
+    return shd.cut(AXES[block][leaf], shape, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -120,10 +171,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _mamba_scan_inputs(p: Dict, cfg: ModelConfig, xc: torch.Tensor):
-    """Post-conv activations (B, S, DI) -> the discretised (abar, bbar_x,
-    C), float32, abar and bbar_x (B, S, DI, N)."""
+    """Post-conv activations (B, S, DI) (this rank's channels) -> the
+    discretised (abar, bbar_x, C), float32, abar and bbar_x (B, S, DI, N);
+    B, C and dt's input summed over the axes ``w_bcdt``'s rows are cut
+    over."""
     N = cfg.d_state
-    bcdt = dense(xc, p["w_bcdt"])
+    cut = _cut("mamba", "w_bcdt", (cfg.d_inner, 2 * N + _dt_rank(cfg)), 0)
+    bcdt = row_parallel(xc, p["w_bcdt"], cut)
     Bm, Cm, dt_in = bcdt[..., :N], bcdt[..., N:2 * N], bcdt[..., 2 * N:]
     dt = F.softplus(dense(dt_in, p["w_dt"]).to(torch.float32)
                     + p["dt_bias"].to(torch.float32))    # (B, S, DI)
@@ -140,15 +194,13 @@ def mamba_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     they divide S), prefix compositions inside a chunk by
     :func:`affine_scan`, a float32 carry across chunks."""
     B, S, _ = x.shape
-    DI = cfg.d_inner
-    xz = dense(x, p["w_in"])
-    xi, z = xz[..., :DI], xz[..., DI:]
+    xi, z = _mamba_in(p, cfg, x)
     xc, _ = _causal_conv(xi, p["conv_w"].to(xi.dtype),
                          p["conv_b"].to(xi.dtype))
     xc = F.silu(xc)
     abar, bbar_x, Cm = _mamba_scan_inputs(p, cfg, xc)
     cs = _chunk(S, chunk_size)
-    h = torch.zeros((B, DI, cfg.d_state), dtype=torch.float32,
+    h = torch.zeros((B, xi.shape[-1], cfg.d_state), dtype=torch.float32,
                     device=x.device)
     ys = []
     for c0 in range(0, S, cs):
@@ -160,22 +212,35 @@ def mamba_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                   .to(x.dtype))
         h = h_all[:, -1]
     y = torch.cat(ys, dim=1) + p["D_skip"].to(x.dtype) * xc
-    return dense(y * F.silu(z), p["w_out"])
+    return _mamba_out(p, cfg, y * F.silu(z))
+
+
+def _mamba_in(p: Dict, cfg: ModelConfig, x: torch.Tensor):
+    """(x, the gate z), each (B, S, this rank's channels): ``w_in`` packs
+    x's columns, then z's (cut by its halves under a mesh)."""
+    xz = dense(x, p["w_in"])
+    DI = xz.shape[-1] // 2
+    return xz[..., :DI], xz[..., DI:]
+
+
+def _mamba_out(p: Dict, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    cut = _cut("mamba", "w_out", (cfg.d_inner, cfg.d_model), 0)
+    return row_parallel(y, p["w_out"], cut)
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device) -> Dict:
-    return {"ssm_h": torch.zeros((batch, cfg.d_inner, cfg.d_state),
-                                 dtype=torch.float32, device=device),
-            "ssm_conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
-                                    dtype=cfg.dtype, device=device)}
+    """Zeroed Mamba state: this rank's channels under a mesh."""
+    return {"ssm_h": cache_leaf("ssm_h", (batch, cfg.d_inner, cfg.d_state),
+                                torch.float32, device),
+            "ssm_conv": cache_leaf("ssm_conv",
+                                   (batch, cfg.d_conv - 1, cfg.d_inner),
+                                   cfg.dtype, device)}
 
 
 def mamba_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One token (B, 1, D): the conv window and ``h`` advance in place."""
-    DI = cfg.d_inner
-    xz = dense(x, p["w_in"])
-    xi, z = xz[..., :DI], xz[..., DI:]
+    xi, z = _mamba_in(p, cfg, x)
     xc, conv_state = _causal_conv(xi, p["conv_w"].to(xi.dtype),
                                   p["conv_b"].to(xi.dtype), cache["ssm_conv"])
     xc = F.silu(xc)
@@ -186,7 +251,7 @@ def mamba_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     y = y.to(x.dtype) * F.silu(z)
     cache["ssm_h"].copy_(h)
     cache["ssm_conv"].copy_(conv_state)
-    return dense(y, p["w_out"]), cache
+    return _mamba_out(p, cfg, y), cache
 
 
 # ---------------------------------------------------------------------------
@@ -209,15 +274,63 @@ def init_mlstm(cfg: ModelConfig, normal, ones, zeros) -> Dict:
             "w_down": normal((DI, D), DI)}
 
 
+def _mlstm_heads(cfg: ModelConfig) -> Tuple[int, int, Tuple[str, ...]]:
+    """(first head, heads, the mesh axes they are cut over) of the mLSTM
+    state this rank holds (all heads outside a mesh)."""
+    DI, H = _mlstm_inner(cfg), cfg.num_heads
+    hd = DI // H
+    cut = cache_cut("ml_C", (1, H, hd, hd), 1)
+    return shd.block_start(cut, H), \
+        (H // dist.axis_size(cut) if cut else H), cut
+
+
 def _mlstm_qkv(p: Dict, cfg: ModelConfig, xi: torch.Tensor):
-    """-> q, k / sqrt(hd), v (B, S, H, hd) in xi's dtype, and the float32
-    log-sigmoid input and forget gates (B, S, H)."""
-    H = cfg.num_heads
-    q, k, v = (dense(xi, p[w]) for w in ("wq", "wk", "wv"))
-    gates = dense(xi, p["w_if"]) + p["b_if"].to(xi.dtype)
-    logi = F.logsigmoid(gates[..., :H].to(torch.float32))
-    logf = F.logsigmoid(gates[..., H:].to(torch.float32))
-    return q, k / math.sqrt(q.shape[-1]), v, logi, logf
+    """-> q, k / sqrt(hd), v (B, S, Hl, hd) in xi's dtype, and the float32
+    log-sigmoid input and forget gates (B, S, Hl), of the state's heads.
+    ``xi`` is this rank's ``d_inner`` block when the projections' rows are
+    cut: their products are then summed over the axes in one ``psum``."""
+    DI, H = _mlstm_inner(cfg), cfg.num_heads
+    hd = DI // H
+    names = ("wq", "wk", "wv", "w_if")
+    cut = _cut("mlstm", "wq", (DI, H, hd), 0)
+    if cut:
+        f32 = torch.float32
+        part = torch.cat([torch.matmul(xi.to(f32), p[w].to(f32).reshape(
+            p[w].shape[0], -1)) for w in names], dim=-1)
+        whole = dist.psum(part, cut).to(xi.dtype)
+        q, k, v, g = torch.split(whole, [H * hd] * 3 + [2 * H], dim=-1)
+        q, k, v = (t.unflatten(-1, (H, hd)) for t in (q, k, v))
+    else:
+        q, k, v, g = (dense(xi, p[w]) for w in names)
+    gates = g + p["b_if"].to(xi.dtype)
+    h0, n, _ = _mlstm_heads(cfg)
+    q, k, v = (t[:, :, h0:h0 + n] for t in (q, k, v))
+    logi = F.logsigmoid(gates[..., h0:h0 + n].to(torch.float32))
+    logf = F.logsigmoid(gates[..., H + h0:H + h0 + n].to(torch.float32))
+    return q, k / math.sqrt(hd), v, logi, logf
+
+
+def _mlstm_up(p: Dict, x: torch.Tensor):
+    """(xi, the gate z), each (B, S, this rank's d_inner): ``w_up`` packs
+    xi's columns, then z's (cut by its halves under a mesh)."""
+    up = dense(x, p["w_up"])
+    DI = up.shape[-1] // 2
+    return up[..., :DI], up[..., DI:]
+
+
+def _mlstm_out(p: Dict, cfg: ModelConfig, h: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """The state's heads' output h (B, S, Hl * hd) -> (B, S, D): h moved to
+    ``ln_g``'s ``d_inner`` block (the heads' own under the serve rules),
+    normed over every head, gated by z and projected by ``w_down``, summed
+    over the axes its rows are cut over."""
+    DI = _mlstm_inner(cfg)
+    _, _, hcut = _mlstm_heads(cfg)
+    dcut = _cut("mlstm", "ln_g", (DI,), 0)
+    h = shd.reblock(h, -1, DI, hcut, dcut)
+    h = rms_norm(h, p["ln_g"], cfg.norm_eps, axes=dcut) * F.silu(z)
+    return row_parallel(h, p["w_down"],
+                        _cut("mlstm", "w_down", (DI, cfg.d_model), 0))
 
 
 def mlstm_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
@@ -227,15 +340,13 @@ def mlstm_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     inside a chunk the masked decayed scores, across chunks the float32
     ``(C, n)`` carry read as ``exp(F_t) q_t . C``."""
     B, S, _ = x.shape
-    DI, H = _mlstm_inner(cfg), cfg.num_heads
-    hd = DI // H
-    up = dense(x, p["w_up"])
-    xi, z = up[..., :DI], up[..., DI:]
+    xi, z = _mlstm_up(p, x)
     q, k, v, logi, logf = _mlstm_qkv(p, cfg, xi)
+    Hl, hd = q.shape[2], q.shape[3]
     cs = _chunk(S, chunk_size)
     f32 = torch.float32
-    C = torch.zeros((B, H, hd, hd), dtype=f32, device=x.device)
-    n = torch.zeros((B, H, hd), dtype=f32, device=x.device)
+    C = torch.zeros((B, Hl, hd, hd), dtype=f32, device=x.device)
+    n = torch.zeros((B, Hl, hd), dtype=f32, device=x.device)
     keep = torch.tril(torch.ones((cs, cs), dtype=torch.bool,
                                  device=x.device))[None, :, :, None]
     hs = []
@@ -263,18 +374,18 @@ def mlstm_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
         n = n * torch.exp(Fe)[..., None] + torch.einsum(
             "bsh,bshk->bhk", decay_e, ki)
         hs.append(h.to(x.dtype))       # streamed in the model dtype
-    h = torch.cat(hs, dim=1).reshape(B, S, DI)
-    h = rms_norm(h, p["ln_g"], cfg.norm_eps) * F.silu(z)
-    return dense(h, p["w_down"])
+    h = torch.cat(hs, dim=1).reshape(B, S, Hl * hd)
+    return _mlstm_out(p, cfg, h, z)
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device) -> Dict:
+    """Zeroed mLSTM state: this rank's heads under a mesh."""
     DI, H = _mlstm_inner(cfg), cfg.num_heads
     hd = DI // H
-    return {"ml_C": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
-                                device=device),
-            "ml_n": torch.zeros((batch, H, hd), dtype=torch.float32,
-                                device=device)}
+    return {"ml_C": cache_leaf("ml_C", (batch, H, hd, hd), torch.float32,
+                               device),
+            "ml_n": cache_leaf("ml_n", (batch, H, hd), torch.float32,
+                               device)}
 
 
 def mlstm_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -283,11 +394,9 @@ def mlstm_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     in place (two passes over ``C``, no temporary of its size), then the
     read ``q . C / max(|q . n|, 1)``."""
     B = x.shape[0]
-    DI = _mlstm_inner(cfg)
-    up = dense(x, p["w_up"])
-    xi, z = up[..., :DI], up[..., DI:]
-    q, k, v, logi, logf = _mlstm_qkv(p, cfg, xi)         # (B, 1, H, hd)
-    f = torch.exp(logf[:, 0])[..., None]                  # (B, H, 1)
+    xi, z = _mlstm_up(p, x)
+    q, k, v, logi, logf = _mlstm_qkv(p, cfg, xi)         # (B, 1, Hl, hd)
+    f = torch.exp(logf[:, 0])[..., None]                  # (B, Hl, 1)
     i = torch.exp(logi[:, 0])[..., None]
     kf, vf, qf = (t[:, 0].to(torch.float32) for t in (k, v, q))
     C, n = cache["ml_C"], cache["ml_n"]
@@ -297,9 +406,8 @@ def mlstm_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     h = torch.einsum("bhk,bhkv->bhv", qf, C)
     nq = torch.einsum("bhk,bhk->bh", qf, n)
     h = (h / torch.clamp(nq.abs(), min=1.0)[..., None]).reshape(
-        B, 1, DI).to(x.dtype)
-    h = rms_norm(h, p["ln_g"], cfg.norm_eps) * F.silu(z)
-    return dense(h, p["w_down"]), cache
+        B, 1, -1).to(x.dtype)
+    return _mlstm_out(p, cfg, h, z), cache
 
 
 # ---------------------------------------------------------------------------
@@ -316,55 +424,92 @@ def init_slstm(cfg: ModelConfig, normal, ones, zeros) -> Dict:
             "w_up": normal((D, Fd), D), "w_down": normal((Fd, D), Fd)}
 
 
-def _slstm_cell(p: Dict, cfg: ModelConfig, xg: torch.Tensor,
-                h: torch.Tensor, c: torch.Tensor):
-    """One recurrent step.  xg (B, 4D): the x-part, in the activation dtype;
-    h, c (B, H, hd) float32, which promote the sum to float32."""
-    B = xg.shape[0]
+def _slstm_heads(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
+    """(heads, the mesh axes they are cut over) of the sLSTM state this
+    rank holds (all heads outside a mesh)."""
     H = cfg.num_heads
-    hd = cfg.d_model // H
-    rec = torch.einsum("bhk,hkg->bhg", h, p["w_h"].to(h.dtype))
-    g = xg.reshape(B, H, 4 * hd) + rec + \
-        p["b"].to(xg.dtype).reshape(H, 4 * hd)
+    cut = cache_cut("sl_h", (1, H, cfg.d_model // H), 1)
+    return (H // dist.axis_size(cut) if cut else H), cut
+
+
+def _slstm_inputs(p: Dict, cfg: ModelConfig, x: torch.Tensor):
+    """(the x-part of the gates (B, S, Hl * 4 hd), the bias (Hl * 4 hd,),
+    ``w_h`` (Hl, hd, 4 hd)) of the state's heads.  ``w_x``'s and ``b``'s
+    columns are head-major (head h's i, f, z, o side by side), so a
+    contiguous cut of them is already a cut by heads: each is moved to the
+    state's block, itself under the serve rules."""
+    D, H = cfg.d_model, cfg.num_heads
+    hd = D // H
+    _, hcut = _slstm_heads(cfg)
+    xg = shd.reblock(dense(x, p["w_x"]), -1, 4 * D,
+                     _cut("slstm", "w_x", (D, 4 * D), 1), hcut)
+    b = shd.reblock(p["b"], 0, 4 * D, _cut("slstm", "b", (4 * D,), 0), hcut)
+    w_h = shd.reblock(p["w_h"], 0, H,
+                      _cut("slstm", "w_h", (H, hd, 4 * hd), 0), hcut)
+    return xg, b, w_h
+
+
+def _slstm_cell(xg: torch.Tensor, b: torch.Tensor, w_h: torch.Tensor,
+                h: torch.Tensor, c: torch.Tensor):
+    """One recurrent step.  xg (B, Hl * 4 hd): the x-part, in the
+    activation dtype; h, c (B, Hl, hd) float32, which promote the sum to
+    float32."""
+    B, Hl, hd = h.shape
+    rec = torch.einsum("bhk,hkg->bhg", h, w_h.to(h.dtype))
+    g = xg.reshape(B, Hl, 4 * hd) + rec + b.to(xg.dtype).reshape(Hl, 4 * hd)
     i, f, z, o = torch.chunk(g.to(torch.float32), 4, dim=-1)
     c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(z)
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
-def _slstm_out(p: Dict, y: torch.Tensor) -> torch.Tensor:
-    return dense(F.silu(dense(y, p["w_up"])), p["w_down"])
+def _slstm_out(p: Dict, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    """The state's heads' h (B, S, Hl * hd) -> (B, S, D): gathered whole
+    over the axes the heads are cut over (the FFN's ``embed`` rows are
+    replicated), then the gated projection, ``w_down`` summed over the
+    axes its rows are cut over (the axis may leave ``w_up`` / ``w_down``
+    whole: xlstm-1.3b's 2730 is not divisible by 4)."""
+    D = cfg.d_model
+    Fd = int(cfg.slstm_proj_factor * D)
+    _, hcut = _slstm_heads(cfg)
+    y = shd.reblock(y, -1, D, hcut, ())
+    ucut = _cut("slstm", "w_up", (D, Fd), 1)
+    dcut = _cut("slstm", "w_down", (Fd, D), 0)
+    u = shd.reblock(F.silu(dense(y, p["w_up"])), -1, Fd, ucut, dcut)
+    return row_parallel(u, p["w_down"], dcut)
 
 
 def slstm_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The sLSTM cell looped over the sequence, then the gated projection."""
     B, S, D = x.shape
-    H = cfg.num_heads
-    xg = dense(x, p["w_x"])                               # (B, S, 4D)
-    h = torch.zeros((B, H, D // H), dtype=torch.float32, device=x.device)
+    xg, b, w_h = _slstm_inputs(p, cfg, x)                 # (B, S, Hl * 4hd)
+    Hl, _ = _slstm_heads(cfg)
+    h = torch.zeros((B, Hl, D // cfg.num_heads), dtype=torch.float32,
+                    device=x.device)
     c = torch.zeros_like(h)
     hs = []
     for t in range(S):
-        h, c = _slstm_cell(p, cfg, xg[:, t], h, c)
+        h, c = _slstm_cell(xg[:, t], b, w_h, h, c)
         hs.append(h.to(x.dtype))
-    return _slstm_out(p, torch.stack(hs, dim=1).reshape(B, S, D))
+    return _slstm_out(p, cfg, torch.stack(hs, dim=1).reshape(B, S, -1))
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> Dict:
+    """Zeroed sLSTM state: this rank's heads under a mesh."""
     H = cfg.num_heads
     shape = (batch, H, cfg.d_model // H)
-    return {"sl_h": torch.zeros(shape, dtype=torch.float32, device=device),
-            "sl_c": torch.zeros(shape, dtype=torch.float32, device=device)}
+    return {"sl_h": cache_leaf("sl_h", shape, torch.float32, device),
+            "sl_c": cache_leaf("sl_c", shape, torch.float32, device)}
 
 
 def slstm_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One token (B, 1, D): ``h`` and ``c`` advance in place."""
-    B, _, D = x.shape
-    xg = dense(x, p["w_x"])[:, 0]
-    h, c = _slstm_cell(p, cfg, xg, cache["sl_h"], cache["sl_c"])
+    B = x.shape[0]
+    xg, b, w_h = _slstm_inputs(p, cfg, x)
+    h, c = _slstm_cell(xg[:, 0], b, w_h, cache["sl_h"], cache["sl_c"])
     cache["sl_h"].copy_(h)
     cache["sl_c"].copy_(c)
-    return _slstm_out(p, h.reshape(B, 1, D).to(x.dtype)), cache
+    return _slstm_out(p, cfg, h.reshape(B, 1, -1).to(x.dtype)), cache
 
 
 # ---------------------------------------------------------------------------

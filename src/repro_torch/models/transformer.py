@@ -78,8 +78,8 @@ whose rows are cut over ``model`` (``attention.flash_decode_shardmap``).
 ``launch/steps.py``): the collectives are differentiable (``dist``), a
 replicated value entering a cut product goes through ``dist.enter`` (its
 cotangent summed over the axis), and the cross-entropy runs on the
-vocab-cut logits.  MLA, the recurrent and the context families refuse a
-mesh (a later slice).
+vocab-cut logits.  Training MLA, the recurrent and the context families
+under a mesh is refused (:func:`refuse_mesh_training`): the next slice.
 """
 from __future__ import annotations
 
@@ -97,7 +97,8 @@ from ..dist import sharding as shd
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
-from .common import ModelConfig, embed_lookup, init_normal, rms_norm
+from .common import (ModelConfig, cache_leaf, embed_lookup, init_normal,
+                     rms_norm)
 from .moe import _act, dense_ffn  # noqa: F401  (their home is moe.py)
 
 Pytree = Any
@@ -136,10 +137,17 @@ class RunCtx:
                              f"{self.decode_impl!r}")
 
 
-_MESH_FAMILIES = ("the mesh tier serves and trains the dense and MoE "
-                  "families; MLA, the recurrent and the context-conditioned "
-                  "families under a mesh are a later slice of the port "
-                  "(ROADMAP §1)")
+_MESH_FAMILIES = ("the mesh tier serves every family and trains the dense "
+                  "and MoE families; training MLA, the recurrent and the "
+                  "context-conditioned families under a mesh is the next "
+                  "slice of the port (ROADMAP §1)")
+
+
+def refuse_mesh_training(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for an arch whose training under a
+    mesh is not ported: MLA, recurrent and context-conditioned."""
+    if cfg.use_mla or recurrent(cfg) or context_conditioned(cfg):
+        raise NotImplementedError(f"{cfg.name}: {_MESH_FAMILIES}")
 
 
 def _mesh_of(ctx: RunCtx):
@@ -160,8 +168,6 @@ def _mesh_scope(cfg: ModelConfig, ctx: RunCtx):
     if mesh is None:
         yield
         return
-    if cfg.use_mla or recurrent(cfg) or context_conditioned(cfg):
-        raise NotImplementedError(f"{cfg.name}: {_MESH_FAMILIES}")
     if shd.current_rules() is None:
         with shd.use_rules(mesh, shd.SERVE_RULES):
             yield
@@ -238,22 +244,7 @@ _FFN_AXES = {
     "we_gate": ("expert", "embed", "mlp"), "we_up": ("expert", "embed", "mlp"),
     "we_down": ("expert", "mlp", "embed"),
 }
-_MIX_AXES = {
-    "mamba": {"A_log": ("d_inner", "d_state"), "D_skip": ("d_inner",),
-              "conv_b": ("d_inner",), "conv_w": (None, "d_inner"),
-              "dt_bias": ("d_inner",), "w_bcdt": ("d_inner", None),
-              "w_dt": (None, "d_inner"), "w_in": ("embed", "d_inner"),
-              "w_out": ("d_inner", "embed")},
-    "mlstm": {"b_if": (None,), "ln_g": ("d_inner",),
-              "w_down": ("d_inner", "embed"), "w_if": ("d_inner", None),
-              "w_up": ("embed", "d_inner"),
-              "wq": ("d_inner", "heads", "head_dim"),
-              "wk": ("d_inner", "heads", "head_dim"),
-              "wv": ("d_inner", "heads", "head_dim")},
-    "slstm": {"b": ("d_inner",), "w_down": ("mlp", "embed"),
-              "w_h": ("heads", "head_dim", None), "w_up": ("embed", "mlp"),
-              "w_x": ("embed", "d_inner")},
-}
+_MIX_AXES = ssm.AXES
 
 
 def _axes_like(tree: Dict, table: Dict) -> Dict:
@@ -412,9 +403,13 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
     D // H) float32.
 
     Under a mesh (``ctx.mesh`` or an open rules scope) ``batch`` is this
-    rank's and each KV cache holds this rank's KV heads (the ``wk`` block's
-    count) and its block of the rows when ``kv_seq`` is cut (the flash
-    decode)."""
+    rank's and every leaf is this rank's block under ``CACHE_AXES``: a KV
+    cache holds its KV heads and its block of the rows when ``kv_seq`` is
+    cut (the flash decode), ``xk`` / ``xv`` its KV heads (the context is
+    encoded and projected on every rank), the latent rows are whole, and
+    a recurrent state holds its channels or heads.  On the meta device
+    (the step builders' shapes) the encoder is not run: its output has its
+    input's shape."""
     with _mesh_scope(cfg, ctx):
         return _init_cache(params, cfg, batch, max_seq, context,
                            pos_per_slot)
@@ -423,22 +418,15 @@ def init_cache(params: Pytree, cfg: ModelConfig, batch: int, max_seq: int, *,
 def _init_cache(params, cfg, batch, max_seq, context, pos_per_slot):
     _check_supported(cfg)
     device = params["embed"].device
-    if cfg.encoder_layers > 0 and context is not None:
+    if cfg.encoder_layers > 0 and context is not None and \
+            context.device.type != "meta":
         context = encode(params, cfg, context)
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
-    rows = shd.cut((None, "kv_seq", "kv_heads", None),
-                   (batch, max_seq, KV, hd), 1)
-    rows = max_seq // dist.axis_size(rows) if rows else max_seq
-    kv_local = next((p["mix"]["wk"].shape[1] for i, p in
-                     enumerate(params["layers"])
-                     if cfg.block_type(i) in ("attn", "local")
-                     and "wk" in p["mix"]), KV)
-    shape = (batch, rows, kv_local, hd)
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     pos = torch.zeros((batch,) if pos_per_slot else (), dtype=torch.int32,
                       device=device)
 
-    def zeros(shape_):
-        return torch.zeros(shape_, dtype=cfg.dtype, device=device)
+    def zeros(name, shape_):
+        return cache_leaf(name, shape_, cfg.dtype, device)
 
     layers = []
     for i, p in enumerate(params["layers"]):
@@ -452,14 +440,14 @@ def _init_cache(params, cfg, batch, max_seq, context, pos_per_slot):
             else:
                 shape_x = (batch, cfg.num_image_tokens, cfg.num_kv_heads,
                            cfg.head_dim)
-                xk, xv = zeros(shape_x), zeros(shape_x)
+                xk, xv = zeros("xk", shape_x), zeros("xv", shape_x)
             layers.append({"xk": xk, "xv": xv})
             continue
         if cfg.use_mla:
-            c = {"lat_c": zeros((batch, max_seq, cfg.kv_lora_rank)),
-                 "lat_r": zeros((batch, max_seq, cfg.qk_rope_dim))}
+            c = {"lat_c": zeros("lat_c", (batch, max_seq, cfg.kv_lora_rank)),
+                 "lat_r": zeros("lat_r", (batch, max_seq, cfg.qk_rope_dim))}
         else:
-            c = {"k": zeros(shape), "v": zeros(shape)}
+            c = {"k": zeros("k", shape), "v": zeros("v", shape)}
         if cfg.decoder_cross_attn and context is not None:
             c["xk"], c["xv"] = attn.cross_kv(p["xattn"], cfg, context)
         layers.append(c)
@@ -504,6 +492,11 @@ def _decode_layer(p: Dict, cfg: ModelConfig, ltype: str, ftype: str,
     elif ltype in ssm.DECODE:
         mixed, _ = ssm.DECODE[ltype](p["mix"], cfg, h, cache)
     elif cfg.use_mla:
+        if ctx.decode_impl == "flash" and _mesh_of(ctx) is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: MLA decodes over its whole latent rows; "
+                "decode_impl='flash' over rows cut over a mesh is not "
+                "ported (no cell of the JAX package's decodes MLA so)")
         mixed, _ = attn.mla_decode(p["mix"], cfg, h,
                                    (cache["lat_c"], cache["lat_r"]), pos)
     elif ctx.decode_impl == "flash" and _mesh_of(ctx) is not None:
@@ -830,12 +823,15 @@ def loss_fn(params: Pytree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     stats summed over the model axis only), and the mean divides by the
     token count summed over ``ctx.batch_axes``, so that the sum of the
     ranks' gradients over those axes is the gradient of the global mean.
-    MLA, the recurrent and the context families refuse a mesh."""
+    MLA, the recurrent and the context families refuse a mesh here
+    (:func:`refuse_mesh_training`)."""
     tokens = batch["tokens"]
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     labels_safe = torch.clamp(labels, min=0)
     S = tokens.shape[1]
+    if _mesh_of(ctx) is not None:
+        refuse_mesh_training(cfg)
     with _mesh_scope(cfg, ctx):
         meshed = shd.current_rules() is not None
         fctx = dataclasses.replace(ctx, batch_axes=()) if meshed else ctx

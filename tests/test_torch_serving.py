@@ -170,14 +170,16 @@ def test_entry_points_refuse_what_is_not_ported(weights):
     # outside one the 'model' axis is unbound
     with pytest.raises(ValueError, match="mesh axis 'model'"):
         build_engine(ServeConfig(model_parallel=2), device="cpu")
-    # the dense and MoE families serve and train under a mesh; MLA, the
-    # recurrent and the context families are a later slice
+    # every family serves under a mesh (tests/test_torch_tp.py,
+    # tests/test_torch_tp_families.py); training MLA, the recurrent and the
+    # context families under one is the next slice
     from repro_torch.configs import get_config
-    from repro_torch.models import RunCtx, forward
+    from repro_torch.models import RunCtx, loss_fn
     for arch in ("deepseek-v2-236b", "xlstm-1.3b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            forward({}, get_config(arch, smoke=True),
-                    torch.zeros((1, 4), dtype=torch.int32),
+        with pytest.raises(NotImplementedError, match="next slice"):
+            loss_fn({}, get_config(arch, smoke=True),
+                    {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+                     "labels": torch.zeros((1, 4), dtype=torch.int32)},
                     ctx=RunCtx(mesh={"model": 2}))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

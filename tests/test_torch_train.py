@@ -123,11 +123,12 @@ def test_ce_chunk_and_remat_variants_equal_the_plain_form(arch):
             assert float((g - w).abs().max()) <= \
                 1e-6 * max(float(w.abs().max()), 1e-30), ctx
     # under a mesh the dense family trains (tests/test_torch_tp_train.py);
-    # MLA, the recurrent and the context families still refuse one
+    # MLA, the recurrent and the context families still refuse to train
+    # on one (they serve on one)
     for other in ("deepseek-v2-236b", "xlstm-1.3b", "whisper-small"):
         ocfg = dataclasses.replace(get_config(other, smoke=True),
                                    dtype=torch.float32)
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(NotImplementedError, match="next slice"):
             loss_fn({}, ocfg, {k: torch.from_numpy(v) for k, v in
                                batch.items()}, RunCtx(mesh=object()))
 

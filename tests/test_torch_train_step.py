@@ -200,11 +200,12 @@ def test_two_microbatches_equal_one():
 def test_train_step_refuses_the_mesh_tier():
     """The mesh tier trains the dense and MoE families
     (tests/test_torch_tp_train.py); MLA, the recurrent and the context
-    families refuse a mesh, and model_parallel > 1 needs one."""
+    families refuse to train on a mesh (they serve on one: the next slice
+    trains them), and model_parallel > 1 needs one."""
     _, tcfg = _cfgs()
     for arch in ("deepseek-v2-236b", "jamba-v0.1-52b",
                  "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(NotImplementedError, match="next slice"):
             make_train_step(get_config(arch, smoke=True), mesh=object())
     with pytest.raises(ValueError, match="pass mesh="):
         make_train_step(tcfg, model_parallel=2)
