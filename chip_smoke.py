@@ -223,7 +223,7 @@ Phases, each of which must pass or the script exits non-zero:
    ``ring_attention_shardmap`` at B 1, S 8192, 16 x 128 against
    ``flash_attention`` on one rank (each within 2e-2 of the largest output,
    timed beside the one-rank call, collectives counted); (b)
-   qwen2-moe-a2.7b at full width and ``--tp-layers`` (8 of its 24)
+   qwen2-moe-a2.7b at full width and ``--tp-layers`` (4 of its 24)
    through ``build_engine`` at model_parallel 4 with phase 3's traffic,
    after the one-rank engine served the same traffic and was freed: on
    every rank ``flash_attention`` == layers x prefill calls and
@@ -251,14 +251,14 @@ Phases, each of which must pass or the script exits non-zero:
    one ``lossy="int8"`` and one ``"topk:0.01"`` step; qwen3's state saved
    at (2, 2) and restored onto (1, 4) and onto no mesh, every leaf
    bit-equal to the saved one; (b) qwen3-0.6b at full width and depth
-   (8 of 28 layers) at mesh (data 2, model 2): 8 x 1024 Zipf tokens a step, 2
+   (4 of 28 layers) at mesh (data 2, model 2): 8 x 1024 Zipf tokens a step, 2
    microbatches a rank, remat, the vocab-cut cross-entropy in chunks of
    256, 5 steps, a checkpoint, a resume onto (1, 4) for 2 steps (each
    restored block bit-equal to the saved leaf), after one rank's first
    step (run first and freed): the first loss within 1e-3 and grad_norm
    within 1e-2 relative of one rank's (one rank's step in one microbatch
    printed beside them), every loss finite and equal on every rank,
-   ``flash_attention`` 8 x 2 x 2 and its backward 8 x 2 launches a step
+   ``flash_attention`` 4 x 2 x 2 and its backward 4 x 2 launches a step
    on every rank; step ms, tokens/s, the gradient
    sync alone, collective calls and wire bytes a step per axis, peak
    memory a rank.  ``--train-mesh-only`` runs phases 1 and 18 alone.
@@ -290,6 +290,38 @@ Phases, each of which must pass or the script exits non-zero:
    one rank's; tokens/s, TTFT, step ms, collectives and wire bytes a step
    per axis, peak memory a rank and the bf16 logits' drift from one rank
    printed.  ``--tp-families-only`` runs phases 1 and 19 alone.
+20. the mesh tier's train half for MLA, the recurrent and the context
+   families (gloo, 4 ranks on cuda:0): first ``flash_attention`` and its
+   backward at the shapes this phase gives a rank, against their plain
+   versions (the tolerances of phase 2 and of t1 / t5: 16-bit gradients
+   within 2e-2 of each one's max, f32 within 1e-4), each backward in the
+   design it expects (s1 MLA at d 192 / dv 128 on 32 heads, B 4 x S 1024,
+   ``mma_sync`` with v padded; s2-s4 whisper-small's encoder (S 1500),
+   cross-attention (Sq 448 / Sk 1500) and decoder (S 448, causal) on 6 /
+   6 x 64, B 2, ``wgmma``; s5-s8 one f32 smoke shape per family with
+   attention, CUDA cores); then one rank's first step of each (b) model,
+   each freed; then one world: (a) the five f32 smoke models
+   (deepseek-v2-236b with every routed pair kept, xlstm-1.3b,
+   jamba-v0.1-52b, whisper-small, llama-3.2-vision-90b with gates at 0.5)
+   train 3 steps of 2 microbatches on one rank and through
+   ``make_train_step(mesh=)`` at mesh (2, 2) and (1, 4), each mesh step
+   from one rank's state before it, cut to the mesh's blocks: loss and
+   grad_norm within 5e-3 of one rank's, losses equal on every rank, leaves replicated over 'model'
+   bit-equal on its ranks, the launches a step derived from the layers;
+   one ``lossy="int8"`` step of xlstm; xlstm's and deepseek's (2, 2)
+   states saved and restored onto (1, 4), every block bit-equal; (b) at
+   full width from the seed: deepseek-v2-236b's dense prelude layer
+   (num_layers 60 -> 1: MLA at 128 heads, FFN 12288, vocabulary 102400)
+   at mesh (1, 4), 8 x 1024 Zipf tokens, and whisper-small whole at mesh
+   (2, 2), 8 x 448 tokens over 8 x 1500 x 768 frames, 2 microbatches,
+   remat, 5 steps each after one rank's first step: the first loss within
+   1e-3 and grad_norm within 1e-2 of one rank's, every loss finite and
+   equal on every rank, ``flash_attention`` and its backward launched 2 x
+   (encoder + 2 x decoder attention calls) and 2 x (encoder + decoder) a
+   step on every rank (deepseek 4 / 2, whisper 120 / 72); step ms,
+   tokens/s, the gradient sync alone, collectives and wire bytes a step
+   per axis, peak memory a rank.  ``--train-families-only`` runs phases 1
+   and 20 alone.
 
 The last lines are the card, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  The exit code
@@ -3549,8 +3581,9 @@ def mla_sdpa(q, k, v, causal, mask=None, pad=None):
 
 def run_mla_flash_case(case, gen, dev) -> dict:
     """Phase 15(a): ``flash_attention`` at dv != d against its plain
-    version with phase 2's tolerances and 16-bit controls (the p-rounded
-    control on the first ``CONTROL_HEADS`` heads), one launch per call
+    version with phase 2's tolerances and, for 16-bit inputs, its controls
+    (the p-rounded control on the first ``CONTROL_HEADS`` heads; phase
+    20's float32 smoke case takes none), one launch per call
     (the wrapper's count, and one CUDA kernel where the profiler records
     the call); timed beside its bound, its plain version and SDPA at dv !=
     d (the backend it took printed)."""
@@ -3578,15 +3611,17 @@ def run_mla_flash_case(case, gen, dev) -> dict:
     err = max_err(got, ref)
     atol = FLASH_ATOL[dtype]
     h = min(H, CONTROL_HEADS)
-    controls = {"differ_share": differ_share(got, ref),
-                "p_rounded_share": differ_share(
-                    plain_p_rounded(q[:, :h], k[:, :h], v[:, :h], True, off),
-                    ref[:, :h])}
     cuda_count = cuda_launches(kernel)
     ok = err <= atol and launches == 1 and cuda_count in (1, None) and \
-        got.shape == (B, H, Sq, dv) and \
-        controls["differ_share"] <= FLASH_DIFFER_SHARE < \
-        controls["p_rounded_share"]
+        got.shape == (B, H, Sq, dv)
+    controls = {}
+    if dtype != torch.float32:     # 16-bit: the checks must fail p rounded
+        controls = {"differ_share": differ_share(got, ref),
+                    "p_rounded_share": differ_share(
+                        plain_p_rounded(q[:, :h], k[:, :h], v[:, :h], True,
+                                        off), ref[:, :h])}
+        ok &= controls["differ_share"] <= FLASH_DIFFER_SHARE < \
+            controls["p_rounded_share"]
     iters = 5 if Sk >= 1024 else 50
     ms = cuda_ms(kernel, iters)
     device_ms = graph_ms(kernel)
@@ -4401,10 +4436,11 @@ def mesh_phase(args, dev) -> dict:
 TP_WORLD = 4
 TP_SMOKE_ARCHS = ("qwen3-0.6b", MOE_ARCH)
 # 17(b): qwen2-moe-a2.7b's depth served at model_parallel 4 (24: the whole
-# model); a smaller --tp-layers is printed as a cut.  The default is 8 (the
-# whole model until phase 19 needed the script's time, PERF.md section 4)
+# model); a smaller --tp-layers is printed as a cut.  The default is 4 (the
+# whole model until phase 19 needed the script's time, 8 until phase 20
+# did: PERF.md section 4)
 TP_FULL_LAYERS = 24
-TP_LAYERS = 8
+TP_LAYERS = 4
 # 17(c): flash decoding over qwen3-0.6b's attention and a 32768-row cache;
 # ring attention at B 1, S 8192, 16 heads x 128
 TP_DECODE_ROWS, TP_DECODE_SLOTS, TP_DECODE_POS = 32768, 8, 20000
@@ -5023,8 +5059,9 @@ TRAIN_MESH_SMOKE = (("qwen3-0.6b", "replicated"), (MOE_ARCH, "replicated"),
                     (MOE_ARCH, "a2a"))
 TRAIN_MESH_SMOKE_OPT = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=100)
 # 18(b): qwen3-0.6b's depth trained at mesh (2, 2) (28, the whole model,
-# until phase 19 needed the script's time: PERF.md section 4)
-TRAIN_MESH_LAYERS = 8
+# until phase 19 needed the script's time, 8 until phase 20 did: PERF.md
+# section 4)
+TRAIN_MESH_LAYERS = 4
 TRAIN_MESH_STEPS, TRAIN_MESH_RESUMED = 5, 2
 TRAIN_MESH_CE_CHUNK = 256
 # the first step's loss and grad_norm against one rank's, relative: the
@@ -6257,6 +6294,512 @@ def tp_families_phase(args, gen, dev) -> None:
               flush=True)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 20: the mesh tier's train half for MLA, the recurrent and the
+# context families
+# ---------------------------------------------------------------------------
+
+TF_WORLD = 4
+# flash_attention and its backward at the shapes this phase gives a rank:
+# s1 deepseek-v2's MLA in 20(b) (8 rows of 1024 in 2 microbatches at mesh
+# (1, 4): 4 rows, 32 of the 128 heads), s2-s4 whisper-small's encoder,
+# cross-attention and decoder in 20(b) (8 rows in 2 microbatches at mesh
+# (2, 2): 2 rows, 6 of the 12 heads), s5-s8 the f32 smoke models of 20(a)
+# at mesh (2, 2) (4 rows of 64 in 2 microbatches: 1 row, half the heads;
+# whisper's 24 encoder frames, the vision model's 12 image tokens)
+TF_MLA_CASES = [     # run_mla_flash_case's tuple
+    ("s1: deepseek-v2 20(b) a rank at model 4 B4 S1024 H32/KV32 d192 dv128 "
+     "bf16 causal", 4, 32, 32, 1024, 1024, 192, 128, torch.bfloat16, None),
+    ("s5: deepseek-v2 smoke 20(a) a rank at model 2 B1 S64 H2/KV2 d24 dv16 "
+     "f32 causal", 1, 2, 2, 64, 64, 24, 16, torch.float32, None),
+]
+TF_FLASH_CASES = [   # run_flash_case's tuple
+    ("s2: whisper-small encoder 20(b) a rank at model 2 B2 S1500 H6/KV6 d64 "
+     "bf16 non-causal", 2, 6, 6, 1500, 1500, 64, torch.bfloat16, False),
+    ("s3: whisper-small cross-attention 20(b) a rank at model 2 B2 Sq448 "
+     "Sk1500 H6/KV6 d64 bf16 non-causal", 2, 6, 6, 448, 1500, 64,
+     torch.bfloat16, False),
+    ("s4: whisper-small decoder 20(b) a rank at model 2 B2 S448 H6/KV6 d64 "
+     "bf16 causal", 2, 6, 6, 448, 448, 64, torch.bfloat16, True),
+    ("s6: jamba smoke 20(a) a rank at model 2 B1 S64 H2/KV1 d16 f32 causal",
+     1, 2, 1, 64, 64, 16, torch.float32, True),
+    ("s7: whisper smoke cross-attention 20(a) a rank at model 2 B1 Sq64 "
+     "Sk24 H2/KV2 d16 f32 non-causal", 1, 2, 2, 64, 24, 16, torch.float32,
+     False),
+    ("s8: llama-3.2-vision smoke cross-attention 20(a) a rank at model 2 B1 "
+     "Sq64 Sk12 H2/KV1 d16 f32 non-causal", 1, 2, 1, 64, 12, 16,
+     torch.float32, False),
+]
+# run_flash_bwd_case's tuples, each in the design it expects: MLA's d 192
+# is no wgmma head dim (v, o and dO padded to 192, mma_sync), whisper's
+# 16-bit d 64 takes wgmma, float32 the CUDA cores
+TF_BWD_CASES = [c[:7] + (c[8], True, None,
+                         "mma_sync" if c[8] == torch.bfloat16 else
+                         "cuda_cores", c[7]) for c in TF_MLA_CASES] + \
+    [c + (None, "wgmma" if c[7] == torch.bfloat16 else "cuda_cores")
+     for c in TF_FLASH_CASES]
+# 20(a): the five f32 smoke models, 3 steps of 2 microbatches of 4 rows of
+# 64 tokens at mesh (2, 2) and (1, 4) against one rank; an expert capacity
+# of every routed pair at model 4, so no pair is dropped
+TF_SMOKE = (DEEPSEEK, XLSTM, JAMBA, WHISPER, VISION)
+TF_SMOKE_STEPS, TF_MICRO = 3, 2
+TF_SAVED = (XLSTM, DEEPSEEK)      # saved at (2, 2), restored onto (1, 4)
+TF_SMOKE_RTOL = 5e-3              # 18(a)'s limit against one rank
+# 20(b): full width from --seed, 8 rows a step in 2 microbatches: deepseek
+# at its dense prelude layer (MLA at 128 heads, a dense FFN of 12288, the
+# untied 102400 vocabulary; its MoE layers do not fit one card's training
+# state) on mesh (1, 4), whisper-small whole on (2, 2) (448 tokens, the
+# published text context, over 1500 frames)
+TF_FULL = {DEEPSEEK: dict(layers=1, mesh=(1, 4), seq=1024, ce_chunk=256),
+           WHISPER: dict(layers=None, mesh=(2, 2), seq=448, ce_chunk=0)}
+TF_BATCH, TF_STEPS, TF_WARM = 8, 5, 2   # the median after the first 2
+
+
+def _tf_smoke_config(arch: str):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, smoke=True)
+    return dataclasses.replace(cfg, dtype=torch.float32, **(
+        {"moe_capacity_factor": float(TF_WORLD)} if cfg.num_experts
+        else {}))
+
+
+def _tf_full_config(arch: str):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    layers = TF_FULL[arch]["layers"]
+    return cfg if layers is None else dataclasses.replace(
+        cfg, num_layers=layers)
+
+
+def _tf_corpus(cfg, seq: int, batch: int, seed: int, dev, context_dtype):
+    """The seeded Zipf corpus, with a context arch's stub frames or
+    patches (``context_spec``'s rows) drawn beside the tokens."""
+    from repro_torch.configs import context_spec
+    from repro_torch.data import DataConfig, SyntheticCorpus
+
+    spec = context_spec(cfg, batch)
+    return SyntheticCorpus(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                   global_batch=batch, seed=seed),
+        context_shape=None if spec is None else tuple(spec.shape[1:]),
+        context_dtype=context_dtype, device=dev)
+
+
+def _tf_launches(cfg, micro: int) -> tuple:
+    """(flash_attention, flash_attention_bwd) launches one train step
+    makes: each microbatch runs the encoder's layers once (outside remat)
+    and every decoder attention call twice (the forward and remat's
+    recompute: self-attention, MLA, a cross-attending layer's
+    cross-attention, an ``xattn`` layer), and each backward once."""
+    dec = sum(cfg.block_type(i) in ("attn", "local", "xattn")
+              for i in range(cfg.num_layers))
+    if cfg.decoder_cross_attn:
+        dec += sum(cfg.block_type(i) in ("attn", "local")
+                   for i in range(cfg.num_layers))
+    return (micro * (cfg.encoder_layers + 2 * dec),
+            micro * (cfg.encoder_layers + dec))
+
+
+def _tf_batches(cfg, seed: int, dev) -> list:
+    corpus = _tf_corpus(cfg, 64, 4, seed, dev, torch.float32)
+    out = []
+    for i in range(TF_SMOKE_STEPS):
+        b = corpus(i)
+        b.pop("valid_mask", None)
+        out.append(b)
+    return out
+
+
+def _tf_restore(cfg, built, pl, ol, meshes, opt, ckpt_dir) -> dict:
+    """Save this rank's (2, 2) blocks, restore onto (1, 4): every restored
+    block against the saved leaf (gathered at (2, 2)) cut to it."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.steps import make_train_step
+
+    store = CheckpointStore(ckpt_dir)
+    store.save(TF_SMOKE_STEPS, (pl, ol), shardings=built.in_shardings[:2],
+               mesh=meshes[2])
+    b14 = make_train_step(cfg, meshes[4], opt=opt,
+                          num_microbatches=TF_MICRO)
+    _, (p14, o14) = store.restore((pl, ol), shardings=b14.in_shardings[:2],
+                                  mesh=meshes[4])
+    same = []
+
+    def check(blk22, blk14, s22, s14):
+        whole = shd.gather_leaf(blk22, s22, meshes[2])
+        same.append(torch.equal(shd.block_of(whole, s14, meshes[4]), blk14))
+    for t22, t14 in ((pl, p14),) + tuple((ol[k], o14[k]) for k in
+                                         ("m", "v", "master")):
+        shd._walk(check, t22, t14, built.in_shardings[0],
+                  b14.in_shardings[0])
+    same.append(torch.equal(ol["step"].cpu(), o14["step"].cpu()))
+    return dict(equal=all(same), leaves=len(same))
+
+
+def _tf_smoke(meshes: dict, seed: int, dev, ckpt_dir: str) -> dict:
+    """20(a) on this rank: each smoke model (f32, gates at 0.5) trains
+    ``TF_SMOKE_STEPS`` steps on one rank (this rank alone, no mesh), the
+    float32 masters as the parameters, and at mesh (2, 2) and (1, 4) each
+    step from the same state, one rank's cut to the mesh's blocks: chained
+    on their own, one rank's and the mesh's runs part in the recurrent
+    models, whose f32 sums in other orders meet Adam's update g / (|g| +
+    eps) on gradients near eps (xlstm's grad_norm 1.3e-2 apart by step 3,
+    PR 33's call 2); xlstm one ``lossy="int8"`` step at (2, 2); xlstm's
+    and deepseek's (2, 2) states after the last step saved and restored
+    onto (1, 4)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    opt = OptConfig(**TRAIN_MESH_SMOKE_OPT)
+    rows, restores = [], {}
+    for arch in TF_SMOKE:
+        cfg = _tf_smoke_config(arch)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed), device=dev)
+        _tpf_gates(params)
+        batches = _tf_batches(cfg, seed, dev)
+        for mp, lossy in [(2, None), (4, None)] + (
+                [(2, "int8")] if arch == XLSTM else []):
+            mesh = meshes[mp]
+            kw = dict(opt=opt, num_microbatches=TF_MICRO, lossy=lossy)
+            one, built = make_train_step(cfg, **kw), \
+                make_train_step(cfg, mesh, **kw)
+            state = init_opt_state(params, with_ef=lossy is not None)
+            rels, launches, losses = [], [], []
+            for b in batches[:1 if lossy else TF_SMOKE_STEPS]:
+                _, ol, _ = built.local(state["master"], state, {})
+                _, state, m1 = one(state["master"], state, dict(b))
+                lb = _local_batch(built, dict(b), mesh)
+                flash_attention.launches = flash_attention_bwd.launches = 0
+                pl, ol, ml = built.fn(ol["master"], ol, lb)
+                torch.cuda.synchronize()
+                launches.append((flash_attention.launches,
+                                 flash_attention_bwd.launches))
+                losses.append(float(ml["loss"]))
+                rels += [_rel(float(ml[k]), float(m1[k]))
+                         for k in ("loss", "grad_norm")]
+            del state
+            rows.append(dict(
+                arch=arch, mp=mp, lossy=lossy, losses=losses,
+                worst=max(rels) if all(map(math.isfinite, rels)) else math.nan,
+                launches=launches, replicated_equal=_replicated_equal(
+                    ol["master"], built.in_shardings[0], mesh)))
+            if mp == 2 and lossy is None and arch in TF_SAVED:
+                restores[arch] = _tf_restore(cfg, built, pl, ol, meshes, opt,
+                                             os.path.join(ckpt_dir, arch))
+    return dict(rows=rows, restores=restores)
+
+
+def _tf_full(arch: str, seed: int, dev) -> dict:
+    """20(b) on this rank: ``arch`` at full width (``TF_FULL``) on its
+    mesh, the weights drawn from the seed one rank at a time keeping this
+    rank's blocks (:func:`_in_turns`), ``TF_STEPS`` steps of ``TF_BATCH``
+    rows through ``make_train_step(mesh=)``; each step's wall ms, metrics,
+    kernel launches and collectives, then the gradient sync alone on a
+    gradient-shaped tree of this rank's blocks."""
+    from repro_torch import dist
+    from repro_torch.configs import ShapeCell
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.collectives import grad_sync
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import RunCtx, init_params, num_params
+    from repro_torch.optim import init_opt_state
+
+    spec, cfg = TF_FULL[arch], _tf_full_config(arch)
+    mesh = make_mesh(spec["mesh"], ("data", "model"), device=dev)
+    built = make_train_step(
+        cfg, mesh, shape=ShapeCell("t", "train", spec["seq"], TF_BATCH),
+        num_microbatches=TF_MICRO,
+        ctx=RunCtx(remat="full", ce_chunk=spec["ce_chunk"]))
+    t0 = time.perf_counter()
+    params = _in_turns(lambda: init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+        shard=lambda tree, axes: shd.shard_params(tree, axes, mesh,
+                                                  built.rules)))
+    opt_state = init_opt_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    corpus = _tf_corpus(cfg, spec["seq"], TF_BATCH, seed, dev, cfg.dtype)
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TF_STEPS):
+        lb = _local_batch(built, corpus(i), mesh)
+        dist.reset_counts()
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = built.fn(params, opt_state, lb)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"]),
+                          flash=flash_attention.launches,
+                          bwd=flash_attention_bwd.launches,
+                          design=flash_attention_bwd.last_design,
+                          counts=dist.counts()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sync_ms = None
+    if built.ctx.batch_axes:
+        zeros = pytree.tree_map(torch.zeros_like, params)
+        sync_ms = _median_ms(lambda: grad_sync(zeros, mesh,
+                                               built.ctx.batch_axes))
+        del zeros
+    out = dict(steps=steps, init_s=init_s, sync_ms=sync_ms, peak_gib=peak,
+               params_local=num_params(params))
+    del params, opt_state
+    return out
+
+
+def _tf_rank(rank, world, store_path, seed, ckpt_dir, device="cuda:0"):
+    """Phase 20 on ``world`` gloo ranks sharing one card: (a), then (b)'s
+    two models, each freed before the next."""
+    import gc
+
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("gloo", rank, world, _store(store_path, world),
+                     device=dev)
+    t0 = time.perf_counter()
+    meshes = {mp: make_mesh((world // mp, mp), ("data", "model"),
+                            device=dev) for mp in (2, 4)}
+    out = {"smoke": _tf_smoke(meshes, seed, dev, ckpt_dir)}
+    out["smoke_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["smoke_s"] = time.perf_counter() - t0
+    for arch in TF_FULL:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[arch] = _tf_full(arch, seed, dev)
+        out[arch]["part_s"] = time.perf_counter() - t0
+    return out
+
+
+def _tf_reference(arch: str, seed: int, dev) -> dict:
+    """(b)'s yardstick on one rank in this process: the same weights,
+    first batch and step (2 microbatches, remat), then freed."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import RunCtx, init_params, num_params
+    from repro_torch.optim import init_opt_state
+
+    spec, cfg = TF_FULL[arch], _tf_full_config(arch)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    step = make_train_step(cfg, num_microbatches=TF_MICRO, ctx=RunCtx(
+        remat="full", ce_chunk=spec["ce_chunk"]))
+    batch = _tf_corpus(cfg, spec["seq"], TF_BATCH, seed, dev, cfg.dtype)(0)
+    batch.pop("valid_mask", None)
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, m = step(params, init_opt_state(params), batch)
+    torch.cuda.synchronize()
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                ms=(time.perf_counter() - t0) * 1e3, params=num_params(params),
+                flash=flash_attention.launches,
+                bwd=flash_attention_bwd.launches,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _tf_check_smoke(ranks) -> None:
+    for rank, res in enumerate(ranks):
+        for row in res["smoke"]["rows"]:
+            cfg = _tf_smoke_config(row["arch"])
+            want = _tf_launches(cfg, TF_MICRO)
+            what = (f"rank {rank} {row['arch']} smoke f32 mesh "
+                    f"({TF_WORLD // row['mp']}, {row['mp']})"
+                    + (f" lossy={row['lossy']}" if row["lossy"] else ""))
+            bad = []
+            if not row["worst"] <= TF_SMOKE_RTOL:
+                bad.append(f"loss / grad_norm {row['worst']} from one "
+                           "rank's")
+            if not row["replicated_equal"]:
+                bad.append("a replicated leaf differs across model ranks")
+            if any(tuple(l) != want for l in row["launches"]):
+                bad.append(f"flash_attention / bwd launches "
+                           f"{row['launches']} a step (expected {want})")
+            mine = next(r for r in ranks[0]["smoke"]["rows"] if
+                        (r["arch"], r["mp"], r["lossy"]) ==
+                        (row["arch"], row["mp"], row["lossy"]))
+            if row["losses"] != mine["losses"] or \
+                    not all(map(math.isfinite, row["losses"])):
+                bad.append(f"losses {row['losses']} (rank 0 "
+                           f"{mine['losses']})")
+            if bad:
+                raise RuntimeError(f"train families (a) {what}: "
+                                   f"{'; '.join(bad)}")
+            if rank == 0:
+                print(f"  {what}: worst relative difference of loss / "
+                      f"grad_norm from one rank {row['worst']:.3g} (<= "
+                      f"{TF_SMOKE_RTOL}) over {len(row['losses'])} step(s); "
+                      f"losses {row['losses']} equal on every rank; "
+                      f"replicated leaves equal across model ranks; "
+                      f"flash_attention / bwd launches a step "
+                      f"{row['launches'][0]} (== {want})", flush=True)
+        for arch, rs in res["smoke"]["restores"].items():
+            if not rs["equal"]:
+                raise RuntimeError(f"train families (a) rank {rank} {arch}: "
+                                   "a block restored onto (1, 4) differs "
+                                   "from the (2, 2) save")
+    leaves = {a: r["leaves"] for a, r in
+              ranks[0]["smoke"]["restores"].items()}
+    print(f"  {' and '.join(TF_SAVED)} smoke states saved at (2, 2), "
+          f"restored onto (1, 4): {leaves} blocks bit-equal on every rank; "
+          f"peak memory a rank "
+          f"{[r['smoke_peak_gib'] for r in ranks]} GiB", flush=True)
+
+
+def _tf_check_full(arch: str, ref: dict, ranks) -> None:
+    from repro_torch.configs import get_config
+
+    cfg, spec = _tf_full_config(arch), TF_FULL[arch]
+    want = _tf_launches(cfg, TF_MICRO)
+    r0 = ranks[0][arch]
+    for rank, res in enumerate(ranks):
+        got, bad = res[arch], []
+        for i, s in enumerate(got["steps"]):
+            if (s["flash"], s["bwd"]) != want:
+                bad.append(f"step {i + 1}: flash_attention / bwd launches "
+                           f"{s['flash']} / {s['bwd']} (expected {want})")
+            if not math.isfinite(s["loss"]):
+                bad.append(f"step {i + 1}: loss {s['loss']}")
+        if [s["loss"] for s in got["steps"]] != \
+                [s["loss"] for s in r0["steps"]]:
+            bad.append("its losses differ from rank 0's")
+        if bad:
+            raise RuntimeError(f"train families (b) {arch} rank {rank}: "
+                               f"{'; '.join(bad)}")
+    first = {k: r0["steps"][0][k] for k in ("loss", "grad_norm")}
+    rel = {k: _rel(first[k], ref[k]) for k in first}
+    if not all(rel[k] <= TRAIN_MESH_FIRST_RTOL[k] for k in rel):
+        raise RuntimeError(f"train families (b) {arch}: the first step's "
+                           f"{first} is not within {TRAIN_MESH_FIRST_RTOL} "
+                           f"of one rank's {ref}")
+    ms = [s["ms"] for s in r0["steps"]]
+    med = float(np.median(ms[TF_WARM:]))
+    tokens = TF_BATCH * spec["seq"]
+    full = get_config(arch)
+    reduced = "nothing cut" if cfg.num_layers == full.num_layers else \
+        f"reduced: num_layers {full.num_layers} -> {cfg.num_layers}"
+    per_step = {ax: {k: c[k] for k in ("calls", "wire_bytes")}
+                for ax, c in r0["steps"][-1]["counts"].items()}
+    sync = [r[arch]["sync_ms"] for r in ranks]
+    if all(s is None for s in sync):
+        sync = "none (no batch axis of size > 1)"
+    print(f"train families (b) {arch} mesh {spec['mesh']} ({reduced}): "
+          f"params={ref['params']} params_a_rank="
+          f"{[r[arch]['params_local'] for r in ranks]} init_s="
+          f"{[r[arch]['init_s'] for r in ranks]} part_s={r0['part_s']} "
+          f"losses={[s['loss'] for s in r0['steps']]} grad_norms="
+          f"{[s['grad_norm'] for s in r0['steps']]}", flush=True)
+    print(f"  first step {first} against one rank's {ref['loss']} / "
+          f"{ref['grad_norm']}: relative {rel} (<= {TRAIN_MESH_FIRST_RTOL});"
+          f" flash_attention / bwd launches a step on every rank {want} "
+          f"({TF_MICRO} microbatches x (encoder {cfg.encoder_layers} + 2 x "
+          f"{(want[0] // TF_MICRO - cfg.encoder_layers) // 2} decoder "
+          f"attention calls: forward and remat) / x (encoder + decoder)), "
+          f"the backward's design {r0['steps'][-1]['design']}; one rank "
+          f"{ref['flash']} / {ref['bwd']}", flush=True)
+    print(f"  step_ms={ms} median (steps {TF_WARM + 1}-{TF_STEPS}) {med} ms, "
+          f"{tokens / med * 1e3} tokens/s ({TF_BATCH} x {spec['seq']} a step "
+          f"over the world); one rank's cold first step {ref['ms']} ms "
+          f"(peak {ref['peak_gib']} GiB); grad_sync alone "
+          f"{sync} ms; collectives a step (the last, rank 0) {per_step}; peak "
+          f"memory a rank {[r[arch]['peak_gib'] for r in ranks]} GiB "
+          f"(gloo on one card: no speed claim)", flush=True)
+
+
+def train_families_phase(args, gen, dev) -> None:
+    """Phase 20: the mesh tier's train half for MLA, the recurrent and the
+    context families.  Cases s1-s8 (``flash_attention`` and its backward
+    at the shapes (a) and (b) give a rank, against their plain versions,
+    each backward in the design it expects); one rank's first step of
+    each (b) model in this process (then freed); then ONE world of 4 gloo
+    ranks on one card (NCCL refuses two ranks on one card): (a) the five
+    f32 smoke models at mesh (2, 2) and (1, 4), each step against one
+    rank's from the same state, an int8 step, two saves restored onto
+    another mesh; (b) deepseek-v2-236b's
+    dense prelude layer on (1, 4) and whisper-small whole on (2, 2) at
+    full width.  The wires are host loopback: no time here is a speed
+    claim."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_world
+
+    rows = []
+    for case in TF_MLA_CASES:
+        row = run_mla_flash_case(case, gen, dev)
+        print_row("flash_attention", row)
+        print(f"  launches={row['launches']} cuda_launches="
+              f"{row['cuda_launches']} device_ms={row['device_ms']} (graph "
+              f"replay) SDPA: library_device_ms={row['library_device_ms']} "
+              f"backend={row['library_backend']} flops={row['flops']} "
+              f"bytes={row['bound_bytes']}"
+              + "".join(f" {k}={v}" for k, v in row["controls"].items()),
+              flush=True)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    rows += path_flash_cases(TF_FLASH_CASES, "a rank's training shapes "
+                             "(phase 20)", gen, dev)
+    for case in TF_BWD_CASES:
+        row = run_flash_bwd_case(case, gen, dev)
+        rows.append(row)
+        print_row("flash_attention_bwd", row)
+        print(f"  design={row['design']} (expected "
+              f"{row['expected_design']}) launches per call="
+              f"{row['launches']} rel_errs(dq, dk, dv)={row['rel_errs']} "
+              f"fwd_bwd_ms={row['fwd_bwd_ms']} library_fwd_bwd_ms="
+              f"{row['library_fwd_bwd_ms']}", flush=True)
+        torch.cuda.empty_cache()
+    bad = [r["name"] for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"flash_attention / its backward at a rank's "
+                           f"training shapes (phase 20): {bad}")
+
+    refs = {}
+    for arch in TF_FULL:
+        t0 = time.perf_counter()
+        refs[arch] = _tf_reference(arch, args.seed, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"train families (b) one rank: {arch} first step "
+              f"{ {k: refs[arch][k] for k in ('loss', 'grad_norm')} } "
+              f"params={refs[arch]['params']} flash_attention / bwd "
+              f"launches {refs[arch]['flash']} / {refs[arch]['bwd']} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    os.makedirs(os.path.join(_HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_families_", dir=os.path.join(
+        _HERE, "build"))
+    try:
+        t0 = time.perf_counter()
+        ranks = run_world(_tf_rank, TF_WORLD, args=(args.seed, root),
+                          timeout_s=900)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"train families: gloo world of {TF_WORLD} on one card; spawn + "
+          f"run {time.perf_counter() - t0:.1f}s ((a) "
+          f"{ranks[0]['smoke_s']:.1f}s)", flush=True)
+    _tf_check_smoke(ranks)
+    for arch in TF_FULL:
+        _tf_check_full(arch, refs[arch], ranks)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -6288,6 +6831,10 @@ def main(argv=None) -> int:
                     help="run phases 1 and 19 (MLA, the recurrent and the "
                          "context families across ranks) only and print no "
                          "record")
+    ap.add_argument("--train-families-only", action="store_true",
+                    help="run phases 1 and 20 (training MLA, the recurrent "
+                         "and the context families across ranks) only and "
+                         "print no record")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6363,6 +6910,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         tp_families_phase(args, gen, dev)
         print(f"phase 19 took {time.perf_counter() - t0:.1f}s", flush=True)
+        print(f"card: {card}")
+        return 0
+    if args.train_families_only:
+        t0 = time.perf_counter()
+        train_families_phase(args, gen, dev)
+        print(f"phase 20 took {time.perf_counter() - t0:.1f}s", flush=True)
         print(f"card: {card}")
         return 0
     rows = []
@@ -6522,6 +7075,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     tp_families_phase(args, gen, dev)
     print(f"phase 19 took {time.perf_counter() - t0:.1f}s", flush=True)
+    # phase 20: training MLA, the recurrent and the context families
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_families_phase(args, gen, dev)
+    print(f"phase 20 took {time.perf_counter() - t0:.1f}s", flush=True)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda",

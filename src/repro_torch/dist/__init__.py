@@ -45,7 +45,9 @@ a value replicated over the axis has the same cotangent on every rank.  So
 would count it P times), and ``all_to_all`` runs the inverse
 ``all_to_all``.  :func:`enter` marks a replicated value entering a cut
 computation: the identity forward, the ``psum`` of the rank's partial
-cotangents backward.  Each captures the bound mesh in its forward and
+cotangents backward.  :func:`take_block` cuts this rank's block out of a
+replicated value: its backward gathers the blocks' cotangents, the
+transpose of a slice.  Each captures the bound mesh in its forward and
 rebinds it in the backward, which autograd may run on a thread of its own
 that sees no scope.
 """
@@ -390,6 +392,38 @@ class _AllToAll(torch.autograd.Function):
             return _all_to_all(g.contiguous(), ctx.axis), None
 
 
+class _TakeBlock(torch.autograd.Function):
+    """This rank's block of a replicated value; backward: every rank's
+    block of the cotangent, gathered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis, ctx.mesh = dim, axis, _bound(axis_names(axis)[0])
+        return _block(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            whole = _all_gather(g.movedim(ctx.dim, 0).contiguous(), ctx.axis,
+                                True)
+        return whole.movedim(0, ctx.dim), None, None
+
+
+def _block(x, dim, axis):
+    n = x.shape[dim] // axis_size(axis)
+    return x.narrow(dim, axis_index(axis) * n, n).contiguous()
+
+
+def take_block(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """This rank's block (``axis_index``-th of ``axis_size`` equal blocks)
+    of ``x`` along ``dim``, ``x`` replicated over the bound axis.
+    Differentiable under grad: the backward gathers every rank's block of
+    the cotangent, so ``x``'s cotangent is whole on every rank."""
+    if _needs_grad(x):
+        return _TakeBlock.apply(x, dim, axis)
+    return _block(x, dim, axis)
+
+
 def enter(x: Pytree, axis):
     """``x`` (replicated over a bound axis) as the input of a computation
     cut over it: the identity forward; the backward sums the ranks'
@@ -516,5 +550,5 @@ __all__ = [
     "axis_names", "axis_size", "counts", "current_mesh", "enter", "group",
     "local_block", "maybe_mesh", "mesh_axis_sizes", "pmax", "pmin",
     "ppermute", "psum",
-    "psum_scatter", "reset_counts", "use_mesh",
+    "psum_scatter", "reset_counts", "take_block", "use_mesh",
 ]

@@ -453,21 +453,22 @@ def local_shape(names: Sequence[Optional[str]],
                                        shape=tuple(shape)), mesh)
 
 
-def reblock(x: torch.Tensor, dim: int, size: int, have: Tuple[str, ...],
+def reblock(x: torch.Tensor, dim: int, have: Tuple[str, ...],
             want: Tuple[str, ...]) -> torch.Tensor:
-    """``x``, this rank's block along ``dim`` of a ``size``-long dimension
-    cut over the mesh axes ``have`` (() when whole), as the block ``want``
-    gives this rank: ``x`` itself when the two agree, else gathered over
-    ``have`` and cut to ``want``'s block."""
+    """``x``, this rank's block along ``dim`` of a dimension cut over the
+    mesh axes ``have`` (() when whole), as the block ``want`` gives this
+    rank: ``x`` itself when the two agree, else gathered over
+    ``have`` and cut to ``want``'s block.  Differentiable, each step the
+    transpose of the other: the gather's backward keeps this rank's block
+    of the cotangent, the cut's gathers the blocks' cotangents."""
     have, want = tuple(have), tuple(want)
     if have == want:
         return x
-    from . import all_gather, axis_size
+    from . import all_gather, take_block
     if have:
         x = all_gather(x.movedim(dim, 0), have, tiled=True).movedim(0, dim)
     if want:
-        n = size // axis_size(want)
-        x = x.narrow(dim, block_start(want, size), n)
+        x = take_block(x, dim, want)
     return x
 
 

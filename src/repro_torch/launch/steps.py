@@ -26,7 +26,7 @@ from ..models import (ModelConfig, RunCtx, decode_step, forward, init_cache,
 from ..models.common import CACHE_AXES
 from ..models.convert import from_jax_layout, to_jax_layout
 from ..models.moe import _divisible_batch_axes
-from ..models.transformer import param_shapes, refuse_mesh_training
+from ..models.transformer import param_shapes
 from ..optim import OptConfig, adamw_update, opt_state_shapes
 from ..optim.compress import LossySpec
 
@@ -190,9 +190,10 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
     ``DeviceMesh`` it is a :class:`BuiltStep` whose ``fn`` each rank calls
     on its blocks (``local`` cuts global arguments): the parameters and the
     optimizer state cut by ``TRAIN_RULES`` (trimmed to the mesh), the batch
-    by :func:`batch_sharding`.  Each rank folds the gradients of its rows
-    over its microbatches, then ``grad_sync`` sums them over the batch
-    axes, once a step, and ``metrics_sync`` sums the Sum-monoid metrics, so
+    (a context arch's ``context`` too) by :func:`batch_sharding`; every
+    family trains so.  Each rank folds the gradients of its rows over its
+    microbatches, then ``grad_sync`` sums them over the batch axes, once a
+    step, and ``metrics_sync`` sums the Sum-monoid metrics, so
     ``loss``, ``grad_norm``, ``tokens`` and ``correct`` are the global
     values on every rank; the global norm psums the cut leaves' squares
     over ``model`` and counts a replicated leaf once.  ``lossy`` takes the
@@ -214,7 +215,6 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
                 "mesh: pass mesh= (launch.mesh.make_host_mesh(model=...) "
                 "in a bound world)")
         return _step_fn(cfg, opt, ctx or RunCtx(), num_microbatches, spec)
-    refuse_mesh_training(cfg)
     return _mesh_train_step(cfg, mesh, opt, ctx, num_microbatches, spec,
                             shape, rules)
 
@@ -295,8 +295,9 @@ def _mesh_train_step(cfg, mesh, opt, ctx, num_microbatches, spec, shape,
         bshard = data_shardings(cfg, mesh, rules, specs)
     else:
         specs = None
-        bshard = {k: batch_sharding(mesh, rules) for k in ("tokens",
-                                                           "labels")}
+        keys = ("tokens", "labels") + (
+            ("context",) if context_spec(cfg, 1) is not None else ())
+        bshard = {k: batch_sharding(mesh, rules) for k in keys}
     return BuiltStep(fn=train_step, abstract_args=(pshapes, oshapes, specs),
                      in_shardings=(pshard, oshard, bshard),
                      out_shardings=(pshard, oshard, replicated(mesh)),

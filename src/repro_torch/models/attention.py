@@ -280,7 +280,9 @@ def attention_bidir(p: Dict, cfg: ModelConfig,
     """Bidirectional (encoder) self-attention: no mask, no RoPE (whisper's
     encoder adds sinusoidal absolute positions to its features).  One
     non-causal ``flash_attention`` launch; the JAX package's takes
-    ``positions`` and ignores them."""
+    ``positions`` and ignores them.  Under a mesh x enters the rank's
+    heads as in :func:`attention`."""
+    p, x = _entered(p, cfg, x)
     q, k, v = _project_qkv(p, cfg, x, None)
     return _flash_out(p, cfg, q, k, v)
 
@@ -289,7 +291,9 @@ def cross_kv(p: Dict, cfg: ModelConfig, context: torch.Tensor):
     """Project a context (B, Sk, D) to (k, v), each (B, Sk, KV, hd), once:
     the decode cache keeps them for every step.  ``k_norm`` when the config
     has qk-norm; no RoPE.  The KV heads are the weights' (this rank's
-    under a mesh)."""
+    under a mesh): the context, replicated, enters them through
+    ``dist.enter`` under grad, as x enters :func:`attention`'s."""
+    p, context = _entered(p, cfg, context)
     B, Sk, D = context.shape
     KV, hd = p["wk"].shape[1], cfg.head_dim
     k = (context @ p["wk"].to(context.dtype).reshape(D, KV * hd)
@@ -318,8 +322,11 @@ def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
     Under a mesh the queries are this rank's heads and ``context_kv`` its
     KV heads (``cross_kv`` of its blocks); the output is summed over the
-    axes the heads are cut over, before the (replicated) gate.
+    axes the heads are cut over, before the (replicated) gate, whose
+    cotangent is then whole on every rank.  x and ``q_norm`` enter the
+    rank's heads through ``dist.enter`` under grad.
     """
+    p, x = _entered(p, cfg, x)
     B, S, D = x.shape
     H, hd = p["wq"].shape[1], cfg.head_dim
     q = (x @ p["wq"].to(x.dtype).reshape(D, H * hd)).reshape(B, S, H, hd)
@@ -529,12 +536,15 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _mla_q(p: Dict, cfg: ModelConfig, x: torch.Tensor,
            positions: torch.Tensor):
     """(q_nope (B, S, H, dn), q_rope (B, S, H, dr) rotated at
-    ``positions``)."""
+    ``positions``).  Under a mesh the heads are this rank's: the
+    replicated bottleneck ``cq`` (or x without one) enters them through
+    ``dist.enter``, after the replicated ``wq_a`` / ``q_a_norm``."""
+    hcut = _head_cuts(cfg)[0]
     if cfg.q_lora_rank > 0:
         cq = rms_norm(dense(x, p["wq_a"]), p["q_a_norm"], cfg.norm_eps)
-        q = _heads(cq, p["wq_b"])
+        q = _heads(dist.enter(cq, hcut), p["wq_b"])
     else:
-        q = _heads(x, p["wq"])
+        q = _heads(dist.enter(x, hcut), p["wq"])
     dn = cfg.qk_nope_dim
     return q[..., :dn], rotary_embed(q[..., dn:], positions, cfg.rope_theta)
 
@@ -577,7 +587,11 @@ def mla_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     Under a mesh the latent projections and the latent rows are whole on
     every rank (replicated) and the heads are this rank's (``wq_b`` /
     ``wq``, ``wk_b``, ``wv_b``, ``wo``): one launch on them, the output
-    summed over the axes they are cut over."""
+    summed over the axes they are cut over.  Under grad the latent ``c``
+    and the rotary key, replicated, enter the rank's heads through
+    ``dist.enter`` (each rank's heads give a partial cotangent), so the
+    replicated ``wkv_a`` / ``kv_a_norm`` get the same gradient on every
+    rank."""
     B, S, _ = x.shape
     derived = query_positions(B, S, q_offset, x.device)
     if positions is not None and not torch.equal(
@@ -604,6 +618,7 @@ def mla_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         c, k_rope = cc[:, :k_rows], rc[:, :k_rows]
         latent = (cc, rc)
     H = q_nope.shape[2]                  # this rank's heads under a mesh
+    c, k_rope = dist.enter((c, k_rope), _head_cuts(cfg)[0])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([_heads(c, p["wk_b"]),
                    k_rope[:, :, None].expand(-1, -1, H, -1)], dim=-1)

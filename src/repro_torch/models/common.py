@@ -173,11 +173,13 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     """RMSNorm: float32 for the variance reduction; the multiplies stay in
     x's dtype (as ``common.py:rms_norm`` with ``_F32_CHAINS = False``).
     With mesh ``axes``, x and gamma are this rank's block of a last
-    dimension cut over them: the sum of squares is summed over the axes."""
+    dimension cut over them: the sum of squares is summed over the axes,
+    and the (replicated) variance enters the blocks through ``dist.enter``,
+    so its cotangent is every block's."""
     sq = torch.square(x.to(torch.float32))
     if axes:
-        var = dist.psum(sq.sum(dim=-1, keepdim=True), axes) / (
-            x.shape[-1] * dist.axis_size(axes))
+        var = dist.enter(dist.psum(sq.sum(dim=-1, keepdim=True), axes),
+                         axes) / (x.shape[-1] * dist.axis_size(axes))
     else:
         var = torch.mean(sq, dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)

@@ -46,6 +46,15 @@ reshapes to (B, H, 4 hd)), so a contiguous cut of them is a cut by heads,
 which matches ``w_h``, ``b`` and the state; h is gathered over the axis
 before the FFN, whose ``embed`` rows are replicated, and the FFN's
 ``w_up`` / ``w_down`` are cut when the axis divides their width.
+
+Under grad (training on a mesh) every replicated value that enters a cut
+product goes through ``dist.enter``, whose backward sums the ranks'
+partial cotangents: x into ``w_in`` / ``w_up`` / ``w_x``, Mamba's summed
+B, C and dt input into the rank's channels, mLSTM's summed q, k, v and
+gates and its ``b_if`` into the state's heads, sLSTM's gathered h into a
+cut FFN.  ``dist.sharding.reblock`` transposes itself: where it gathers,
+its backward keeps this rank's block; where it cuts a replicated value,
+its backward gathers the blocks' cotangents.
 """
 from __future__ import annotations
 
@@ -177,7 +186,8 @@ def _mamba_scan_inputs(p: Dict, cfg: ModelConfig, xc: torch.Tensor):
     over."""
     N = cfg.d_state
     cut = _cut("mamba", "w_bcdt", (cfg.d_inner, 2 * N + _dt_rank(cfg)), 0)
-    bcdt = row_parallel(xc, p["w_bcdt"], cut)
+    # summed over the channels' ranks, then read by this rank's channels
+    bcdt = dist.enter(row_parallel(xc, p["w_bcdt"], cut), cut)
     Bm, Cm, dt_in = bcdt[..., :N], bcdt[..., N:2 * N], bcdt[..., 2 * N:]
     dt = F.softplus(dense(dt_in, p["w_dt"]).to(torch.float32)
                     + p["dt_bias"].to(torch.float32))    # (B, S, DI)
@@ -218,7 +228,8 @@ def mamba_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
 def _mamba_in(p: Dict, cfg: ModelConfig, x: torch.Tensor):
     """(x, the gate z), each (B, S, this rank's channels): ``w_in`` packs
     x's columns, then z's (cut by its halves under a mesh)."""
-    xz = dense(x, p["w_in"])
+    cut = _cut("mamba", "w_in", (cfg.d_model, 2 * cfg.d_inner), 1)
+    xz = dense(dist.enter(x, cut), p["w_in"])
     DI = xz.shape[-1] // 2
     return xz[..., :DI], xz[..., DI:]
 
@@ -293,27 +304,29 @@ def _mlstm_qkv(p: Dict, cfg: ModelConfig, xi: torch.Tensor):
     hd = DI // H
     names = ("wq", "wk", "wv", "w_if")
     cut = _cut("mlstm", "wq", (DI, H, hd), 0)
+    h0, n, hcut = _mlstm_heads(cfg)
     if cut:
         f32 = torch.float32
         part = torch.cat([torch.matmul(xi.to(f32), p[w].to(f32).reshape(
             p[w].shape[0], -1)) for w in names], dim=-1)
-        whole = dist.psum(part, cut).to(xi.dtype)
+        # every head's, read by this rank's heads
+        whole = dist.enter(dist.psum(part, cut), hcut).to(xi.dtype)
         q, k, v, g = torch.split(whole, [H * hd] * 3 + [2 * H], dim=-1)
         q, k, v = (t.unflatten(-1, (H, hd)) for t in (q, k, v))
     else:
-        q, k, v, g = (dense(xi, p[w]) for w in names)
-    gates = g + p["b_if"].to(xi.dtype)
-    h0, n, _ = _mlstm_heads(cfg)
+        q, k, v, g = dist.enter(tuple(dense(xi, p[w]) for w in names), hcut)
+    gates = g + dist.enter(p["b_if"], hcut).to(xi.dtype)
     q, k, v = (t[:, :, h0:h0 + n] for t in (q, k, v))
     logi = F.logsigmoid(gates[..., h0:h0 + n].to(torch.float32))
     logf = F.logsigmoid(gates[..., H + h0:H + h0 + n].to(torch.float32))
     return q, k / math.sqrt(hd), v, logi, logf
 
 
-def _mlstm_up(p: Dict, x: torch.Tensor):
+def _mlstm_up(p: Dict, cfg: ModelConfig, x: torch.Tensor):
     """(xi, the gate z), each (B, S, this rank's d_inner): ``w_up`` packs
     xi's columns, then z's (cut by its halves under a mesh)."""
-    up = dense(x, p["w_up"])
+    cut = _cut("mlstm", "w_up", (cfg.d_model, 2 * _mlstm_inner(cfg)), 1)
+    up = dense(dist.enter(x, cut), p["w_up"])
     DI = up.shape[-1] // 2
     return up[..., :DI], up[..., DI:]
 
@@ -327,7 +340,7 @@ def _mlstm_out(p: Dict, cfg: ModelConfig, h: torch.Tensor,
     DI = _mlstm_inner(cfg)
     _, _, hcut = _mlstm_heads(cfg)
     dcut = _cut("mlstm", "ln_g", (DI,), 0)
-    h = shd.reblock(h, -1, DI, hcut, dcut)
+    h = shd.reblock(h, -1, hcut, dcut)
     h = rms_norm(h, p["ln_g"], cfg.norm_eps, axes=dcut) * F.silu(z)
     return row_parallel(h, p["w_down"],
                         _cut("mlstm", "w_down", (DI, cfg.d_model), 0))
@@ -340,7 +353,7 @@ def mlstm_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     inside a chunk the masked decayed scores, across chunks the float32
     ``(C, n)`` carry read as ``exp(F_t) q_t . C``."""
     B, S, _ = x.shape
-    xi, z = _mlstm_up(p, x)
+    xi, z = _mlstm_up(p, cfg, x)
     q, k, v, logi, logf = _mlstm_qkv(p, cfg, xi)
     Hl, hd = q.shape[2], q.shape[3]
     cs = _chunk(S, chunk_size)
@@ -361,7 +374,9 @@ def mlstm_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
         n_inter = torch.einsum("bshk,bhk->bsh", qf, n)
         # intra-chunk: masked decayed scores (B, t, s, H)
         dec = Fc[:, :, None, :] - Fc[:, None, :, :] + li[:, None, :, :]
-        w = torch.where(keep, torch.exp(dec), 0.0)
+        # exp(-inf) = 0 above the diagonal: there dec grows with the decay
+        # and exp(dec) can overflow, whose 0 x inf would be a NaN gradient
+        w = torch.exp(dec.masked_fill(~keep, -math.inf))
         scores = torch.einsum("bthk,bshk->btsh", qi, ki) * w
         h = h_inter + torch.einsum("btsh,bshv->bthv", scores, vi)
         nq = n_inter + scores.sum(dim=2)
@@ -394,7 +409,7 @@ def mlstm_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     in place (two passes over ``C``, no temporary of its size), then the
     read ``q . C / max(|q . n|, 1)``."""
     B = x.shape[0]
-    xi, z = _mlstm_up(p, x)
+    xi, z = _mlstm_up(p, cfg, x)
     q, k, v, logi, logf = _mlstm_qkv(p, cfg, xi)         # (B, 1, Hl, hd)
     f = torch.exp(logf[:, 0])[..., None]                  # (B, Hl, 1)
     i = torch.exp(logi[:, 0])[..., None]
@@ -441,11 +456,11 @@ def _slstm_inputs(p: Dict, cfg: ModelConfig, x: torch.Tensor):
     D, H = cfg.d_model, cfg.num_heads
     hd = D // H
     _, hcut = _slstm_heads(cfg)
-    xg = shd.reblock(dense(x, p["w_x"]), -1, 4 * D,
-                     _cut("slstm", "w_x", (D, 4 * D), 1), hcut)
-    b = shd.reblock(p["b"], 0, 4 * D, _cut("slstm", "b", (4 * D,), 0), hcut)
-    w_h = shd.reblock(p["w_h"], 0, H,
-                      _cut("slstm", "w_h", (H, hd, 4 * hd), 0), hcut)
+    xcut = _cut("slstm", "w_x", (D, 4 * D), 1)
+    xg = shd.reblock(dense(dist.enter(x, xcut), p["w_x"]), -1, xcut, hcut)
+    b = shd.reblock(p["b"], 0, _cut("slstm", "b", (4 * D,), 0), hcut)
+    w_h = shd.reblock(p["w_h"], 0, _cut("slstm", "w_h", (H, hd, 4 * hd), 0),
+                      hcut)
     return xg, b, w_h
 
 
@@ -471,10 +486,11 @@ def _slstm_out(p: Dict, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
     D = cfg.d_model
     Fd = int(cfg.slstm_proj_factor * D)
     _, hcut = _slstm_heads(cfg)
-    y = shd.reblock(y, -1, D, hcut, ())
+    y = shd.reblock(y, -1, hcut, ())
     ucut = _cut("slstm", "w_up", (D, Fd), 1)
     dcut = _cut("slstm", "w_down", (Fd, D), 0)
-    u = shd.reblock(F.silu(dense(y, p["w_up"])), -1, Fd, ucut, dcut)
+    u = shd.reblock(F.silu(dense(dist.enter(y, ucut), p["w_up"])), -1, ucut,
+                    dcut)
     return row_parallel(u, p["w_down"], dcut)
 
 

@@ -58,9 +58,9 @@ kernel), and the cross-entropy folded chunk by chunk with ``ce_chunk``.
 ``init_cache``, ``prefill`` and ``decode_step`` stay no-grad.
 
 Under a mesh (``RunCtx(mesh=)``, or inside ``dist.sharding.use_rules``)
-the dense and MoE families run tensor and expert parallel with explicit
-per-rank shards, where the JAX package lets GSPMD place its
-``PartitionSpec``s: each rank holds its block of every parameter
+every family runs tensor and expert parallel with explicit per-rank
+shards, where the JAX package lets GSPMD place its ``PartitionSpec``s: each
+rank holds its block of every parameter
 (:func:`param_axes` names the dimensions; ``dist.sharding.shard_params``
 cuts them), the KV cache holds its KV heads, and the layers call the
 collectives themselves.  Under ``SERVE_RULES`` the ``heads``,
@@ -78,8 +78,11 @@ whose rows are cut over ``model`` (``attention.flash_decode_shardmap``).
 ``launch/steps.py``): the collectives are differentiable (``dist``), a
 replicated value entering a cut product goes through ``dist.enter`` (its
 cotangent summed over the axis), and the cross-entropy runs on the
-vocab-cut logits.  Training MLA, the recurrent and the context families
-under a mesh is refused (:func:`refuse_mesh_training`): the next slice.
+vocab-cut logits, or on the whole logits where the axis does not divide
+the vocabulary (whisper's 51865).  MLA's latent and rotary key, the
+encoder's output and a cross-attention's context are replicated and enter
+the rank's heads the same way; the recurrent blocks run on their packed
+halves and heads (:mod:`repro_torch.models.ssm`).
 """
 from __future__ import annotations
 
@@ -135,19 +138,6 @@ class RunCtx:
         if self.decode_impl not in ("dense", "flash"):
             raise ValueError(f"decode_impl must be 'dense' or 'flash'; got "
                              f"{self.decode_impl!r}")
-
-
-_MESH_FAMILIES = ("the mesh tier serves every family and trains the dense "
-                  "and MoE families; training MLA, the recurrent and the "
-                  "context-conditioned families under a mesh is the next "
-                  "slice of the port (ROADMAP §1)")
-
-
-def refuse_mesh_training(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for an arch whose training under a
-    mesh is not ported: MLA, recurrent and context-conditioned."""
-    if cfg.use_mla or recurrent(cfg) or context_conditioned(cfg):
-        raise NotImplementedError(f"{cfg.name}: {_MESH_FAMILIES}")
 
 
 def _mesh_of(ctx: RunCtx):
@@ -823,15 +813,12 @@ def loss_fn(params: Pytree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     stats summed over the model axis only), and the mean divides by the
     token count summed over ``ctx.batch_axes``, so that the sum of the
     ranks' gradients over those axes is the gradient of the global mean.
-    MLA, the recurrent and the context families refuse a mesh here
-    (:func:`refuse_mesh_training`)."""
+    A context arch's ``batch["context"]`` is this rank's rows of it."""
     tokens = batch["tokens"]
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     labels_safe = torch.clamp(labels, min=0)
     S = tokens.shape[1]
-    if _mesh_of(ctx) is not None:
-        refuse_mesh_training(cfg)
     with _mesh_scope(cfg, ctx):
         meshed = shd.current_rules() is not None
         fctx = dataclasses.replace(ctx, batch_axes=()) if meshed else ctx

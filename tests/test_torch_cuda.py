@@ -1,7 +1,8 @@
 """Tests that need the card: the CUDA kernels against their plain versions,
-and the serving (prefill and decode), stream-stats and MapReduce paths
-through them.  They import no JAX (the card's machine
-has none) and skip without a GPU; run them there with
+and the serving (prefill and decode), training (one rank and across gloo
+ranks sharing the card), stream-stats and MapReduce paths through them.
+They import no JAX (the card's machine has none) and skip without a GPU;
+run them there with
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -1348,3 +1349,85 @@ def test_cuda_mesh_train_step_matches_one_rank(cuda_device, tmp_path):
                          store_dir=str(tmp_path)):
         for k, (got, want) in res.items():
             assert abs(got - want) <= 1e-5 * abs(want), (k, got, want)
+
+
+def _mla_mesh_backward_rank(rank, world, store_path, device="cuda:0"):
+    """One rank of a (1, ``world``) gloo world: deepseek-v2's bf16 smoke
+    model cut to its dense prelude layer (MLA, the dense FFN) at model
+    ``world``, ``loss_fn``'s gradients on this rank's blocks through
+    ``flash_attention`` and its backward kernel, then through the plain
+    version differentiated by autograd, from the same blocks and batch."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import RunCtx, attention, init_params, loss_fn
+    from repro_torch.models.transformer import param_axes
+
+    dev = torch.device(device)
+    init_distributed("gloo", rank, world,
+                     torch.distributed.FileStore(store_path, world),
+                     device=dev if dev.type == "cuda" else None)
+    mesh = make_mesh((1, world), ("data", "model"), device=dev)
+    cfg = dc.replace(get_config("deepseek-v2-236b", smoke=True),
+                     num_layers=1)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    local = shd.shard_params(params, param_axes(cfg), mesh,
+                             shd.TRAIN_RULES)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+    def grads():
+        leaves, spec = pytree.tree_flatten(local)
+        req = [t.detach().requires_grad_() for t in leaves]
+        with shd.use_rules(mesh, shd.TRAIN_RULES):
+            loss, _ = loss_fn(pytree.tree_unflatten(req, spec), cfg, batch,
+                              RunCtx(mesh=mesh, remat="none"))
+            out = torch.autograd.grad(loss, req, allow_unused=True)
+        return float(loss.detach()), [torch.zeros_like(t) if g is None
+                                      else g for g, t in zip(out, req)]
+
+    b0 = flash_attention_bwd.launches
+    loss_k, got = grads()
+    launches = flash_attention_bwd.launches - b0
+    design = flash_attention_bwd.last_design
+    kernel = attention.flash_attention
+    attention.flash_attention = flash_attention_plain
+    try:
+        loss_p, want = grads()
+    finally:
+        attention.flash_attention = kernel
+    rel = [float((g.float() - w.float()).abs().max()) /
+           max(float(w.float().abs().max()), 1e-30)
+           for g, w in zip(got, want)]
+    return dict(loss=(loss_k, loss_p), rel=max(rel), launches=launches,
+                design=design, heads=local["layers"][0]["mix"]["wq_b"]
+                .shape[1], dtypes={str(g.dtype) for g in got})
+
+
+@pytest.mark.cuda
+def test_cuda_mla_loss_backward_at_model_4_matches_plain(cuda_device,
+                                                          tmp_path):
+    """MLA trained at model 4 on four gloo ranks sharing the card (one of
+    the smoke model's 4 heads a rank, at d 24 / dv 16 in bf16): the
+    gradients of ``loss_fn`` on each rank's blocks through the forward and
+    backward kernels (one backward launch, ``mma_sync`` with v padded) are
+    within 3e-2 of each leaf's max magnitude of the same gradients through
+    the plain version differentiated by autograd (the backward kernel
+    rounds P and dS to bf16 for its products: 2e-2 of each attention
+    gradient's max in phase 14, then the layer's products in bf16), and
+    the loss within 2e-3."""
+    from repro_torch.launch.mesh import run_world
+
+    for res in run_world(_mla_mesh_backward_rank, 4, timeout_s=300,
+                         store_dir=str(tmp_path)):
+        assert res["heads"] == 1 and res["dtypes"] == {"torch.bfloat16"}
+        assert res["launches"] == 1 and res["design"] == "mma_sync", res
+        got, want = res["loss"]
+        assert abs(got - want) <= 2e-3 * abs(want), res
+        assert res["rel"] <= 3e-2, res

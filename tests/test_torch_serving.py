@@ -170,17 +170,26 @@ def test_entry_points_refuse_what_is_not_ported(weights):
     # outside one the 'model' axis is unbound
     with pytest.raises(ValueError, match="mesh axis 'model'"):
         build_engine(ServeConfig(model_parallel=2), device="cpu")
-    # every family serves under a mesh (tests/test_torch_tp.py,
-    # tests/test_torch_tp_families.py); training MLA, the recurrent and the
-    # context families under one is the next slice
+    # every family serves and trains under a mesh (tests/test_torch_tp*.py):
+    # MLA, the recurrent and the context families are no longer refused,
+    # and training one on a mesh whose 'model' axis no world binds stops
+    # at its first collective, as build_engine does
     from repro_torch.configs import get_config
-    from repro_torch.models import RunCtx, loss_fn
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import RunCtx, init_params, loss_fn
+    from repro_torch.models.transformer import param_axes
+    mesh = {"model": 2}
     for arch in ("deepseek-v2-236b", "xlstm-1.3b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            loss_fn({}, get_config(arch, smoke=True),
+        cfg = get_config(arch, smoke=True)
+        params = shd.shard_params(
+            init_params(cfg, torch.Generator().manual_seed(0), device="cpu"),
+            param_axes(cfg), mesh, shd.TRAIN_RULES, coords={"model": 0})
+        with shd.use_rules(mesh, shd.TRAIN_RULES), \
+                pytest.raises(ValueError, match="mesh axis 'model'"):
+            loss_fn(params, cfg,
                     {"tokens": torch.zeros((1, 4), dtype=torch.int32),
                      "labels": torch.zeros((1, 4), dtype=torch.int32)},
-                    ctx=RunCtx(mesh={"model": 2}))
+                    ctx=RunCtx(mesh=mesh))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_engine(ServeConfig())

@@ -252,6 +252,40 @@ def test_mamba_decode_over_a_prompt_equals_mamba_mix():
                                rtol=0, atol=1e-4)
 
 
+def test_mlstm_mix_gradient_stays_finite_where_the_decay_overflows():
+    """With the forget gates far below zero (``b_if``'s forget half at
+    -100) exp of the in-chunk decay above the diagonal overflows float32;
+    ``mlstm_mix`` masks the exponent before the exp, so its gradient is
+    finite (the JAX package's ``where`` after the exp gives 0 x inf = NaN
+    there), its output is the JAX package's (f32, 1e-4), and its
+    gradients are those of chunks of one token, which mask nothing (each
+    leaf within 1e-4 of its max magnitude)."""
+    jcfg, tcfg, jmix, tmix = _block("mlstm")
+    H = tcfg.num_heads
+    tmix = dict(tmix, b_if=torch.cat([torch.zeros(H),
+                                      torch.full((H,), -100.0)]))
+    jmix = dict(jmix, b_if=jnp.asarray(tmix["b_if"].numpy()))
+    x = np.random.default_rng(6).normal(
+        size=(B, S, tcfg.d_model)).astype(np.float32)
+    want = jssm.mlstm_mix(jmix, jcfg, jnp.asarray(x))
+
+    def grads(chunk):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in tmix.items()}
+        xt = torch.from_numpy(x).requires_grad_()
+        out = ssm.mlstm_mix(leaves, tcfg, xt, chunk_size=chunk)
+        return out, torch.autograd.grad(out.square().sum(),
+                                        [xt, *leaves.values()])
+    out, got = grads(128)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-4)
+    _, ref = grads(1)
+    for g, w in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= \
+            1e-4 * max(float(w.abs().max()), 1e-30)
+
+
 # ---------------------------------------------------------------------------
 # forward, cache, decode
 # ---------------------------------------------------------------------------

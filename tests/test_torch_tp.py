@@ -227,7 +227,7 @@ np.savez(out_path, **out)
 # ---------------------------------------------------------------------------
 
 RANK_CODE = SHARED_CODE + r'''
-import dataclasses, os, resource, time
+import dataclasses, os, time
 import torch
 import torch.distributed as tdist
 torch.set_num_threads(1)
@@ -389,7 +389,11 @@ for case, name, over, trace in ENGINES:
                        model_config=cfgs[name], clock=clock)
     engines[case] = serve(eng, trace, clock)
 out["engines"] = engines
-out["maxrss_kb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+# this process's own peak since its exec (VmHWM): ru_maxrss would also
+# count the resident pages of the pytest worker it was forked from
+with open("/proc/self/status") as f:
+    out["maxrss_kb"] = next(int(line.split()[1]) for line in f
+                            if line.startswith("VmHWM:"))
 torch.save(out, path)
 tdist.destroy_process_group()
 '''

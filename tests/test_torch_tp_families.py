@@ -243,7 +243,7 @@ np.savez(out_path, **out)
 # ---------------------------------------------------------------------------
 
 RANK_CODE = SHARED_CODE + r'''
-import dataclasses, os, resource, time
+import dataclasses, os, time
 import torch
 import torch.distributed as tdist
 torch.set_num_threads(1)
@@ -384,7 +384,11 @@ for arch in ("deepseek-v2-236b", "xlstm-1.3b"):
     out[f"cli_{arch}"] = [[r.tokens for r in run_cli(
         ["--arch", arch] + argv + extra)["results"]]
         for extra in ([], ["--model-parallel", "2"])]
-out["maxrss_kb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+# this process's own peak since its exec (VmHWM): ru_maxrss would also
+# count the resident pages of the pytest worker it was forked from
+with open("/proc/self/status") as f:
+    out["maxrss_kb"] = next(int(line.split()[1]) for line in f
+                            if line.startswith("VmHWM:"))
 torch.save(out, path)
 tdist.destroy_process_group()
 '''
@@ -704,25 +708,76 @@ FAMILIES = ["deepseek-v2-236b", "xlstm-1.3b", "jamba-v0.1-52b",
             "whisper-small", "llama-3.2-vision-90b"]
 
 
+def _reference_train_specs(arch, mesh):
+    """The JAX package's spec of every parameter leaf of ``arch``'s smoke
+    config under ``TRAIN_RULES`` on a ``{axis: size}`` mesh (its
+    ``spec_for`` reads only the mesh's shape), in the port's per-layer
+    layout: a stacked leaf's spec without its leading ``layers`` entry."""
+    import types
+
+    import repro  # noqa: F401  (the JAX package's compat shims first)
+    from repro.configs import get_config as jax_get_config
+    from repro.dist import sharding as jshd
+    from repro.models import param_axes as jax_param_axes
+    from repro.models import param_shapes as jax_param_shapes
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import _plan
+
+    jm = types.SimpleNamespace(shape=dict(mesh))
+    rules = jshd.trim_rules(jshd.TRAIN_RULES, jm)
+    jcfg = jax_get_config(arch, smoke=True)
+
+    def specs(axes, shapes, stacked=False):
+        if isinstance(axes, dict):
+            return {k: specs(axes[k], shapes[k], stacked) for k in axes}
+        sp = tuple(jshd.spec_for(tuple(axes), rules, jm,
+                                 shape=tuple(shapes.shape)))
+        return (sp[1:] if sp else ()) if stacked else sp
+
+    axes, shapes = jax_param_axes(jcfg), jax_param_shapes(jcfg)
+    ref = {k: specs(axes[k], shapes[k], k == "layers") for k in axes}
+    pre, period, n_periods, n_rem = _plan(get_config(arch, smoke=True))
+    out = {k: v for k, v in ref.items() if k not in ("layers", "encoder")
+           and not k.startswith(("prelude_", "rem_"))}
+    out["layers"] = ([ref[f"prelude_{i}"] for i in range(pre)] +
+                     [ref["layers"][f"slot_{j}"] for _ in range(n_periods)
+                      for j in range(period)] +
+                     [ref[f"rem_{i}"] for i in range(n_rem)])
+    if "encoder" in ref:
+        enc = ref["encoder"]
+        out["encoder"] = {"layers": [enc[f"layer_{i}"] for i in
+                                     range(len(enc) - 1)],
+                          "final_norm": enc["final_norm"]}
+    return out
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
-def test_mesh_training_still_refused_for_the_families(arch):
-    """``make_train_step(mesh=)`` and ``loss_fn`` under a mesh raise for
-    MLA, the recurrent and the context families, naming the next slice."""
+def test_mesh_training_builds_for_the_families(arch):
+    """``make_train_step(mesh=)`` builds the step for MLA, the recurrent and
+    the context families (it refused them before): the parameters' and
+    the optimizer state's specs are the JAX package's ``make_train_step``
+    ``in_shardings`` (``TRAIN_RULES`` on mesh (2, 2)), the batch is cut
+    over 'data', a context arch's context with it.  The step itself is
+    held against the reference's on 4 ranks in
+    ``tests/test_torch_tp_train_families.py``."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import RunCtx, loss_fn
+    from repro_torch.launch.steps import BuiltStep, make_train_step
 
     cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtype=torch.float32)
     mesh = {"data": 2, "model": 2}
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_train_step(cfg, mesh)
-    batch = {"tokens": torch.ones((2, 4), dtype=torch.int32),
-             "labels": torch.ones((2, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="trains the dense and MoE"):
-        loss_fn({}, cfg, batch, RunCtx(mesh=mesh))
+    built = make_train_step(cfg, mesh)
+    assert isinstance(built, BuiltStep)
+    pshard, oshard, bshard = built.in_shardings
+    assert pshard == _reference_train_specs(arch, mesh)
+    assert all(oshard[k] == pshard for k in ("m", "v", "master"))
+    want = {"tokens", "labels"} | ({"context"} if cfg.family in
+                                   ("audio", "vlm") else set())
+    assert set(bshard) == want
+    assert all(spec == ("data",) for spec in bshard.values())
+    assert built.ctx.batch_axes == ("data",)
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

@@ -129,7 +129,7 @@ np.savez(out_path, **out)
 # ---------------------------------------------------------------------------
 
 RANK_CODE = SHARED_CODE + r'''
-import dataclasses, os, resource, shutil, threading, time
+import dataclasses, os, shutil, threading, time
 import torch
 import torch.distributed as tdist
 import torch.utils._pytree as pytree
@@ -301,7 +301,11 @@ out["restore_14"] = all(torch.equal(a, b) for a, b in zip(
 out["restore_one"] = all(torch.equal(a, b) for a, b in zip(
     pytree.tree_leaves(whole), pytree.tree_leaves(saved)))
 out["restore_14_cut"] = p14["layers"][0]["mix"]["wq"].shape[1]
-out["maxrss_kb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+# this process's own peak since its exec (VmHWM): ru_maxrss would also
+# count the resident pages of the pytest worker it was forked from
+with open("/proc/self/status") as f:
+    out["maxrss_kb"] = next(int(line.split()[1]) for line in f
+                            if line.startswith("VmHWM:"))
 torch.save(out, path)
 tdist.destroy_process_group()
 '''

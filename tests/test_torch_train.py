@@ -16,6 +16,7 @@ Sk, causal, non-causal, GQA; the reference's ``_causal_mask`` for the
 window); and grad mode: a no-grad ``forward`` builds no graph, ``prefill``
 and ``decode_step`` stay no-grad, the serve path is unchanged.
 """
+import contextlib
 import dataclasses
 import math
 
@@ -107,8 +108,22 @@ def test_loss_and_grads_match_jax(arch):
         assert float((g - w).abs().max()) <= 1e-4 * scale
 
 
+@contextlib.contextmanager
+def _one_rank_mesh(tmp_path):
+    """Mesh (1, 1) over ('data', 'model') in a 1-rank gloo world (its
+    ``FileStore`` under ``tmp_path``), destroyed on the way out."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    init_distributed("gloo", 0, 1, tdist.FileStore(str(tmp_path / "store"),
+                                                   1))
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cpu")
+    finally:
+        tdist.destroy_process_group()
+
+
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b"])
-def test_ce_chunk_and_remat_variants_equal_the_plain_form(arch):
+def test_ce_chunk_and_remat_variants_equal_the_plain_form(arch, tmp_path):
     _, tcfg, _, tp = _pair(arch)
     batch = _batch(dataclasses.replace(jax_get_config(arch, smoke=True)))
     base = _port_loss_and_grads(tcfg, tp, batch, RunCtx(remat="none"))
@@ -122,15 +137,28 @@ def test_ce_chunk_and_remat_variants_equal_the_plain_form(arch):
         for g, w in zip(grads, base[2]):
             assert float((g - w).abs().max()) <= \
                 1e-6 * max(float(w.abs().max()), 1e-30), ctx
-    # under a mesh the dense family trains (tests/test_torch_tp_train.py);
-    # MLA, the recurrent and the context families still refuse to train
-    # on one (they serve on one)
-    for other in ("deepseek-v2-236b", "xlstm-1.3b", "whisper-small"):
-        ocfg = dataclasses.replace(get_config(other, smoke=True),
-                                   dtype=torch.float32)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            loss_fn({}, ocfg, {k: torch.from_numpy(v) for k, v in
-                               batch.items()}, RunCtx(mesh=object()))
+    # under a mesh every family trains (tests/test_torch_tp_train.py,
+    # tests/test_torch_tp_train_families.py): on mesh (1, 1) MLA, the
+    # recurrent and the context families run their mesh forms (every leaf
+    # cut over axes of size 1: the collectives and dist.enter on one rank)
+    # and give the plain form's loss (rtol 1e-6) and gradients, each leaf
+    # within 1e-5 of its max magnitude: the mesh forms add in another order
+    # (mLSTM's packed product, the float32 partial sums; readings <= 1.5e-6)
+    from repro_torch.dist import sharding as shd
+    with _one_rank_mesh(tmp_path) as mesh:
+        for other in ("deepseek-v2-236b", "xlstm-1.3b", "whisper-small"):
+            ocfg, op = _pair(other)[1:4:2]
+            obatch = _batch(jax_get_config(other, smoke=True))
+            want = _port_loss_and_grads(ocfg, op, obatch, RunCtx())
+            with shd.use_rules(mesh, shd.TRAIN_RULES):
+                got = _port_loss_and_grads(ocfg, op, obatch,
+                                           RunCtx(mesh=mesh, ce_chunk=8))
+            np.testing.assert_allclose(got[0].item(), want[0].item(),
+                                       rtol=1e-6)
+            assert len(got[2]) == len(want[2])
+            for g, w in zip(got[2], want[2]):
+                assert float((g - w).abs().max()) <= \
+                    1e-5 * max(float(w.abs().max()), 1e-30), other
 
 
 def _qkv(B_, H, KV, S_, d, seed):

@@ -198,15 +198,18 @@ def test_two_microbatches_equal_one():
 
 
 def test_train_step_refuses_the_mesh_tier():
-    """The mesh tier trains the dense and MoE families
-    (tests/test_torch_tp_train.py); MLA, the recurrent and the context
-    families refuse to train on a mesh (they serve on one: the next slice
-    trains them), and model_parallel > 1 needs one."""
+    """The mesh tier trains every family (tests/test_torch_tp_train*.py):
+    ``make_train_step(mesh=)`` builds the step for MLA, the recurrent and
+    the context families too, on a {axis: size} mesh its specs (the
+    world's ranks call it); model_parallel > 1 without a mesh refuses."""
     _, tcfg = _cfgs()
-    for arch in ("deepseek-v2-236b", "jamba-v0.1-52b",
-                 "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            make_train_step(get_config(arch, smoke=True), mesh=object())
+    mesh = {"data": 1, "model": 2}
+    for arch, leaf in (("deepseek-v2-236b", ("mix", "wq_b")),
+                       ("jamba-v0.1-52b", ("mix", "w_in")),
+                       ("llama-3.2-vision-90b", ("mix", "wq"))):
+        built = make_train_step(get_config(arch, smoke=True), mesh=mesh)
+        pshard = built.in_shardings[0]["layers"][0]
+        assert pshard[leaf[0]][leaf[1]] == (None, "model"), arch
     with pytest.raises(ValueError, match="pass mesh="):
         make_train_step(tcfg, model_parallel=2)
     step = make_train_step(tcfg, num_microbatches=3)

@@ -100,15 +100,18 @@ def test_ragged_lossy_microbatched_run(tmp_path):
 
 def test_model_parallel_waits_for_the_mesh_tier():
     """model_parallel > 1 trains across the ranks of a world
-    (tests/test_torch_tp_train.py); outside one it refuses, and training
-    MLA under a mesh is the next slice."""
+    (tests/test_torch_tp_train*.py); outside one it refuses.  Every family
+    trains under a mesh: MLA's step is built with its heads cut over
+    'model'."""
     with pytest.raises(ValueError, match="ranks of a world"):
         train(_tc(model_parallel=2))
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_train_step
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_train_step(get_config("deepseek-v2-236b", smoke=True),
-                        mesh={"data": 1, "model": 2})
+    built = make_train_step(get_config("deepseek-v2-236b", smoke=True),
+                            mesh={"data": 1, "model": 2})
+    mix = built.in_shardings[0]["layers"][1]["mix"]
+    assert mix["wk_b"] == mix["wv_b"] == (None, "model")
+    assert mix["wkv_a"] == ()
 
 
 def test_cli_and_example_run_on_the_cpu(tmp_path, capsys):
